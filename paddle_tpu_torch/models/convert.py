@@ -1,0 +1,76 @@
+"""Move a reference Llama state dict into the port.
+
+The reference's `LlamaForCausalLM.state_dict()`, exported as numpy
+arrays, uses the same names as the port (`model.layers.0.self_attn.
+q_proj.weight`, ...) and the same (in, out) Linear layout, so conversion
+is a name/shape check and a copy. The rope tables are not parameters on
+either side: the port rebuilds them from the config.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .llama import LlamaConfig
+
+__all__ = ["expected_shapes", "from_jax_state_dict"]
+
+
+def expected_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """{parameter name: shape} of a port `LlamaForCausalLM` for `cfg`."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kvd = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
+    shapes = {"model.embed_tokens.weight": (v, h),
+              "model.norm.weight": (h,)}
+    per_layer = {
+        "input_layernorm.weight": (h,),
+        "self_attn.q_proj.weight": (h, h),
+        "self_attn.k_proj.weight": (h, kvd),
+        "self_attn.v_proj.weight": (h, kvd),
+        "self_attn.o_proj.weight": (h, h),
+        "post_attention_layernorm.weight": (h,),
+        "mlp.gate_proj.weight": (h, i),
+        "mlp.up_proj.weight": (h, i),
+        "mlp.down_proj.weight": (i, h),
+    }
+    if cfg.use_bias:
+        per_layer.update({
+            "self_attn.q_proj.bias": (h,), "self_attn.k_proj.bias": (kvd,),
+            "self_attn.v_proj.bias": (kvd,), "self_attn.o_proj.bias": (h,),
+            "mlp.gate_proj.bias": (i,), "mlp.up_proj.bias": (i,),
+            "mlp.down_proj.bias": (h,)})
+    for layer in range(cfg.num_hidden_layers):
+        for name, shape in per_layer.items():
+            shapes[f"model.layers.{layer}.{name}"] = shape
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head.weight"] = (h, v)
+    return shapes
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.array(a)                         # a writable, owned copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_jax_state_dict(np_state, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """{name: numpy array} from the reference -> the port's state dict
+    (CPU tensors, the arrays' dtypes), ready for
+    `LlamaForCausalLM.load_state_dict(..., strict=True)`. Raises
+    ValueError on a missing or unexpected name or a shape mismatch."""
+    want = expected_shapes(cfg)
+    missing = sorted(set(want) - set(np_state))
+    extra = sorted(set(np_state) - set(want))
+    if missing or extra:
+        raise ValueError(f"state dict does not fit the config: missing "
+                         f"{missing[:5]}, unexpected {extra[:5]}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(np_state[name])
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
+        out[name] = _to_tensor(arr)
+    return out

@@ -1,0 +1,316 @@
+"""Llama-family decoder LM, serving path (port of the paged forward
+passes of `paddle_tpu/models/llama.py`).
+
+Ported: the configs, the rope tables, interleaved-pair rotary, and the
+paged decode / chunked-prefill forward passes the serving engine runs,
+with tied or untied heads. The training forward, loss, generate() and
+the pipeline model are not ported yet.
+
+Parameters keep the reference's names and layouts (`Linear` weights are
+(in, out)), so `models/convert.py` moves a reference state dict across
+with no transpose. The constructor builds every weight directly on the
+target device (the card by default) from an explicit `torch.Generator`.
+
+Rounding note: the reference rotates q/k in fp32 and, for a bf16
+model, carries the fp32 result onward (bf16 * fp32 promotes). The port
+rotates in fp32 too but casts back to the model dtype, so a bf16 model
+runs bf16 activations end to end; at fp32 the two are the same.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..kernels.paged_attention import (paged_attention_decode,
+                                       paged_cache_write,
+                                       paged_cache_write_range)
+from ..nn import Embedding, Linear, RMSNorm
+from ..nn.functional import sdpa_ref, swiglu
+
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
+           "llama_3_8b", "apply_rotary", "apply_rotary_positions"]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    use_bias: bool = False
+    dtype: str = "float32"
+
+
+def llama_tiny(**kw):
+    cfg = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, max_position_embeddings=128)
+    cfg.update(kw)
+    return LlamaConfig(**cfg)
+
+
+def llama_3_8b(**kw):
+    cfg = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+               num_hidden_layers=32, num_attention_heads=32,
+               num_key_value_heads=8, max_position_embeddings=8192,
+               rope_theta=500000.0)
+    cfg.update(kw)
+    return LlamaConfig(**cfg)
+
+
+def _rope_cache(head_dim, max_pos, theta, device=None):
+    """fp32 (cos, sin) tables of shape (max_pos, head_dim/2)."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=device) / head_dim))
+    t = torch.arange(max_pos, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def _rotate(x, c, s):
+    """Rotate interleaved (even, odd) pairs of x's last axis by (c, s),
+    broadcast against the (..., D/2) pair view; math in fp32."""
+    xr = x.float().unflatten(-1, (-1, 2))
+    x1, x2 = xr[..., 0], xr[..., 1]
+    out = torch.stack([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.flatten(-2).to(x.dtype)
+
+
+def apply_rotary(x, cos, sin):
+    """x (B, S, H, D); cos/sin (S, D/2) — GPT-J/Llama interleaved pairs."""
+    return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def apply_rotary_positions(x, cos_b, sin_b):
+    """x (B, 1, H, D); cos_b/sin_b (B, D/2) at each row's own position."""
+    return _rotate(x, cos_b[:, None, None, :], sin_b[:, None, None, :])
+
+
+def _gather_kv(cache, bt, n_kv, hd, b):
+    """A block table's pages as the dense (b, S, KVH, D) view."""
+    g = cache[bt.long()]                      # (..., P, KVH, page, D)
+    g = g.transpose(bt.dim(), bt.dim() + 1)   # (..., P, page, KVH, D)
+    return g.reshape(b, -1, n_kv, hd)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.cfg = config
+        h = config.hidden_size
+        self.head_dim = h // config.num_attention_heads
+        self.n_heads = config.num_attention_heads
+        self.n_kv = config.num_key_value_heads
+        kw = dict(bias=config.use_bias, device=device, dtype=dtype,
+                  generator=generator)
+        self.q_proj = Linear(h, h, **kw)
+        self.k_proj = Linear(h, self.n_kv * self.head_dim, **kw)
+        self.v_proj = Linear(h, self.n_kv * self.head_dim, **kw)
+        self.o_proj = Linear(h, h, **kw)
+
+    def _qkv(self, x):
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, self.n_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
+        return q, k, v
+
+    def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
+        """One decode step over the paged KV cache. x (B, 1, hidden);
+        cos_b/sin_b (B, D/2) at each row's position; kv = (k_cache,
+        v_cache); seq_lens (B,) INCLUDING the token being decoded. Writes
+        the token's K/V at seq_lens-1, then attends through the
+        paged-decode kernel. Returns (out, kv)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        q = apply_rotary_positions(q, cos_b, sin_b)
+        k = apply_rotary_positions(k, cos_b, sin_b)
+        paged_cache_write(kv[0], kv[1], k[:, 0], v[:, 0], block_tables,
+                          seq_lens - 1)
+        out = paged_attention_decode(
+            q.reshape(b, self.n_heads, self.head_dim), kv[0], kv[1],
+            block_tables, seq_lens)
+        out = out.reshape(b, s, self.n_heads * self.head_dim)
+        return self.o_proj(out), kv
+
+    def forward_paged_prefill(self, x, cos_c, sin_c, kv, block_table,
+                              cache_len, chunk_len):
+        """One prompt CHUNK over the paged cache. x (1, S, hidden) holds
+        tokens at positions cache_len..cache_len+S-1, the first
+        chunk_len live; cos_c/sin_c (S, D/2) are the rope rows at those
+        positions; block_table (P,) the sequence's page ids. Writes the
+        chunk's K/V, then attends over the gathered pages (cached prefix
+        plus the chunk) under the mask kpos <= cache_len + i — the
+        bottom-right-aligned causal mask written out, never a top-left
+        `is_causal`. Returns (out, kv)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        q = apply_rotary(q, cos_c, sin_c)
+        k = apply_rotary(k, cos_c, sin_c)
+        paged_cache_write_range(kv[0], kv[1], k[0], v[0], block_table,
+                                chunk_len, cache_len)
+        kd = _gather_kv(kv[0], block_table, self.n_kv, self.head_dim, 1)
+        vd = _gather_kv(kv[1], block_table, self.n_kv, self.head_dim, 1)
+        if self.n_kv != self.n_heads:
+            rep = self.n_heads // self.n_kv
+            kd = kd.repeat_interleave(rep, dim=2)
+            vd = vd.repeat_interleave(rep, dim=2)
+        sk = kd.shape[1]
+        qpos = cache_len + torch.arange(s, device=x.device)
+        kpos = torch.arange(sk, device=x.device)
+        mask = (kpos[None, :] <= qpos[:, None])[None, None]
+        out = sdpa_ref(q, kd, vd, mask)
+        out = out.reshape(b, s, self.n_heads * self.head_dim)
+        return self.o_proj(out), kv
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        kw = dict(bias=config.use_bias, device=device, dtype=dtype,
+                  generator=generator)
+        self.gate_proj = Linear(h, i, **kw)
+        self.up_proj = Linear(h, i, **kw)
+        self.down_proj = Linear(i, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       epsilon=config.rms_norm_eps, **kw)
+        self.self_attn = LlamaAttention(config, generator=generator, **kw)
+        self.post_attention_layernorm = RMSNorm(
+            config.hidden_size, epsilon=config.rms_norm_eps, **kw)
+        self.mlp = LlamaMLP(config, generator=generator, **kw)
+
+    def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
+        attn, kv = self.self_attn.forward_paged(
+            self.input_layernorm(x), cos_b, sin_b, kv, block_tables,
+            seq_lens)
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, kv
+
+    def forward_paged_prefill(self, x, cos_c, sin_c, kv, block_table,
+                              cache_len, chunk_len):
+        attn, kv = self.self_attn.forward_paged_prefill(
+            self.input_layernorm(x), cos_c, sin_c, kv, block_table,
+            cache_len, chunk_len)
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, kv
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.cfg = config
+        kw = dict(device=device, dtype=dtype)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      generator=generator, **kw)
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(config, generator=generator, **kw)
+            for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
+                            **kw)
+        cos, sin = _rope_cache(
+            config.hidden_size // config.num_attention_heads,
+            config.max_position_embeddings, config.rope_theta, device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward_paged_decode(self, input_ids, paged_caches, block_tables,
+                             seq_lens):
+        """One batched decode step. input_ids (B, 1); paged_caches: per
+        layer (k_cache, v_cache); seq_lens counts the token being decoded
+        (its position is seq_lens-1; a pad row's 0 gathers rope row -1,
+        which wraps, exactly as in the reference — the row is
+        discarded). Returns (hidden (B, 1, H), paged_caches)."""
+        pos = seq_lens.long() - 1
+        cos_b, sin_b = self.rope_cos[pos], self.rope_sin[pos]
+        x = self.embed_tokens(input_ids)
+        for layer, kv in zip(self.layers, paged_caches):
+            x, _ = layer.forward_paged(x, cos_b, sin_b, kv, block_tables,
+                                       seq_lens)
+        return self.norm(x), paged_caches
+
+    def forward_paged_prefill(self, input_ids, paged_caches, block_table,
+                              cache_len, chunk_len):
+        """One prefill CHUNK. input_ids (1, S) at positions
+        cache_len..cache_len+S-1 (first chunk_len live); padded tail
+        positions past the rope table are clipped to its last row (they
+        are masked out of attention). Returns (hidden (1, S, H),
+        paged_caches)."""
+        s = input_ids.shape[1]
+        pos = cache_len + torch.arange(s, device=input_ids.device)
+        pos = pos.clamp(0, self.rope_cos.shape[0] - 1)
+        cos_c, sin_c = self.rope_cos[pos], self.rope_sin[pos]
+        x = self.embed_tokens(input_ids)
+        for layer, kv in zip(self.layers, paged_caches):
+            x, _ = layer.forward_paged_prefill(x, cos_c, sin_c, kv,
+                                               block_table, cache_len,
+                                               chunk_len)
+        return self.norm(x), paged_caches
+
+
+class LlamaForCausalLM(nn.Module):
+    """Causal LM over `LlamaModel`. Built on `device` (the card unless
+    told otherwise) in `dtype` (default: `config.dtype`), with initial
+    weights drawn from `generator` (default: seed 0 on that device)."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        if dtype is None:
+            dtype = getattr(torch, config.dtype)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.cfg = config
+        self.model = LlamaModel(config, device=device, dtype=dtype,
+                                generator=generator)
+        self.lm_head = (None if config.tie_word_embeddings else
+                        Linear(config.hidden_size, config.vocab_size,
+                               device=device, dtype=dtype,
+                               generator=generator))
+
+    def _head(self, h):
+        if self.lm_head is None:
+            return torch.matmul(h, self.model.embed_tokens.weight.t())
+        return self.lm_head(h)
+
+    def forward_paged_decode(self, input_ids, paged_caches, block_tables,
+                             seq_lens):
+        """Serving decode step: paged-KV transformer + LM head.
+        Returns (logits (B, 1, V), paged_caches)."""
+        h, caches = self.model.forward_paged_decode(
+            input_ids, paged_caches, block_tables, seq_lens)
+        return self._head(h), caches
+
+    def forward_paged_prefill(self, input_ids, paged_caches, block_table,
+                              cache_len, chunk_len):
+        """Serving prefill chunk: paged-KV transformer + LM head at the
+        chunk's LAST LIVE position only (the sole row serving consumes).
+        Returns (logits (1, 1, V), paged_caches)."""
+        h, caches = self.model.forward_paged_prefill(
+            input_ids, paged_caches, block_table, cache_len, chunk_len)
+        return self._head(h[:, chunk_len - 1:chunk_len]), caches

@@ -1,0 +1,22 @@
+"""RMSNorm layer (port of `RMSNorm` in `paddle_tpu/nn/layer/norm.py`)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..functional.norm import rms_norm
+
+__all__ = ["RMSNorm"]
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, hidden_size: int, epsilon: float = 1e-6, *,
+                 device=None, dtype=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(
+            torch.ones(hidden_size, device=device, dtype=dtype),
+            requires_grad=False)
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.epsilon)
