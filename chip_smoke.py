@@ -8,8 +8,9 @@ the kernels build for sm_90a):
 
 Phases, one JSON line each:
   1. device  — the card (`nvidia-smi` name and power limit), torch/CUDA.
-  2. build   — compiles every CUDA kernel of the serving path from the
-               repository's sources (one nvcc per source, in parallel).
+  2. build   — compiles every CUDA kernel of the serving and training
+               paths from the repository's sources (one nvcc per source,
+               in parallel).
   3. serve   — builds Llama-3-8B (`llama_3_8b`, all 32 layers, bf16)
                from seeded random weights on the card and serves 16
                greedy requests (prompts of 128-1024 tokens, 32-64 new
@@ -19,15 +20,39 @@ Phases, one JSON line each:
                max_new_tokens with finite logits, that the paged-decode
                kernel ran once per layer per decode launch, and that all
                pages return after reset_prefix_cache().
-  4. kernels — layer 0's caches, block tables and seq_lens captured from
-               a live decode batch of phase 3 (plus a seq_len-0 pad row
-               and a length ending mid-page) go through each kernel and
-               its plain PyTorch version, in bf16 (tolerance 2e-2: output
-               rounding, about 1 ulp at |x| <~ 2) and in fp32 on the
-               same data cast up (1e-4: summation order); then each is
-               timed with CUDA events (median of 30 launches, L2 flushed
-               before each) beside its plain version, a PyTorch library
-               call computing the same function, and its bound.
+  4. train   — the serving model is freed; Llama-3-8B at its published
+               widths with depth cut 32 -> 8 layers (bf16, seeded random
+               weights) trains on one seeded batch of 1 x 4096 tokens
+               with AdamW(3e-4, multi_precision, fused, bf16 moments):
+               2 warm-up steps (the second under torch.profiler, split by
+               kernel kind) and 4 timed ones. Checks every loss is
+               finite and the last below the first, and that each step
+               launched the flash forward, dQ and dK/dV kernels once per
+               layer and the AdamW kernel once per bucket. Reports step
+               ms, tokens/s, MFU (bench.py's FLOP reckoning over 989
+               TFLOP/s) and peak memory.
+  5. kernels — every kernel against its plain PyTorch version on the same
+               inputs, then timed with CUDA events (median of 30
+               launches, L2 flushed before each) beside its plain
+               version, a PyTorch library call computing the same
+               function, and its bound:
+               * paged decode: layer 0's caches, block tables and
+                 seq_lens captured from a live decode batch of phase 3
+                 (plus a seq_len-0 pad row and a length ending mid-page),
+                 bf16 (tolerance 2e-2: output rounding, about 1 ulp at
+                 |x| <~ 2) and fp32 on the same data cast up (1e-4:
+                 summation order);
+               * flash fwd / dQ / dK/dV: the training shape (B*H 32,
+                 S 4096, D 128, causal; seeded) and a small ragged one
+                 (S not a tile multiple, D 64, Sq != Sk); bf16 outputs
+                 within a relative error ||got - ref|| / ||ref|| of
+                 1e-2, fp32 outputs within 1e-4 of the reference's
+                 largest value, the fp32 lse within 1e-4 in both types
+                 (`flash_error`; chip_fault_check.py shows that a
+                 kernel with a planted fault fails these checks);
+               * fused AdamW: the train phase's own bucket (fp32 master,
+                 bf16 moments, ~2.8e9 elements) with a seeded bf16
+                 gradient, and fp32 state on a slice of it: bitwise.
 Then the `{"kernels": [...]}` line, the raw nvidia-smi line, and as the
 last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
@@ -37,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -46,11 +72,26 @@ import time
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# every CUDA kernel of the serving path: (name, source, TPU kernel it
-# replaces)
-KERNELS = [("paged_attention_decode",
-            "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "paddle_tpu/kernels/paged_attention.py:113")]
+# every CUDA kernel of the serving and training paths: (name, source,
+# TPU kernel it replaces)
+_CSRC = "paddle_tpu_torch/kernels/csrc/"
+KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
+            "paddle_tpu/kernels/paged_attention.py:113"),
+           ("flash_attention_fwd", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:179"),
+           ("flash_attention_dq", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:333"),
+           ("flash_attention_dkv", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:386"),
+           ("fused_adamw", _CSRC + "fused_adamw.cu",
+            "paddle_tpu/kernels/fused_optimizer.py:180")]
+SOURCES = sorted({src for _, src, _ in KERNELS})
+# the train phase: Llama-3-8B widths, depth cut to fit one card
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 4, 3e-4
+# flash kernel checks, causal (B*H, Sq, Sk, D): the training shape, and a
+# ragged one (S not a tile multiple, D below the instantiated width)
+FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128), (3, 72, 136, 64))
 
 
 def emit(obj) -> None:
@@ -88,22 +129,42 @@ def time_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile_summary(prof, wall_s: float, decode_only: bool, tokens: int):
-    """Device time of one profiled engine step: CUDA kernel events summed
-    (one stream, so they do not overlap) and the kernels that took the
-    most device time. The step's wall time under the profiler includes
-    the profiler's start-up, so it is reported but not divided by."""
+def kernel_kind(name: str) -> str:
+    n = name.lower()
+    if "flash_" in n:
+        return "flash"
+    if "adamw_kernel" in n:
+        return "adamw"
+    if "paged_decode" in n:
+        return "paged_decode"
+    if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
+                            "sm90_")):
+        return "gemm"
+    return "elementwise_and_other"
+
+
+def profile_summary(prof, wall_s: float, **fields):
+    """Device time of one profiled step: CUDA kernel events summed (one
+    stream, so they do not overlap), split by kernel kind, and the
+    kernels that took the most device time. The step's wall time under
+    the profiler includes the profiler's start-up, so it is reported but
+    not divided by."""
     from torch.autograd import DeviceType
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    device_ms = sum(t for t, _ in by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"decode_only": decode_only, "tokens": tokens,
-            "wall_ms_profiled": wall_s * 1e3, "device_ms": device_ms,
+    kinds = {}
+    for name, (t, n) in by_name.items():
+        kt, kn = kinds.get(kernel_kind(name), (0.0, 0))
+        kinds[kernel_kind(name)] = (kt + t, kn + n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {**fields, "wall_ms_profiled": wall_s * 1e3,
+            "device_ms": sum(t for t, _ in by_name.values()) / 1e3,
             "kernel_launches": sum(n for _, n in by_name.values()),
+            "by_kind": {k: {"ms": t / 1e3, "launches": n}
+                        for k, (t, n) in sorted(kinds.items())},
             "top_kernels": [{"name": k[:100], "ms": t / 1e3, "calls": n}
                             for k, (t, n) in top]}
 
@@ -165,8 +226,9 @@ def phase_serve(seed: int):
         decoded = eng.metrics.counters["decode_launches"] > before
         chunked = eng.metrics.counters["prefill_chunks"] > chunks_before
         if profile_this:
-            profiled = profile_summary(prof, dt, decoded and not chunked,
-                                       len(emitted))
+            profiled = profile_summary(
+                prof, dt, decode_only=decoded and not chunked,
+                tokens=len(emitted))
         elif decoded and not chunked:
             wall["decode_steps_s"] += dt
             decode_only_tokens += len(emitted)
@@ -327,6 +389,346 @@ def phase_kernels(capture, launches, seed: int, card: str):
              "bytes": nbytes, "flops": flops, "card": card}]
 
 
+def phase_train(seed: int):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_3_8b,
+                                               llama_step_flops)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_3_8b(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
+                     max_position_embeddings=8192)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=gen)
+    opt = AdamW(TRAIN_LR, parameters=model.parameters(),
+                multi_precision=True, fused=True, moment_dtype="bfloat16")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    counters = {"flash_attention_fwd": fa.flash_fwd,
+                "flash_attention_dq": fa.flash_dq,
+                "flash_attention_dkv": fa.flash_dkv,
+                "fused_adamw": fo.fused_adamw_bucket}
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():                # the main path starts
+        fn.launches = 0
+    losses, step_s, profiled = [], [], None
+    for step in range(TRAIN_WARMUP + TRAIN_TIMED):
+        prof_step = step == TRAIN_WARMUP - 1
+        ctx = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if prof_step else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with ctx as prof:
+            loss = model(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        losses.append(loss.item())
+        if prof_step:
+            profiled = profile_summary(prof, dt)
+        if step >= TRAIN_WARMUP:
+            step_s.append(dt)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    # the main path ended
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    buckets = len(opt._fused_buckets)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    want = {"flash_attention_fwd": cfg.num_hidden_layers * steps,
+            "flash_attention_dq": cfg.num_hidden_layers * steps,
+            "flash_attention_dkv": cfg.num_hidden_layers * steps,
+            "fused_adamw": buckets * steps}
+    if launches != want or buckets < 1:
+        raise AssertionError(f"kernel launches {launches} != {want}")
+    step_med = statistics.median(step_s)
+    flops, _, attn_flops = llama_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    emit({"phase": "train", "model": "llama_3_8b", "dtype": "bfloat16",
+          "reduced": {"num_hidden_layers": [32, cfg.num_hidden_layers]},
+          "layers": cfg.num_hidden_layers, "params": n_params,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "optimizer": {"name": "AdamW", "lr": TRAIN_LR,
+                        "multi_precision": True, "fused": True,
+                        "moment_dtype": "bfloat16", "buckets": buckets},
+          "weights_build_s": build_s, "losses": losses,
+          "timed_step_ms": [t * 1e3 for t in step_s],
+          "step_ms": step_med * 1e3,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_med,
+          "flops_per_step": flops, "attention_flops_per_step": attn_flops,
+          "mfu_vs_989tflops": flops / step_med / PEAK_FLOPS["bfloat16"],
+          "kernel_launches": launches, "profiled_step": profiled,
+          "max_memory_allocated": peak})
+    rec = next(iter(opt._fused_buckets.values()))
+    acc = opt._accumulators
+    bucket = {"master": acc["fused_master"][rec["uid"]],
+              "m": acc["fused_m"][rec["uid"]],
+              "v": acc["fused_v"][rec["uid"]], "step": opt._step_count}
+    return launches, bucket
+
+
+def _max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def flash_error(got, want, output: str, dtype: str):
+    """(error, limit) of one flash output against its plain version.
+    bf16 outputs: the relative error ||got - ref|| / ||ref||, limit 1e-2
+    (bf16 output rounding, and P / dS rounded to bf16 before their
+    products, give a few 1e-3; a bound on the largest element would pass
+    a kernel that drops a tile of every row's terms, since the largest
+    elements sit in the first rows, which see few keys). fp32 outputs:
+    the max abs error, limit 1e-4 of max(1, max |ref|) (summation
+    order). The lse is fp32 in both types: max abs error, limit 1e-4."""
+    import torch
+    d = got.float() - want.float()
+    if output == "lse":
+        return d.abs().max().item(), 1e-4
+    if dtype == "bfloat16":
+        return ((d.norm() / want.float().norm().clamp_min(1e-30)).item(),
+                1e-2)
+    return d.abs().max().item(), 1e-4 * max(1.0, want.float().abs().max()
+                                            .item())
+
+
+def check_flash_kernels(seed: int):
+    """The three flash kernels against their plain versions on seeded
+    inputs at FLASH_SHAPES, causal, in bf16 and fp32. Returns (errors,
+    failures): errors[output][case] holds the measured error (see
+    `flash_error`) and the max abs error; failures lists (output, case)
+    of every check that missed its limit or gave a non-finite value.
+    Launches here are not counted as the main path's."""
+    import math
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    errs, failures = {}, []
+    for bh, sq, sk, d in FLASH_SHAPES:
+        base = [torch.randn(bh, s_, d, generator=gen, device="cuda")
+                for s_ in (sq, sk, sk, sq)]
+        scale = 1.0 / math.sqrt(d)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).replace("torch.", "")
+            case = f"{name}_S{sq}x{sk}_D{d}"
+            q, k, v, do = (t.to(dt) for t in base)
+            out, lse = fa.flash_fwd(q, k, v, scale, True)
+            ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, scale, True)
+            delta = fa.flash_delta(ref_out, do)
+            args = (q, k, v, do, ref_lse, delta, scale, True)
+            dq = fa.flash_dq(*args)
+            dk, dv = fa.flash_dkv(*args)
+            torch.cuda.synchronize()
+            pairs = {"out": (out, ref_out), "lse": (lse, ref_lse),
+                     "dq": (dq, fa.flash_dq_ref(*args))}
+            pairs.update(zip(("dk", "dv"),
+                             zip((dk, dv), fa.flash_dkv_ref(*args))))
+            for output, (got, want) in pairs.items():
+                err, lim = flash_error(got, want, output, name)
+                errs.setdefault(output, {})[case] = {
+                    "err": err, "limit": lim,
+                    "max_abs": _max_err(got, want)}
+                if not (err <= lim and torch.isfinite(got).all()):
+                    failures.append((output, case))
+            del q, k, v, do, out, lse, ref_out, ref_lse, delta, args
+            del dq, dk, dv, pairs
+    return errs, failures
+
+
+def phase_flash_kernels(launches, seed: int, card: str):
+    """The three flash kernels at the training shape (and a small ragged
+    one) against their plain versions, then timed."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    BH, S, _, D = FLASH_SHAPES[0]                   # B 1 x H 32, causal
+    errs, failures = check_flash_kernels(seed)
+    emit({"phase": "kernel_check", "kernel": "flash_attention",
+          "errors": errs})
+    if failures:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions: {failures}")
+
+    # timing at the main path's dtype and shape
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    delta = fa.flash_delta(out, do)
+    args = (q, k, v, do, lse, delta, scale, True)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ms = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v, scale, True),
+                         flush_buf.zero_),
+          "dq": time_ms(lambda: fa.flash_dq(*args), flush_buf.zero_),
+          "dkv": time_ms(lambda: fa.flash_dkv(*args), flush_buf.zero_)}
+    plain = {"fwd": time_ms(lambda: fa.flash_fwd_ref(q, k, v, scale, True),
+                            flush_buf.zero_, reps=10, warmup=2),
+             "dq": time_ms(lambda: fa.flash_dq_ref(*args), flush_buf.zero_,
+                           reps=10, warmup=2),
+             "dkv": time_ms(lambda: fa.flash_dkv_ref(*args),
+                            flush_buf.zero_, reps=10, warmup=2)}
+    # library yardstick, never called by the port: SDPA (B 1, H 32) on the
+    # same tensors; its backward (dQ, dK, dV in one call) by subtraction
+    q4, k4, v4, do4 = (t.view(1, BH, S, D) for t in (q, k, v, do))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), flush_buf.zero_)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do4)
+    lib_bwd = time_ms(sdpa_fwd_bwd, flush_buf.zero_) - lib_fwd
+
+    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
+    e = q.element_size()
+    qkv_bytes = BH * S * D * e
+    stats_bytes = BH * S * 4
+    work = {"fwd": (4 * BH * D * pairs, 4 * qkv_bytes + stats_bytes),
+            "dq": (6 * BH * D * pairs, 5 * qkv_bytes + 2 * stats_bytes),
+            "dkv": (8 * BH * D * pairs, 6 * qkv_bytes + 2 * stats_bytes)}
+    outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+
+    def worst(kern, dtype, key):
+        return max(errs[o][f"{dtype}_S{S}x{S}_D{D}"][key]
+                   for o in outputs[kern])
+    rows = []
+    for kern, (name, source, replaces) in zip(("fwd", "dq", "dkv"),
+                                              KERNELS[1:4]):
+        flops, nbytes = work[kern]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        lse_err = ({"lse_max_abs_err": errs["lse"][f"bfloat16_S{S}x{S}_D{D}"]
+                    ["max_abs"]} if kern == "fwd" else {})
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": worst(kern, "bfloat16", "max_abs"),
+            "rel_err": worst(kern, "bfloat16", "err"), **lse_err,
+            "max_abs_err_fp32": worst(kern, "float32", "max_abs"),
+            "ms": ms[kern], "kernel_ms": ms[kern], "plain_ms": plain[kern],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": lib_fwd if kern == "fwd" else lib_bwd,
+            "library": ("torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True)" if kern == "fwd" else
+                        "scaled_dot_product_attention backward (dQ, dK, dV "
+                        "in one call): fwd+bwd minus fwd"),
+            "tflops_per_s": flops / ms[kern] / 1e9,
+            "shape": {"BH": BH, "Sq": S, "Sk": S, "D": D, "causal": True,
+                      "dtype": "bfloat16"},
+            "bytes": nbytes, "flops": flops, "card": card})
+    return rows
+
+
+def phase_adamw_kernel(launches, bucket, seed: int, card: str):
+    """The AdamW kernel on the train phase's own bucket (fp32 master,
+    bf16 moments) with a seeded bf16 gradient, bitwise against the plain
+    version chunk by chunk; fp32 state on a slice; then timed."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+
+    master, m, v = bucket["master"], bucket["m"], bucket["v"]
+    rows, n = master.shape[0], master.numel()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    g = torch.empty(rows, fo.LANES, dtype=torch.bfloat16, device="cuda")
+    chunk_rows = 2 ** 20                          # 2**27 elements
+    for r in range(0, rows, chunk_rows):
+        g[r:r + chunk_rows].normal_(0.0, 1e-3, generator=gen)
+    step = bucket["step"] + 1
+    sc = fo.adamw_scalars(TRAIN_LR, 0.9, 0.999, 1e-8, 0.01, step,
+                          device="cuda")
+    w0, m0, v0 = master.clone(), m.clone(), v.clone()
+    p_new, _, _, _ = fo.fused_adamw_bucket(g, master, m, v, sc,
+                                           torch.bfloat16)
+    torch.cuda.synchronize()
+    err = 0.0
+    for r in range(0, rows, chunk_rows):
+        sl = slice(r, r + chunk_rows)
+        want = fo.fused_adamw_bucket_ref(g[sl], w0[sl], m0[sl], v0[sl], sc,
+                                         torch.bfloat16)
+        for got, ref in zip((p_new[sl], master[sl], m[sl], v[sl]), want):
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"fused_adamw rows {r}+: not bitwise "
+                                     f"equal, max {_max_err(got, ref)}")
+            err = max(err, _max_err(got, ref))
+    del w0, m0, v0, want
+    # fp32 parameters and fp32 moments, on the first 2**27 elements
+    sl = slice(0, chunk_rows)
+    args32 = [t[sl].float() for t in (g, master, m, v)]
+    want = fo.fused_adamw_bucket_ref(*args32, sc)
+    got = fo.fused_adamw_bucket(*args32, sc)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"fused_adamw fp32: not bitwise equal, max "
+                                 f"{_max_err(a, b)}")
+    del args32, want, got
+    emit({"phase": "kernel_check", "kernel": "fused_adamw",
+          "elements": n, "bitwise_equal": {"bf16_params_fp32_master_"
+                                           "bf16_moments": True,
+                                           "fp32_state_2pow27_slice": True},
+          "max_abs_err": err})
+
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    kernel_ms = time_ms(lambda: fo.fused_adamw_bucket(
+        g, master, m, v, sc, torch.bfloat16), flush_buf.zero_, reps=10,
+        warmup=2)
+
+    # the plain version runs chunk by chunk: on the whole bucket at once
+    # its fp32 temporaries would need ~60 GB
+    def plain():
+        for r in range(0, rows, chunk_rows):
+            s_ = slice(r, r + chunk_rows)
+            fo.fused_adamw_bucket_ref(g[s_], master[s_], m[s_], v[s_], sc,
+                                      torch.bfloat16)
+    plain_ms = time_ms(plain, flush_buf.zero_, reps=5, warmup=1)
+    # library yardstick, never called by the port: torch._fused_adamw_ on
+    # the same bf16 tensors (it takes one dtype for params, grads and
+    # moments, so the bf16 parameters stand in for the fp32 master)
+    step_t = torch.tensor(float(step), device="cuda")
+    library_ms = time_ms(lambda: torch._fused_adamw_(
+        [p_new], [g], [m], [v], [], [step_t], lr=TRAIN_LR, beta1=0.9,
+        beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False), flush_buf.zero_, reps=10, warmup=2)
+    nbytes = fo.adamw_update_bytes(n, param_width=2, moment_width=2,
+                                   has_master=True, grad_width=2)
+    flops = 13 * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    name, source, replaces = KERNELS[4]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms,
+            "library": "torch._fused_adamw_ on the bf16 param, grad and "
+                       "moment buckets (no master: 16 B/element)",
+            "gb_per_s": nbytes / kernel_ms / 1e6,
+            "shape": {"elements": n, "rows": rows, "lanes": fo.LANES,
+                      "grad": "bfloat16", "master": "float32",
+                      "moments": "bfloat16", "param_out": "bfloat16"},
+            "bytes": nbytes, "flops": flops, "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -346,9 +748,9 @@ def main(argv=None) -> int:
           "device_count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    per_source = build.build(src.rsplit("/", 1)[1] for _, src, _ in KERNELS)
+    per_source = build.build(src.rsplit("/", 1)[1] for src in SOURCES)
     reports = {}
-    for _, src, _ in KERNELS:
+    for src in SOURCES:
         log = build.library_path(src.rsplit("/", 1)[1])
         log = log.with_name(log.name + ".log")
         lines = log.read_text().splitlines() if log.exists() else []
@@ -364,7 +766,16 @@ def main(argv=None) -> int:
           "per_source_s": per_source, "ptxas": reports})
 
     launches, capture = phase_serve(args.seed)
+    gc.collect()                  # the serving model and engine go
+    torch.cuda.empty_cache()
+    train_launches, bucket = phase_train(args.seed)
+    gc.collect()                  # so do the model and the optimizer
+    torch.cuda.empty_cache()
     kernels = phase_kernels(capture, launches, args.seed, card)
+    del capture
+    kernels += phase_flash_kernels(train_launches, args.seed, card)
+    kernels.append(phase_adamw_kernel(train_launches, bucket, args.seed,
+                                      card))
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,17 @@
-"""Move a reference Llama state dict into the port.
+"""Move a reference Llama state dict, and its AdamW state, into the port.
 
 The reference's `LlamaForCausalLM.state_dict()`, exported as numpy
 arrays, uses the same names as the port (`model.layers.0.self_attn.
 q_proj.weight`, ...) and the same (in, out) Linear layout, so conversion
 is a name/shape check and a copy. The rope tables are not parameters on
-either side: the port rebuilds them from the config.
+either side: the port rebuilds them from the config. The optimizer's
+state crosses in its canonical per-parameter form (`moment1_<i>`,
+`moment2_<i>`, `master_<i>`, `@step`), which both sides' `state_dict()`
+write whether or not the update was fused.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -15,7 +19,10 @@ import torch
 
 from .llama import LlamaConfig
 
-__all__ = ["expected_shapes", "from_jax_state_dict"]
+__all__ = ["expected_shapes", "from_jax_state_dict",
+           "from_jax_optimizer_state"]
+
+_OPT_KEY = re.compile(r"(moment1|moment2|master)_(\d+)")
 
 
 def expected_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
@@ -73,4 +80,21 @@ def from_jax_state_dict(np_state, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
         out[name] = _to_tensor(arr)
+    return out
+
+
+def from_jax_optimizer_state(np_state) -> Dict[str, object]:
+    """The reference optimizer's `state_dict()`, exported as {key: numpy
+    array} plus the int `@step` -> the same keys as CPU tensors (dtypes
+    kept, bf16 included), ready for the port's `AdamW.set_state_dict`.
+    Raises ValueError on a key the port does not take (an LR
+    scheduler's state, amsgrad's `moment2_max`, ...)."""
+    out: Dict[str, object] = {}
+    for key, val in np_state.items():
+        if key == "@step":
+            out[key] = int(val)
+        elif _OPT_KEY.fullmatch(key):
+            out[key] = _to_tensor(val)
+        else:
+            raise ValueError(f"optimizer state key {key!r} is not ported")
     return out

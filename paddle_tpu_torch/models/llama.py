@@ -1,10 +1,12 @@
-"""Llama-family decoder LM, serving path (port of the paged forward
-passes of `paddle_tpu/models/llama.py`).
+"""Llama-family decoder LM (port of `paddle_tpu/models/llama.py`).
 
-Ported: the configs, the rope tables, interleaved-pair rotary, and the
-paged decode / chunked-prefill forward passes the serving engine runs,
-with tied or untied heads. The training forward, loss, generate() and
-the pipeline model are not ported yet.
+Ported: the configs, the rope tables, interleaved-pair rotary, the
+training forward (`LlamaForCausalLM.forward(input_ids, labels)`: causal
+attention through the flash kernels, then the shifted, masked-mean
+cross entropy), and the paged decode / chunked-prefill forward passes
+the serving engine runs, with tied or untied heads. Not ported (they
+raise): the KV-cache forward of generate(), sequence parallelism,
+recompute, and the pipeline model.
 
 Parameters keep the reference's names and layouts (`Linear` weights are
 (in, out)), so `models/convert.py` moves a reference state dict across
@@ -28,10 +30,12 @@ from ..kernels.paged_attention import (paged_attention_decode,
                                        paged_cache_write,
                                        paged_cache_write_range)
 from ..nn import Embedding, Linear, RMSNorm
-from ..nn.functional import sdpa_ref, swiglu
+from ..nn.functional import (parallel_cross_entropy,
+                             scaled_dot_product_attention, sdpa_ref, swiglu)
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama_3_8b", "apply_rotary", "apply_rotary_positions"]
+           "llama_3_8b", "llama_step_flops", "apply_rotary",
+           "apply_rotary_positions"]
 
 
 @dataclass
@@ -47,6 +51,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     use_bias: bool = False
+    sequence_parallel: bool = False
+    recompute: bool = False
     dtype: str = "float32"
 
 
@@ -65,6 +71,24 @@ def llama_3_8b(**kw):
                rope_theta=500000.0)
     cfg.update(kw)
     return LlamaConfig(**cfg)
+
+
+def llama_step_flops(cfg, batch, seq):
+    """Training FLOPs of one step (the reference's bench.py reckoning):
+    6 * N_matmul * tokens for forward and backward, plus attention
+    12 * L * batch * seq^2 * hidden. The embedding lookup does no matmul;
+    the LM head's does. Returns (flops, n_params, attention flops)."""
+    kv = cfg.num_key_value_heads * cfg.hidden_size // cfg.num_attention_heads
+    n_matmul = (cfg.vocab_size * cfg.hidden_size
+                + cfg.num_hidden_layers * (
+                    2 * cfg.hidden_size * cfg.hidden_size
+                    + 2 * cfg.hidden_size * kv
+                    + 3 * cfg.hidden_size * cfg.intermediate_size))
+    n_params = n_matmul + (0 if cfg.tie_word_embeddings
+                           else cfg.vocab_size * cfg.hidden_size)
+    tokens = batch * seq
+    attn = 12.0 * cfg.num_hidden_layers * batch * seq * seq * cfg.hidden_size
+    return 6.0 * n_matmul * tokens + attn, n_params, attn
 
 
 def _rope_cache(head_dim, max_pos, theta, device=None):
@@ -124,6 +148,26 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
         v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
         return q, k, v
+
+    def forward(self, x, cos, sin, cache=None, cache_pos=None):
+        """Training / full-sequence forward: x (B, S, hidden), cos/sin
+        (S, D/2). KV heads are repeated to the query heads before the
+        attention, so autograd sums the gradient over the copies; the
+        attention is causal whenever S > 1."""
+        if cache is not None or cache_pos is not None:
+            raise NotImplementedError(
+                "the KV-cache forward of generate() is not ported to "
+                "paddle_tpu_torch; serve through ServingEngine")
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+        if self.n_kv != self.n_heads:
+            rep = self.n_heads // self.n_kv
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = scaled_dot_product_attention(q, k, v, is_causal=(s > 1))
+        return self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
 
     def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
         """One decode step over the paged KV cache. x (B, 1, hidden);
@@ -201,6 +245,10 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, generator=generator, **kw)
 
+    def forward(self, x, cos, sin):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
     def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
         attn, kv = self.self_attn.forward_paged(
             self.input_layernorm(x), cos_b, sin_b, kv, block_tables,
@@ -237,6 +285,24 @@ class LlamaModel(nn.Module):
             config.max_position_embeddings, config.rope_theta, device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids, caches=None, cache_pos=None):
+        """Full-sequence forward from position 0: input_ids (B, S) ->
+        final-norm hidden states (B, S, hidden)."""
+        if caches is not None or cache_pos is not None:
+            raise NotImplementedError(
+                "the KV-cache forward of generate() is not ported to "
+                "paddle_tpu_torch; serve through ServingEngine")
+        for flag in ("sequence_parallel", "recompute"):
+            if getattr(self.cfg, flag):
+                raise NotImplementedError(f"LlamaConfig.{flag}=True is not "
+                                          "ported to paddle_tpu_torch")
+        s = input_ids.shape[1]
+        cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        x = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        return self.norm(x)
 
     def forward_paged_decode(self, input_ids, paged_caches, block_tables,
                              seq_lens):
@@ -297,6 +363,19 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is None:
             return torch.matmul(h, self.model.embed_tokens.weight.t())
         return self.lm_head(h)
+
+    def forward(self, input_ids, labels=None, caches=None, cache_pos=None):
+        """Training forward. Without labels: logits (B, S, V). With
+        labels (B, S): the next-token loss — logits[:, :-1] against
+        labels[:, 1:], fp32 cross entropy, mean over the positions whose
+        label is not -100 (the reference's `_head_and_loss`)."""
+        logits = self._head(self.model(input_ids, caches, cache_pos))
+        if labels is None:
+            return logits
+        shift_labels = labels[:, 1:]
+        loss_t = parallel_cross_entropy(logits[:, :-1, :], shift_labels)
+        valid = (shift_labels != -100).to(loss_t.dtype)
+        return (loss_t[..., 0] * valid).sum() / valid.sum().clamp_min(1.0)
 
     def forward_paged_decode(self, input_ids, paged_caches, block_tables,
                              seq_lens):

@@ -3,7 +3,8 @@
 `Linear` stores its weight as (in, out) like Paddle, so state dicts
 cross from the reference with no transpose. Both draw their initial
 values from an explicit `torch.Generator` on the target device, so a
-model is built straight on the card from a seed.
+model is built straight on the card from a seed. Their parameters are
+trainable; the serving engine runs its steps under inference mode.
 """
 from __future__ import annotations
 
@@ -29,10 +30,9 @@ class Linear(nn.Module):
                         dtype=dtype)
         bound = math.sqrt(6.0 / (in_features + out_features))
         w.uniform_(-bound, bound, generator=generator)
-        self.weight = nn.Parameter(w, requires_grad=False)
+        self.weight = nn.Parameter(w)
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device,
-                                              dtype=dtype),
-                                  requires_grad=False)
+                                              dtype=dtype))
                      if bias else None)
 
     def forward(self, x):
@@ -53,7 +53,7 @@ class Embedding(nn.Module):
         w = torch.empty(num_embeddings, embedding_dim, device=device,
                         dtype=dtype)
         w.normal_(0.0, 1.0, generator=generator)
-        self.weight = nn.Parameter(w, requires_grad=False)
+        self.weight = nn.Parameter(w)
 
     def forward(self, ids):
         return self.weight[ids]

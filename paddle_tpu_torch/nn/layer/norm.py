@@ -15,8 +15,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(
-            torch.ones(hidden_size, device=device, dtype=dtype),
-            requires_grad=False)
+            torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)

@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_optimizer as fo
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -110,3 +113,227 @@ def test_engine_on_card_matches_cpu_and_runs_the_kernel(card):
                     == eng.metrics.counters["decode_launches"]
                     * cfg.num_hidden_layers > 0)
     assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------------------ flash attention
+# (B*H, Sq, Sk, D, causal): the training shape's head dim, a ragged
+# length with Sq != Sk under the bottom-right causal mask, a head dim
+# below the instantiated width, D 256 and D 200 (two column chunks, the
+# second partial), a non-causal Sq > Sk, the smallest shape, and a
+# causal Sq > Sk whose first rows see no key (zeros, as in the plain
+# version)
+FLASH_CASES = [(4, 256, 256, 128, True), (3, 72, 136, 64, True),
+               (2, 64, 200, 40, False), (2, 96, 96, 256, True),
+               (1, 64, 64, 200, False), (2, 136, 64, 128, False),
+               (1, 8, 8, 8, True), (2, 40, 16, 8, True)]
+
+
+def _flash_inputs(BH, Sq, Sk, D, seed, device):
+    rng = np.random.RandomState(seed)
+    q, do = (torch.from_numpy(rng.randn(BH, Sq, D).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(BH, Sk, D).astype(np.float32))
+            for _ in range(2))
+    return [t.to(device) for t in (q, k, v, do)]
+
+
+def _close(got, want, tol):
+    """max |got - want| within tol of the reference's largest value."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= tol * scale, (err, tol * scale)
+
+
+def _close_rel(got, want, tol):
+    """||got - want|| / ||want|| within tol: the bf16 measure, since a
+    bound on the largest element would pass a kernel that drops a tile
+    of every row's terms."""
+    d = (got.float() - want.float()).norm()
+    err = (d / want.float().norm().clamp_min(1e-30)).item()
+    assert err <= tol and torch.isfinite(got).all(), (err, tol)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernels_match_plain_versions(card, case):
+    """fwd (out, lse), dQ and dK/dV against the plain versions on the
+    same inputs: fp32 within 1e-4 of the largest value (summation
+    order); bf16 within a relative error of 1e-2 (output rounding, and
+    P / dS rounded to bf16 before their products, give a few 1e-3); the
+    lse, fp32 in both types, within 1e-4."""
+    BH, Sq, Sk, D, causal = case
+    q, k, v, do = _flash_inputs(BH, Sq, Sk, D, sum(case[:4]), card)
+    scale = 1.0 / np.sqrt(D)
+    for dt in (torch.float32, torch.bfloat16):
+        def close(got, want):
+            if dt == torch.float32:
+                _close(got, want, 1e-4)
+            else:
+                _close_rel(got, want, 1e-2)
+        qq, kk, vv, dd = (t.to(dt) for t in (q, k, v, do))
+        n0 = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+        out, lse = fa.flash_fwd(qq, kk, vv, scale, causal)
+        ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal)
+        close(out, ref_out)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
+        delta = fa.flash_delta(ref_out, dd)
+        args = (qq, kk, vv, dd, ref_lse, delta, scale, causal)
+        close(fa.flash_dq(*args), fa.flash_dq_ref(*args))
+        for got, want in zip(fa.flash_dkv(*args), fa.flash_dkv_ref(*args)):
+            assert got.dtype == dt
+            close(got, want)
+        torch.cuda.synchronize()
+        assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+                fa.flash_dkv.launches) == tuple(n + 1 for n in n0)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_attention_autograd_runs_the_kernels(card, B):
+    S, H, D = 128, 4, 64
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32))
+               .to(card).requires_grad_() for _ in range(3))
+    n0 = fa.flash_dkv.launches
+    out = fa.flash_attention_bshd(q, k, v, causal=True)
+    out.square().sum().backward()
+    assert fa.flash_dkv.launches == n0 + 1
+    grads = [t.grad.clone() for t in (q, k, v)]
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    ref = fa.flash_attention_bshd(qc, kc, vc, causal=True)
+    ref.square().sum().backward()
+    _close(out.cpu(), ref, 1e-4)
+    for g, t in zip(grads, (qc, kc, vc)):
+        _close(g.cpu(), t.grad, 1e-4)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    q, k, v, do = _flash_inputs(2, 64, 64, 64, 0, card)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.flash_fwd(q.half(), k.half(), v.half(), 0.125, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     0.125, False)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(q, k.bfloat16(), v, 0.125, False)
+    with pytest.raises(ValueError, match="fit"):
+        fa.flash_fwd(q, k[:, :, :32].contiguous(), v, 0.125, False)
+    bad = torch.zeros(2, 64, 264, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(bad, bad, bad, 0.125, False)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dq(q, k, v, do, torch.zeros(2, 64, device=card,
+                                             dtype=torch.float64),
+                    torch.zeros(2, 64, device=card), 0.125, False)
+
+
+def test_sdpa_sends_every_mask_free_call_to_the_kernels(card):
+    """On the card the SDPA dispatch takes no TPU length rule: causal
+    Sq 20 / Sk 1030 (the reference's `check_supported` refuses both)
+    runs the flash kernels forward and backward and matches the plain
+    composition; a head dim the kernels do not take raises, never a
+    silent plain fallback."""
+    from paddle_tpu_torch.nn.functional import flash_attention as F
+    rng = np.random.RandomState(11)
+    q = rng.randn(1, 20, 2, 64).astype(np.float32)
+    k, v = (rng.randn(1, 1030, 2, 64).astype(np.float32) for _ in range(2))
+    with pytest.raises(ValueError):
+        fa.check_supported(q.shape, k.shape, None)
+    tq, tk, tv = (torch.from_numpy(x).to(card).requires_grad_()
+                  for x in (q, k, v))
+    n0 = (fa.flash_fwd.launches, fa.flash_dkv.launches)
+    out = F.scaled_dot_product_attention(tq, tk, tv, is_causal=True)
+    out.square().sum().backward()
+    assert (fa.flash_fwd.launches, fa.flash_dkv.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    rq, rk, rv = (t.detach().clone().requires_grad_() for t in (tq, tk, tv))
+    ref = F.sdpa_ref(rq, rk, rv, causal=True)
+    ref.square().sum().backward()
+    _close(out, ref, 1e-4)
+    for t, r in zip((tq, tk, tv), (rq, rk, rv)):
+        _close(t.grad, r.grad, 1e-4)
+    bad = torch.zeros(1, 16, 2, 12, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        F.scaled_dot_product_attention(bad, bad, bad, is_causal=True)
+
+
+# ------------------------------------------------------------ AdamW
+@pytest.mark.parametrize("param_dtype,moment_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_adamw_kernel_bitwise_equals_plain_version(card, param_dtype,
+                                                   moment_dtype):
+    rows = 4 * 64 + 64
+    rng = np.random.RandomState(3)
+
+    def make(scale, dt):
+        a = (scale * rng.randn(rows, fo.LANES)).astype(np.float32)
+        return torch.from_numpy(a).to(card).to(dt)
+    g = make(1e-2, param_dtype)
+    w = make(1.0, torch.float32)
+    m = make(1e-3, moment_dtype)
+    v = make(1e-4, moment_dtype).abs()
+    master = param_dtype != torch.float32
+    sc = fo.adamw_scalars(3e-4, 0.9, 0.999, 1e-8, 0.01, 7, device=card)
+    want = fo.fused_adamw_bucket_ref(g, w, m, v, sc,
+                                     param_dtype if master else None)
+    n0 = fo.fused_adamw_bucket.launches
+    got = fo.fused_adamw_bucket(g, w.clone(), m.clone(), v.clone(), sc,
+                                param_dtype if master else None)
+    torch.cuda.synchronize()
+    assert fo.fused_adamw_bucket.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b), (a.float() - b.float()).abs().max()
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(card):
+    g = torch.zeros(64, fo.LANES, device=card)
+    sc = fo.adamw_scalars(1e-3, 0.9, 0.999, 1e-8, 0.0, 1, device=card)
+    with pytest.raises(ValueError, match="lane"):
+        fo.fused_adamw_bucket(g[:, :64], g[:, :64], g[:, :64], g[:, :64],
+                              sc)
+    with pytest.raises(ValueError, match="not ported"):
+        fo.fused_adamw_bucket(g.half(), g.clone(), g.clone(), g.clone(), sc,
+                              torch.float16)
+    with pytest.raises(ValueError, match="bucket"):
+        fo.fused_adamw_bucket(g, g.clone(), g[:32].clone(), g.clone(), sc)
+    with pytest.raises(ValueError, match="float32"):
+        fo.fused_adamw_bucket(g, g.clone(), g.clone(), g.clone(),
+                              sc.double())
+
+
+# ------------------------------------------------------------ training
+def test_train_steps_on_card_match_cpu_and_run_the_kernels(card):
+    """Three fused-AdamW steps of a tiny fp32 Llama from the same weights
+    on the card and on the CPU: losses within 1e-4 (summation order),
+    and on the card every layer ran the flash kernels and every step the
+    AdamW kernel."""
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=128)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, 128, (2, 64)))
+    labels = torch.from_numpy(rng.randint(0, 128, (2, 64)))
+    labels[0, :5] = -100
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(2))
+        model.to(dev)
+        opt = AdamW(1e-3, parameters=model.parameters(), fused=True)
+        for fn in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv,
+                   fo.fused_adamw_bucket):
+            fn.launches = 0
+        losses[dev] = []
+        for _ in range(3):
+            loss = model(ids.to(dev), labels=labels.to(dev))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses[dev].append(loss.item())
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches, fo.fused_adamw_bucket.launches) \
+        == (6, 6, 6, 3)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    assert losses["cuda"][-1] < losses["cuda"][0]

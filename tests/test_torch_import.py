@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing every module of
-`paddle_tpu_torch` (and `chip_smoke.py`) pulls in neither JAX nor
+`paddle_tpu_torch` (and the root scripts `chip_smoke.py` and
+`chip_fault_check.py`) pulls in neither JAX nor
 anything of `paddle_tpu`, and no source file of either imports them."""
 import ast
 import subprocess
@@ -10,14 +11,14 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
 import paddle_tpu_torch
 for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
     importlib.import_module(m.name)
-import chip_smoke
+import chip_smoke, chip_fault_check
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "jaxlib"
              or n == "paddle_tpu" or n.startswith("paddle_tpu."))
