@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Shows that chip_smoke.py's flash-kernel checks catch a wrong kernel.
+"""Shows that chip_smoke.py's kernel checks catch a wrong kernel.
 
 Run from the repository root on a machine with one CUDA card (an H100):
 
@@ -7,21 +7,27 @@ Run from the repository root on a machine with one CUDA card (an H100):
 
 For the unmodified kernels and for each planted fault below, it copies
 `paddle_tpu_torch/` and `chip_smoke.py` into a temporary directory,
-edits the copy's `csrc/flash_attention.cu` (the repository's own files
-are never touched), and in a child process on that copy builds the
-kernels and runs `chip_smoke.check_flash_kernels`, the checks the smoke
-run applies. The children run together and each is waited for.
+edits the copy's CUDA source (the repository's own files are never
+touched), and in a child process on that copy builds the kernels and
+runs the checks the smoke run applies: `chip_smoke.check_flash_kernels`
+for the flash kernels, `chip_smoke.check_quant_kernels` for the int8
+paged-decode and int8 matmul kernels. The children run together and each
+is waited for.
 
 Faults:
-  * skip_tile  — the forward and dQ kernels skip the second key tile of
-    every query tile, the dK/dV kernel the second query tile of every
-    key tile: each affected row loses 64 of its up to 4096 terms;
-  * no_rescale — the forward drops the online-softmax rescale of its
-    running sum and accumulator (alpha = 1).
+  * skip_tile  — the flash forward and dQ kernels skip the second key
+    tile of every query tile, the dK/dV kernel the second query tile of
+    every key tile: each affected row loses 64 of its up to 4096 terms;
+  * no_rescale — the flash forward drops the online-softmax rescale of
+    its running sum and accumulator (alpha = 1);
+  * qmm_drop_last_k_tile — the int8 matmul skips the last 32-deep K tile
+    of every output tile (K 4096 loses 1/128 of its terms);
+  * int8_no_v_scale — the int8 paged-decode kernel ignores the V scale
+    (each V row taken as its raw int8 values).
 
 The unmodified copy must pass every check. A planted fault counts as
-caught when every output it corrupts fails its check at the training
-shape in bf16, the main path's type. Prints one JSON line per copy and
+caught when every output it corrupts fails its check at the main path's
+shapes in bf16, the main path's type. Prints one JSON line per copy and
 exits 0 only when the clean copy passed and every fault was caught.
 """
 from __future__ import annotations
@@ -35,36 +41,69 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CU = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+CSRC = "paddle_tpu_torch/kernels/csrc/"
 _FWD_DQ_LOOP = "    if (!contributes(q0, k0, kT, off, causal)) break;\n"
 _DKV_LOOP = "    if (!contributes(q0, k0, kT, off, causal)) continue;\n"
 _ALPHA = "expf(m[r] - mn);"
-# name: ([(text, replacement, count)], outputs it must make fail)
+_K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
+_V_SCALE = "          vsc[u] = vs[row];\n"
+# name: (source, [(text, replacement, count)], check)
 FAULTS = {
-    "skip_tile": ([(_FWD_DQ_LOOP, _FWD_DQ_LOOP
+    "skip_tile": ("flash_attention.cu",
+                  [(_FWD_DQ_LOOP, _FWD_DQ_LOOP
                     + "    if (kt == 1) continue;\n", 2),
                    (_DKV_LOOP, _DKV_LOOP
                     + "    if (qt == blockIdx.x + 1) continue;\n", 1)],
-                  ("out", "lse", "dq", "dk", "dv")),
-    "no_rescale": ([(_ALPHA, "1.f;", 1)], ("out", "lse")),
+                  "flash"),
+    "no_rescale": ("flash_attention.cu", [(_ALPHA, "1.f;", 1)], "flash"),
+    "qmm_drop_last_k_tile": (
+        "quant_matmul.cu",
+        [(_K_LOOP, "  for (int kt = kt0; kt < kt1 - (kt1 == kt_total); "
+          "++kt) {\n", 1)], "quant"),
+    "int8_no_v_scale": ("paged_attention.cu",
+                        [(_V_SCALE, "          vsc[u] = 1.f;\n", 1)],
+                        "quant"),
 }
 CHILD = """
-import json, sys
+import json
 import chip_smoke
-errs, failures = chip_smoke.check_flash_kernels({seed})
-print(json.dumps({{"errors": errs, "failures": failures}}))
+out = {{}}
+for check in {checks!r}:
+    if check == "flash":
+        errs, failures = chip_smoke.check_flash_kernels({seed})
+    else:
+        errs, failures, _ = chip_smoke.check_quant_kernels({seed})
+    out[check] = {{"errors": errs, "failures": failures}}
+print(json.dumps(out))
 """
 
 
-def plant(root: Path, edits) -> None:
-    path = root / CU
+def plant(root: Path, source: str, edits) -> None:
+    path = root / CSRC / source
     text = path.read_text()
     for old, new, count in edits:
         if text.count(old) != count:
-            raise RuntimeError(f"{CU}: expected {count} x {old!r}, found "
-                               f"{text.count(old)}")
+            raise RuntimeError(f"{source}: expected {count} x {old!r}, "
+                               f"found {text.count(old)}")
         text = text.replace(old, new)
     path.write_text(text)
+
+
+def must_fail(name: str):
+    """The (check, output, case) triples a fault has to make fail: every
+    output it corrupts at the main path's shapes in bf16."""
+    from chip_smoke import FLASH_SHAPES, qmm_shapes
+    bh, sq, sk, d = FLASH_SHAPES[0]
+    flash_case = f"bfloat16_S{sq}x{sk}_D{d}"
+    if name == "skip_tile":
+        return [("flash", o, flash_case)
+                for o in ("out", "lse", "dq", "dk", "dv")]
+    if name == "no_rescale":
+        return [("flash", o, flash_case) for o in ("out", "lse")]
+    if name == "qmm_drop_last_k_tile":
+        return [("quant", "quant_matmul", f"{s}_bfloat16")
+                for s in qmm_shapes()]
+    return [("quant", "paged_attention_decode_int8", "bfloat16")]
 
 
 def main(argv=None) -> int:
@@ -75,23 +114,24 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_fault_check: no CUDA card is available", file=sys.stderr)
         return 2
-    from chip_smoke import FLASH_SHAPES
 
-    bh, sq, sk, d = FLASH_SHAPES[0]
-    main_case = f"bfloat16_S{sq}x{sk}_D{d}"
-    copies = {"clean": ([], ())} | FAULTS
+    copies = {"clean": (None, [], ("flash", "quant"))}
+    copies.update({name: (src, edits, (check,))
+                   for name, (src, edits, check) in FAULTS.items()})
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         try:
-            for name, (edits, _) in copies.items():
+            for name, (src, edits, checks) in copies.items():
                 root = Path(tmp) / name
                 shutil.copytree(ROOT / "paddle_tpu_torch",
                                 root / "paddle_tpu_torch",
                                 ignore=shutil.ignore_patterns("__pycache__"))
                 shutil.copy(ROOT / "chip_smoke.py", root)
-                plant(root, edits)
+                if src is not None:
+                    plant(root, src, edits)
                 procs[name] = subprocess.Popen(
-                    [sys.executable, "-c", CHILD.format(seed=args.seed)],
+                    [sys.executable, "-c",
+                     CHILD.format(checks=list(checks), seed=args.seed)],
                     cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                     text=True)
             results = {name: p.communicate() + (p.returncode,)
@@ -109,18 +149,23 @@ def main(argv=None) -> int:
             ok = False
             continue
         res = json.loads(out.strip().splitlines()[-1])
-        failed = sorted({tuple(f) for f in res["failures"]})
-        must_fail = copies[name][1]
+        failed = sorted({(check, *f) for check, r in res.items()
+                         for f in r["failures"]})
         if name == "clean":
-            verdict = not failed
+            want, verdict = [], not failed
         else:
-            verdict = all((o, main_case) in failed for o in must_fail)
+            want = must_fail(name)
+            verdict = all(w in failed for w in want)
         ok &= verdict
-        print(json.dumps({
-            "copy": name, "passed": verdict, "must_fail": list(must_fail),
-            "failed_checks": failed,
-            "main_case": {o: res["errors"][o][main_case]
-                          for o in res["errors"]}}), flush=True)
+        # what the checks measured: the must-fail cases of a fault, every
+        # error of the clean copy
+        errors = ({":".join(w): res[w[0]]["errors"][w[1]][w[2]]
+                   for w in want} if want else
+                  {c: r["errors"] for c, r in res.items()})
+        print(json.dumps({"copy": name, "passed": verdict,
+                          "must_fail": [":".join(w) for w in want],
+                          "failed_checks": [":".join(f) for f in failed],
+                          "errors": errors}), flush=True)
     print(json.dumps({"fault_check_ok": ok}), flush=True)
     return 0 if ok else 1
 

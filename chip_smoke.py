@@ -20,7 +20,19 @@ Phases, one JSON line each:
                max_new_tokens with finite logits, that the paged-decode
                kernel ran once per layer per decode launch, and that all
                pages return after reset_prefix_cache().
-  4. train   — the serving model is freed; Llama-3-8B at its published
+  4. serve_quant — on the same model object, `ServingEngine(wq="int8",
+               kv_dtype="int8")`: the MLP and LM-head weights are
+               quantized in place to int8, the KV pages are int8 with
+               fp32 scales in the byte budget of phase 3's pool (3971
+               pages, as `paged_page_bytes` predicts), and the same 16
+               requests are served on the same schedule. Checks as in
+               phase 3, plus the int8 paged-decode kernel once per layer
+               per decode launch and the int8 matmul kernel 97 times per
+               launch (gate/up/down x 32 and the head). Reports the
+               weight bytes before and after, and where each request's
+               greedy tokens first leave phase 3's (not gated: random
+               weights give near-flat logits).
+  5. train   — the serving model is freed; Llama-3-8B at its published
                widths with depth cut 32 -> 8 layers (bf16, seeded random
                weights) trains on one seeded batch of 1 x 4096 tokens
                with AdamW(3e-4, multi_precision, fused, bf16 moments):
@@ -31,7 +43,7 @@ Phases, one JSON line each:
                layer and the AdamW kernel once per bucket. Reports step
                ms, tokens/s, MFU (bench.py's FLOP reckoning over 989
                TFLOP/s) and peak memory.
-  5. kernels — every kernel against its plain PyTorch version on the same
+  6. kernels — every kernel against its plain PyTorch version on the same
                inputs, then timed with CUDA events (median of 30
                launches, L2 flushed before each) beside its plain
                version, a PyTorch library call computing the same
@@ -52,7 +64,18 @@ Phases, one JSON line each:
                  kernel with a planted fault fails these checks);
                * fused AdamW: the train phase's own bucket (fp32 master,
                  bf16 moments, ~2.8e9 elements) with a seeded bf16
-                 gradient, and fp32 state on a slice of it: bitwise.
+                 gradient, and fp32 state on a slice of it: bitwise;
+               * int8 paged decode: layer 0 of a live serve_quant decode
+                 batch (int8 caches and scales, plus a pad row and a
+                 length ending mid-page) with bf16 and fp32 queries,
+                 tolerances as for the full-width kernel
+                 (`check_quant_kernels`);
+               * int8 matmul: seeded x and `weight_quantize`d seeded
+                 weights at Llama-3-8B's decode GEMMs (M 16), gate/up at
+                 M 512 and a ragged shape, bf16 within a relative error
+                 of 1e-2 and fp32 within 1e-4 of max |ref|
+                 (chip_fault_check.py shows that planted faults in
+                 either quantized kernel fail these checks).
 Then the `{"kernels": [...]}` line, the raw nvidia-smi line, and as the
 last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
@@ -84,7 +107,12 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("flash_attention_dkv", _CSRC + "flash_attention.cu",
             "paddle_tpu/kernels/flash_attention.py:386"),
            ("fused_adamw", _CSRC + "fused_adamw.cu",
-            "paddle_tpu/kernels/fused_optimizer.py:180")]
+            "paddle_tpu/kernels/fused_optimizer.py:180"),
+           ("paged_attention_decode_int8", _CSRC + "paged_attention.cu",
+            "paddle_tpu/kernels/paged_attention.py:152"),
+           ("quant_matmul", _CSRC + "quant_matmul.cu",
+            "paddle_tpu/kernels/quant_matmul.py:162")]
+KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the train phase: Llama-3-8B widths, depth cut to fit one card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
@@ -92,6 +120,9 @@ TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 4, 3e-4
 # flash kernel checks, causal (B*H, Sq, Sk, D): the training shape, and a
 # ragged one (S not a tile multiple, D below the instantiated width)
 FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128), (3, 72, 136, 64))
+# the serve phase's bf16 pool; serve_quant gets the same bytes of int8
+# pages
+SERVE_PAGES = 2048
 
 
 def emit(obj) -> None:
@@ -137,6 +168,8 @@ def kernel_kind(name: str) -> str:
         return "adamw"
     if "paged_decode" in n:
         return "paged_decode"
+    if "quant_matmul" in n or "reduce_splits" in n:
+        return "quant_matmul"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
         return "gemm"
@@ -169,33 +202,26 @@ def profile_summary(prof, wall_s: float, **fields):
                             for k, (t, n) in top]}
 
 
-def phase_serve(seed: int):
+def serve_prompts(seed: int, vocab: int):
+    """The 16 seeded requests both serve phases send: prompts of 128-1024
+    tokens, 32-64 new tokens."""
     import numpy as np
-    import torch
-    from paddle_tpu_torch.kernels.paged_attention import \
-        paged_attention_decode
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_3_8b
-    from paddle_tpu_torch.serving import ServingEngine
-
-    cfg = llama_3_8b(dtype="bfloat16")
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             generator=gen)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    eng = ServingEngine(model, page_size=16, num_pages=2048,
-                        batch_buckets=[16], seed=seed)
-
     rng = np.random.RandomState(seed)
     lens = rng.randint(128, 1025, size=16)
     news = rng.randint(32, 65, size=16)
-    prompts = [(rng.randint(0, cfg.vocab_size, int(n)).tolist(), int(m))
-               for n, m in zip(lens, news)]
+    return [(rng.randint(0, vocab, int(n)).tolist(), int(m))
+            for n, m in zip(lens, news)]
 
-    torch.cuda.reset_peak_memory_stats()
-    paged_attention_decode.launches = 0          # the main path starts
+
+def serve_requests(eng, prompts):
+    """Drive `eng` with `prompts`: 8 up front, 8 once decoding has
+    begun, until it drains. The first decode-only step after a live
+    decode batch of >= 8 rows was captured (`capture_batch`) runs under
+    torch.profiler and is reported on its own; the other steps' wall
+    times are summed by kind. Checks every request emitted exactly its
+    max_new_tokens with finite logits. Returns the serve line's fields,
+    the capture and the outputs in prompt order."""
+    import torch
     rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts[:8]]
     late_added = False
     capture = None
@@ -245,23 +271,16 @@ def phase_serve(seed: int):
                 and len(running) >= 8):
             capture = capture_batch(eng, running[:15])
     serve_s = time.perf_counter() - t_serve
-    launches = paged_attention_decode.launches   # the main path ended
     c = eng.metrics.counters
-    outs = {rid: eng.requests[rid].output_ids for rid in rids}
-    for (_, m), rid in zip(prompts, rids):
-        if len(outs[rid]) != m:
-            raise AssertionError(f"request {rid} emitted {len(outs[rid])} "
+    outs = [eng.requests[rid].output_ids for rid in rids]
+    for (_, m), rid, out in zip(prompts, rids, outs):
+        if len(out) != m:
+            raise AssertionError(f"request {rid} emitted {len(out)} "
                                  f"tokens, wanted {m}")
     if c["requests_quarantined"] or c["engine_failures"]:
         raise AssertionError(f"non-finite logits: {c}")
-    if not (launches > 0 and launches == c["decode_launches"]
-            * cfg.num_hidden_layers):
-        raise AssertionError(f"paged_attention_decode launches {launches} "
-                             f"!= decode launches {c['decode_launches']} "
-                             f"x {cfg.num_hidden_layers} layers")
     if capture is None:
         raise AssertionError("no decode batch was captured")
-    peak = torch.cuda.max_memory_allocated()
     step_ms = (wall["decode_steps_s"] / decode_only_steps * 1e3
                if decode_only_steps else None)
     if profiled is not None and step_ms:
@@ -270,32 +289,154 @@ def phase_serve(seed: int):
         # step's own wall includes the profiler's start-up)
         profiled["device_busy_share_vs_decode_step"] = \
             profiled["device_ms"] / step_ms
+    fields = {"requests": len(rids), "steps": steps,
+              "prefill_tokens": c["prefill_tokens"],
+              "generated_tokens": sum(len(o) for o in outs),
+              "decode_launches": c["decode_launches"],
+              "prefill_launches": c["prefill_chunks"],
+              "decode_tokens": c["decode_tokens"], "serve_s": serve_s,
+              **wall,
+              "decode_only_tokens": decode_only_tokens,
+              "decode_only_steps": decode_only_steps,
+              "decode_step_ms": step_ms,
+              "decode_tokens_per_s": (decode_only_tokens
+                                      / wall["decode_steps_s"]
+                                      if wall["decode_steps_s"] else None),
+              "profiled_step": profiled}
+    return fields, capture, outs
+
+
+def phase_serve(seed: int):
+    import torch
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_3_8b
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = llama_3_8b(dtype="bfloat16")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServingEngine(model, page_size=16, num_pages=SERVE_PAGES,
+                        batch_buckets=[16], seed=seed)
+    prompts = serve_prompts(seed, cfg.vocab_size)
+
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention_decode.launches = 0          # the main path starts
+    fields, capture, outs = serve_requests(eng, prompts)
+    launches = paged_attention_decode.launches   # the main path ended
+    if not (launches > 0 and launches == fields["decode_launches"]
+            * cfg.num_hidden_layers):
+        raise AssertionError(f"paged_attention_decode launches {launches} "
+                             f"!= decode launches "
+                             f"{fields['decode_launches']} x "
+                             f"{cfg.num_hidden_layers} layers")
+    peak = torch.cuda.max_memory_allocated()
     eng.reset_prefix_cache()
     if eng.allocator.num_used != 0:
         raise AssertionError(f"{eng.allocator.num_used} pages leaked")
     emit({"phase": "serve", "model": "llama_3_8b", "dtype": "bfloat16",
           "layers": cfg.num_hidden_layers, "params": n_params,
-          "weights_build_s": build_s, "requests": len(rids),
-          "steps": steps, "prefill_tokens": c["prefill_tokens"],
-          "generated_tokens": sum(len(o) for o in outs.values()),
-          "decode_launches": c["decode_launches"],
-          "decode_tokens": c["decode_tokens"], "serve_s": serve_s, **wall,
-          "decode_only_tokens": decode_only_tokens,
-          "decode_only_steps": decode_only_steps,
-          "decode_step_ms": step_ms,
-          "decode_tokens_per_s": (decode_only_tokens
-                                  / wall["decode_steps_s"]
-                                  if wall["decode_steps_s"] else None),
+          "weights_build_s": build_s, **fields,
+          "num_pages": eng.num_pages,
           "paged_attention_decode_launches": launches,
-          "profiled_step": profiled,
           "max_memory_allocated": peak,
           "pages_used_after_reset": eng.allocator.num_used})
-    return {"paged_attention_decode": launches}, capture
+    pool_bytes = eng.num_pages * eng.kv_page_bytes
+    return ({"paged_attention_decode": launches}, capture,
+            {"model": model, "prompts": prompts, "outs": outs,
+             "pool_bytes": pool_bytes, "peak": peak})
+
+
+def weight_bytes(model) -> int:
+    """Device bytes of a model's parameters and persistent buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def phase_serve_quant(served, seed: int):
+    """Quantized serving on the serve phase's own model object: wq="int8"
+    converts its MLP and LM-head weights in place; int8 KV pages in the
+    byte budget of the serve phase's bf16 pool; the same 16 requests on
+    the same schedule."""
+    import torch
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_attention_decode, paged_page_bytes)
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
+    from paddle_tpu_torch.serving import ServingEngine
+
+    model = served["model"]
+    cfg = model.cfg
+    bytes_before = weight_bytes(model)
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, wq="int8", kv_dtype="int8", page_size=16,
+                        batch_buckets=[16], kv_pool_bytes=served["pool_bytes"],
+                        seed=seed)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    bytes_after = weight_bytes(model)
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    want_pages = served["pool_bytes"] // paged_page_bytes(
+        cfg.num_key_value_heads, 16, head_dim, "int8")
+    if eng.num_pages != want_pages:
+        raise AssertionError(f"int8 pool holds {eng.num_pages} pages, "
+                             f"paged_page_bytes predicts {want_pages}")
+    mlp_and_head = 3 * cfg.num_hidden_layers + 1
+    if eng.num_wq_layers != mlp_and_head:
+        raise AssertionError(f"{eng.num_wq_layers} layers converted, "
+                             f"wanted {mlp_and_head}")
+
+    torch.cuda.reset_peak_memory_stats()
+    full_width = paged_attention_decode.launches
+    paged_attention_decode.int8_launches = 0     # the main path starts
+    quant_matmul.launches = 0
+    fields, capture, outs = serve_requests(eng, served["prompts"])
+    launches = {"paged_attention_decode_int8":
+                paged_attention_decode.int8_launches,
+                "quant_matmul": quant_matmul.launches}  # the main path ended
+    want = {"paged_attention_decode_int8":
+            fields["decode_launches"] * cfg.num_hidden_layers,
+            "quant_matmul": (fields["decode_launches"]
+                             + fields["prefill_launches"]) * mlp_and_head}
+    if launches != want or not all(launches.values()) or \
+            paged_attention_decode.launches != full_width:
+        raise AssertionError(f"quantized-path launches {launches} != "
+                             f"{want}, or a full-width decode launch")
+    peak = torch.cuda.max_memory_allocated()
+    eng.reset_prefix_cache()
+    if eng.allocator.num_used != 0:
+        raise AssertionError(f"{eng.allocator.num_used} pages leaked")
+    # where each request's greedy tokens first leave the bf16 phase's
+    # (printed, not gated: random weights give near-flat logits)
+    diverge = []
+    for got, ref in zip(outs, served["outs"]):
+        at = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                  None)
+        diverge.append(at)
+    emit({"phase": "serve_quant", "model": "llama_3_8b", "dtype": "bfloat16",
+          "wq": "int8", "kv_dtype": "int8", "layers": cfg.num_hidden_layers,
+          "num_wq_layers": eng.num_wq_layers, "convert_s": convert_s,
+          "weight_bytes_before": bytes_before,
+          "weight_bytes_after": bytes_after,
+          "kv_pool_bytes": served["pool_bytes"],
+          "num_pages": eng.num_pages, "kv_page_bytes": eng.kv_page_bytes,
+          **fields, "kernel_launches": launches,
+          "first_divergence_from_bf16": diverge,
+          "identical_to_bf16": sum(d is None for d in diverge),
+          "max_memory_allocated": peak,
+          "serve_bf16_max_memory_allocated": served["peak"],
+          "pages_used_after_reset": eng.allocator.num_used})
+    return launches, capture
 
 
 def capture_batch(eng, reqs):
-    """Layer 0's caches and a decode batch's block tables / seq_lens,
-    padded with one seq_len-0 row to the batch bucket."""
+    """Layer 0's caches (with their scale pages for int8 KV) and a decode
+    batch's block tables / seq_lens, padded with one seq_len-0 row to the
+    batch bucket."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving.engine import _bucket_for
@@ -307,8 +448,9 @@ def capture_batch(eng, reqs):
     sl[:len(reqs)] = [r.seq.num_tokens for r in reqs]
     if not np.any(sl[:len(reqs)] % eng.page_size):
         sl[0] -= 1                  # make one length end mid-page
-    k, v = eng.kv_caches[0]
-    return {"k": k.clone(), "v": v.clone(),
+    layer = [t.clone() for t in eng.kv_caches[0]]
+    return {"k": layer[0], "v": layer[1],
+            "scales": layer[2:] or None,
             "bt": torch.from_numpy(bt).cuda(),
             "sl": torch.from_numpy(sl).cuda(),
             "heads": eng.num_heads}
@@ -387,6 +529,250 @@ def phase_kernels(capture, launches, seed: int, card: str):
                        "max_pages": bt.shape[1], "live_tokens": live,
                        "dtype": "bfloat16"},
              "bytes": nbytes, "flops": flops, "card": card}]
+
+
+def _rel_err(got, want) -> float:
+    d = (got.float() - want.float()).norm()
+    return (d / want.float().norm().clamp_min(1e-30)).item()
+
+
+def qmm_shapes():
+    """(name: (M, K, N)) of the int8 matmul checks: Llama-3-8B's decode
+    GEMMs at the batch bucket (16 rows), gate/up at the prefill token
+    budget (512 rows), and a ragged shape."""
+    from paddle_tpu_torch.models.llama import llama_3_8b
+    cfg = llama_3_8b()
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    return {"gate_up_m16": (16, h, i), "down_m16": (16, i, h),
+            "lm_head_m16": (16, h, v), "gate_up_m512": (512, h, i),
+            "ragged": (5, 200, 72)}
+
+
+def qmm_inputs(shape, seed: int):
+    """Seeded x (M, K) fp32 and a seeded (K, N) weight quantized by
+    `weight_quantize` (int8, fp32 per-column scales), on the card."""
+    import torch
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    M, K, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed + M + K + N)
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
+    qw, scale = weight_quantize(w)
+    return x, qw, scale
+
+
+def synthetic_int8_decode(seed: int):
+    """An int8 paged decode batch at the serve phase's shape (B 16,
+    H 32, KVH 8, D 128, page 16), seeded: bf16-drawn K/V quantized by
+    `quantize_kv`, shuffled pages, lengths 128-1088 with one ending
+    mid-page and a seq_len-0 pad row."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.paged_attention import quantize_kv
+    B, KVH, D, page, P = 16, 8, 128, 16, 72
+    rng = np.random.RandomState(seed + 5)
+    sl = rng.randint(128, P * page + 1, size=B).astype(np.int32)
+    sl[0] -= 1 if sl[0] % page == 0 else 0
+    sl[-1] = 0
+    pages = int(np.sum(-(-sl // page))) + 1
+    perm = rng.permutation(pages - 1) + 1
+    bt = np.zeros((B, P), np.int32)
+    n = 0
+    for b in range(B):
+        k = -(-int(sl[b]) // page)
+        bt[b, :k] = perm[n:n + k]
+        n += k
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    k8, ks = quantize_kv(torch.randn(pages, KVH, page, D, generator=gen,
+                                     device="cuda").bfloat16())
+    v8, vs = quantize_kv(torch.randn(pages, KVH, page, D, generator=gen,
+                                     device="cuda").bfloat16())
+    return {"k": k8, "v": v8, "scales": [ks, vs],
+            "bt": torch.from_numpy(bt).cuda(),
+            "sl": torch.from_numpy(sl).cuda(), "heads": 32}
+
+
+def check_quant_kernels(seed: int, decode=None):
+    """The int8 paged-decode kernel (on `decode`, a captured int8 batch,
+    or a synthetic one) with bf16 and fp32 queries — max abs error within
+    2e-2 / 1e-4 of the plain version, as for the full-width kernel, the
+    pad row exact zeros — and the int8 matmul at `qmm_shapes` in bf16
+    (||got - ref|| / ||ref|| <= 1e-2, the output's rounding) and fp32
+    (max abs error <= 1e-4 of max |ref|). Returns (errors, failures,
+    q): errors[kernel][case] = {"err", "limit"}; failures lists the
+    (kernel, case) that missed or gave a non-finite value. Launches here
+    are not counted as the main path's."""
+    import torch
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_attention_decode, paged_attention_decode_ref)
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
+    if decode is None:
+        decode = synthetic_int8_decode(seed)
+    k8, v8, bt, sl = decode["k"], decode["v"], decode["bt"], decode["sl"]
+    ks, vs = decode["scales"]
+    B, H, D = bt.shape[0], decode["heads"], k8.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+    pad = int((sl == 0).nonzero()[0, 0])
+    errs = {"paged_attention_decode_int8": {}, "quant_matmul": {}}
+    failures = []
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        args = (q.to(dt), k8, v8, bt, sl)
+        got = paged_attention_decode(*args, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        want = paged_attention_decode_ref(*args, k_scale=ks, v_scale=vs)
+        err = _max_err(got, want)
+        case = str(dt).replace("torch.", "")
+        errs["paged_attention_decode_int8"][case] = {"err": err,
+                                                     "limit": tol}
+        if not (err <= tol and torch.isfinite(got).all()
+                and torch.all(got[pad] == 0)):
+            failures.append(("paged_attention_decode_int8", case))
+    for name, shape in qmm_shapes().items():
+        x, qw, scale = qmm_inputs(shape, seed)
+        for dt in (torch.bfloat16, torch.float32):
+            xx = x.to(dt)
+            got = quant_matmul(xx, qw, scale)
+            torch.cuda.synchronize()
+            want = quant_matmul_ref(xx, qw, scale)
+            case = f"{name}_{str(dt).replace('torch.', '')}"
+            if dt == torch.bfloat16:
+                err, lim = _rel_err(got, want), 1e-2
+            else:
+                err = _max_err(got, want)
+                lim = 1e-4 * want.float().abs().max().item()
+            errs["quant_matmul"][case] = {"err": err, "limit": lim,
+                                          "max_abs": _max_err(got, want)}
+            if not (err <= lim and torch.isfinite(got).all()):
+                failures.append(("quant_matmul", case))
+            del got, want, xx
+        del x, qw, scale
+    return errs, failures, q
+
+
+def phase_quant_kernels(capture, launches, seed: int, card: str):
+    """The int8 paged-decode kernel on layer 0 of a live serve_quant
+    decode batch and the int8 matmul at the main path's shapes, against
+    their plain versions, then timed beside them, a library call and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_attention_decode, paged_attention_decode_ref)
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_ref)
+    from paddle_tpu_torch.nn.quant import weight_dequantize
+
+    errs, failures, q = check_quant_kernels(seed, capture)
+    k8, v8, bt, sl = capture["k"], capture["v"], capture["bt"], capture["sl"]
+    ks, vs = capture["scales"]
+    emit({"phase": "kernel_check", "kernel": "quantized", "batch": bt.shape[0],
+          "seq_lens": sl.tolist(), "errors": errs})
+    if failures:
+        raise AssertionError(f"quantized kernels disagree with their plain "
+                             f"versions: {failures}")
+
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    # --- int8 paged decode, bf16 queries (the main path's)
+    B, H, D = q.shape
+    _, KVH, page, _ = k8.shape
+    args = (q, k8, v8, bt, sl)
+    kernel_ms = time_ms(lambda: paged_attention_decode(
+        *args, k_scale=ks, v_scale=vs), flush_buf.zero_)
+    plain_ms = time_ms(lambda: paged_attention_decode_ref(
+        *args, k_scale=ks, v_scale=vs), flush_buf.zero_)
+    # library yardstick: SDPA with GQA over the same KV gathered and
+    # dequantized to bf16 beforehand (not timed); never called by the port
+    idx = bt.long()
+
+    def dense(c, sc):
+        g = (c[idx].float() * sc[idx][..., None]).bfloat16()
+        return g.permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)
+    kd, vd = dense(k8, ks), dense(v8, vs)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < sl[:, None])[:, None, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True),
+        flush_buf.zero_)
+    del kd, vd
+    live = int(sl.sum())
+    nbytes = (2 * live * KVH * (D + 4)           # int8 K + V and scales
+              + 2 * B * H * D * q.element_size()  # q in, out
+              + bt.numel() * 4 + sl.numel() * 4)
+    flops = 4 * live * H * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    name, source, replaces = KERNEL["paged_attention_decode_int8"]
+    e = errs[name]
+    rows.append({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": e["bfloat16"]["err"],
+                 "max_abs_err_fp32": e["float32"]["err"],
+                 "ms": kernel_ms, "kernel_ms": kernel_ms,
+                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "library_ms": library_ms,
+                 "library": "torch.nn.functional.scaled_dot_product_attention"
+                            "(enable_gqa=True), KV pre-gathered and "
+                            "dequantized to bf16",
+                 "shape": {"B": B, "H": H, "KVH": KVH, "D": D, "page": page,
+                           "max_pages": bt.shape[1], "live_tokens": live,
+                           "q": "bfloat16", "kv": "int8 + fp32 scales"},
+                 "bytes": nbytes, "flops": flops, "card": card})
+
+    # --- int8 matmul at the main path's shapes, bf16 x
+    per_shape = {}
+    for sname, (M, K, N) in qmm_shapes().items():
+        if sname == "ragged":
+            continue
+        x, qw, scale = qmm_inputs((M, K, N), seed)
+        xb = x.bfloat16()
+        ms = time_ms(lambda: quant_matmul(xb, qw, scale), flush_buf.zero_)
+        pms = time_ms(lambda: quant_matmul_ref(xb, qw, scale),
+                      flush_buf.zero_, reps=10, warmup=2)
+        # library yardstick, never called by the port: the bf16 GEMM the
+        # int8 path replaces (twice the weight bytes)
+        wb = weight_dequantize(qw, scale, out_dtype="bfloat16")
+        lms = time_ms(lambda: torch.matmul(xb, wb), flush_buf.zero_)
+        del wb
+        nb = K * N + N * 4 + M * K * 2 + M * N * 2
+        fl = 2 * M * K * N
+        b_ms = nb / HBM_BYTES_PER_S * 1e3
+        o_ms = fl / PEAK_FLOPS["bfloat16"] * 1e3
+        per_shape[sname] = {"M": M, "K": K, "N": N, "ms": ms, "plain_ms": pms,
+                            "library_ms": lms, "bound_ms": max(b_ms, o_ms),
+                            "bound_by": ("bytes" if b_ms >= o_ms
+                                         else "operations"),
+                            "bytes": nb, "flops": fl,
+                            "gb_per_s": nb / ms / 1e6,
+                            "rel_err_bf16": errs["quant_matmul"][
+                                f"{sname}_bfloat16"]["err"]}
+        del x, qw, scale, xb
+    head = per_shape["gate_up_m16"]
+    name, source, replaces = KERNEL["quant_matmul"]
+    rows.append({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": errs["quant_matmul"][
+                     "gate_up_m16_bfloat16"]["max_abs"],
+                 "max_abs_err_fp32": errs["quant_matmul"][
+                     "gate_up_m16_float32"]["max_abs"],
+                 "rel_err": head["rel_err_bf16"],
+                 "ms": head["ms"], "kernel_ms": head["ms"],
+                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                 "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"],
+                 "library": "torch.matmul on the bf16 dequantized weight",
+                 "shape": {"M": head["M"], "K": head["K"], "N": head["N"],
+                           "x": "bfloat16", "w": "int8 + fp32 scales",
+                           "row_is": "gate_up_m16"},
+                 "shapes": per_shape, "bytes": head["bytes"],
+                 "flops": head["flops"], "card": card})
+    return rows
 
 
 def phase_train(seed: int):
@@ -765,7 +1151,11 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": reports})
 
-    launches, capture = phase_serve(args.seed)
+    launches, capture, served = phase_serve(args.seed)
+    gc.collect()                  # the bf16 engine goes; its model stays
+    torch.cuda.empty_cache()
+    quant_launches, quant_capture = phase_serve_quant(served, args.seed)
+    del served
     gc.collect()                  # the serving model and engine go
     torch.cuda.empty_cache()
     train_launches, bucket = phase_train(args.seed)
@@ -776,6 +1166,11 @@ def main(argv=None) -> int:
     kernels += phase_flash_kernels(train_launches, args.seed, card)
     kernels.append(phase_adamw_kernel(train_launches, bucket, args.seed,
                                       card))
+    del bucket
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_quant_kernels(quant_capture, quant_launches, args.seed,
+                                   card)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

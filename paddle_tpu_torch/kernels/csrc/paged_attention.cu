@@ -5,7 +5,10 @@
 // `paged_attention_decode`): one decode token per sequence attends over
 // its KV pages through an int32 block table, grouped-query heads
 // (query head h reads KV head h / G), positions >= seq_len masked, fp32
-// online softmax, output in the query dtype.
+// online softmax, output in the query dtype. Both of the TPU kernel's
+// variants are here, chosen by the template flag kInt8: full-width K/V
+// pages in the query dtype, and (quantized=True there) int8 K/V pages
+// with fp32 per-(page, head, slot) scale pages at the same page ids.
 //
 // Bound on this card: bandwidth. Each live K/V row is read once (one
 // token's K+V for all KV heads of Llama-3-8B is 4 KiB in bf16) and the
@@ -31,8 +34,21 @@
 //   * a sequence with seq_len == 0 (a bucket pad row) never enters the
 //     loop and writes exact zeros (the sum is clamped at 1e-30, as on
 //     the TPU).
+// int8 variant: a lane loads its D/32 int8 values of the K and V rows
+// (one 32-bit word at D = 128; 16-bit words at D = 64 and 192, where the
+// lane's slice is not 4-byte aligned) plus the row's fp32 scale, which
+// all lanes read from one address. The reference dequantizes first
+// (k = q8 * scale, then q . k); here the K scale multiplies the
+// warp-summed dot product and the V scale the softmax weight p, which
+// is the same sum, since a row's scale is one factor of all its terms:
+// sum_e q_e (k8_e s) = s sum_e q_e k8_e, and p (v8_e s) = (p s) v8_e.
+// Only the rounding order differs. The bytes per live token halve
+// (D + 4 against 2 D per head), but the kernel is latency-bound (a
+// chain of dependent loads per warp), so it is not expected to run much
+// faster than the full-width one; the scale load adds a second
+// dependent load per row.
 // Not done here (later work): split-K over pages when B*KVH < #SMs,
-// cp.async/TMA pipelining of pages, the int8 KV variant.
+// cp.async/TMA pipelining of pages.
 //
 // The kernel launches on the caller's stream, allocates nothing, and
 // the C entry returns cudaGetLastError() of the launch.
@@ -115,6 +131,32 @@ struct Elem {
   }
 };
 
+// One lane's EPL int8 values of a row, sign-extended to fp32 (exact),
+// loaded as the widest words the lane's byte offset (lane * EPL) keeps
+// aligned.
+template <int EPL>
+__device__ __forceinline__ void load_row_int8(const void* base, size_t elem,
+                                              float (&x)[EPL]) {
+  const char* p = reinterpret_cast<const char*>(base) + elem;
+  if constexpr (EPL % 4 == 0) {
+    uint32_t w[EPL / 4];
+    load_words<EPL / 4>(p, w);
+#pragma unroll
+    for (int i = 0; i < EPL; ++i)
+      x[i] = static_cast<float>(
+          static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu));
+  } else {
+    static_assert(EPL % 2 == 0, "int8 rows need an even slice per lane");
+    const uint16_t* v = reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int i = 0; i < EPL / 2; ++i) {
+      const uint16_t h = v[i];
+      x[2 * i] = static_cast<float>(static_cast<int8_t>(h & 0xffu));
+      x[2 * i + 1] = static_cast<float>(static_cast<int8_t>(h >> 8));
+    }
+  }
+}
+
 template <bool kBf16, int EPL>
 __device__ __forceinline__ void load_row(const void* base, size_t elem,
                                          float (&x)[EPL]) {
@@ -133,11 +175,15 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // grid (KVH, B), block Warps<G, D>::value * 32, dynamic shared memory
-// max_pages int32. EPL = D / 32 elements per lane.
-template <bool kBf16, int G, int EPL>
+// max_pages int32. EPL = D / 32 elements per lane. kBf16 names the
+// query/output type (and the cache type unless kInt8); kInt8 reads int8
+// caches with the fp32 scale pages ks/vs (unused otherwise).
+template <bool kBf16, bool kInt8, int G, int EPL>
 __global__ void __launch_bounds__(Warps<G, EPL * 32>::value * 32)
 paged_decode_kernel(const void* __restrict__ q, const void* __restrict__ kc,
                     const void* __restrict__ vc,
+                    const float* __restrict__ ks,
+                    const float* __restrict__ vs,
                     const int32_t* __restrict__ block_tables,
                     const int32_t* __restrict__ seq_lens,
                     void* __restrict__ out, int H, int KVH, int page,
@@ -178,19 +224,28 @@ paged_decode_kernel(const void* __restrict__ q, const void* __restrict__ kc,
     for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
-  const size_t head_stride = static_cast<size_t>(page) * D;
-  const size_t page_stride = static_cast<size_t>(KVH) * head_stride;
   for (int t0 = warp * kUnroll; t0 < len; t0 += kWarps * kUnroll) {
     float kx[kUnroll][EPL], vx[kUnroll][EPL];
+    // per-row dequant scales (1 for full-width caches)
+    float ksc[kUnroll], vsc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
+      ksc[u] = 1.f;
+      vsc[u] = 1.f;
       if (t < len) {
         const size_t pg = static_cast<size_t>(s_table[t / page]);
-        const size_t off = pg * page_stride + h * head_stride
-                           + static_cast<size_t>(t % page) * D + lane * EPL;
-        load_row<kBf16, EPL>(kc, off, kx[u]);
-        load_row<kBf16, EPL>(vc, off, vx[u]);
+        const size_t row = (pg * KVH + h) * page + (t % page);
+        const size_t off = row * D + lane * EPL;
+        if constexpr (kInt8) {
+          load_row_int8<EPL>(kc, off, kx[u]);
+          load_row_int8<EPL>(vc, off, vx[u]);
+          ksc[u] = ks[row];
+          vsc[u] = vs[row];
+        } else {
+          load_row<kBf16, EPL>(kc, off, kx[u]);
+          load_row<kBf16, EPL>(vc, off, vx[u]);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
@@ -208,24 +263,25 @@ paged_decode_kernel(const void* __restrict__ q, const void* __restrict__ kc,
         float part = 0.f;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) part = fmaf(qv[g][e], kx[u][e], part);
-        s[u] = (t0 + u < len) ? warp_sum(part) * scale : kNegInf;
+        s[u] = (t0 + u < len) ? warp_sum(part) * ksc[u] * scale : kNegInf;
         mc = fmaxf(mc, s[u]);
       }
       const float mn = fmaxf(m[g], mc);
       const float alpha = (m[g] <= kNegInf / 2) ? 0.f : expf(m[g] - mn);
-      float p[kUnroll];
+      float p[kUnroll], pv[kUnroll];
       float psum = 0.f;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         p[u] = (s[u] <= kNegInf / 2) ? 0.f : expf(s[u] - mn);
         psum += p[u];
+        pv[u] = kInt8 ? p[u] * vsc[u] : p[u];
       }
       l[g] = l[g] * alpha + psum;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         float a = acc[g][e] * alpha;
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vx[u][e], a);
+        for (int u = 0; u < kUnroll; ++u) a = fmaf(pv[u], vx[u][e], a);
         acc[g][e] = a;
       }
       m[g] = mn;
@@ -262,60 +318,59 @@ paged_decode_kernel(const void* __restrict__ q, const void* __restrict__ kc,
   }
 }
 
-template <bool kBf16, int G, int EPL>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const int32_t* bt, const int32_t* sl, void* out, int B,
-                   int H, int KVH, int page, int max_pages, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid(KVH, B);
-  const size_t table_bytes = sizeof(int32_t) * max_pages;
-  paged_decode_kernel<kBf16, G, EPL>
-      <<<grid, Warps<G, EPL * 32>::value * 32, table_bytes, stream>>>(
-          q, kc, vc, bt, sl, out, H, KVH, page, max_pages, scale);
+// The launch's arguments, passed down the dispatch by reference.
+struct Args {
+  const void* q;
+  const void* kc;
+  const void* vc;
+  const float* ks;
+  const float* vs;
+  const int32_t* bt;
+  const int32_t* sl;
+  void* out;
+  int B, H, KVH, page, max_pages;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <bool kBf16, bool kInt8, int G, int EPL>
+cudaError_t launch(const Args& a) {
+  const dim3 grid(a.KVH, a.B);
+  const size_t table_bytes = sizeof(int32_t) * a.max_pages;
+  paged_decode_kernel<kBf16, kInt8, G, EPL>
+      <<<grid, Warps<G, EPL * 32>::value * 32, table_bytes, a.stream>>>(
+          a.q, a.kc, a.vc, a.ks, a.vs, a.bt, a.sl, a.out, a.H, a.KVH,
+          a.page, a.max_pages, a.scale);
   return cudaGetLastError();
 }
 
-template <bool kBf16, int G>
-cudaError_t dispatch_d(int D, const void* q, const void* kc, const void* vc,
-                       const int32_t* bt, const int32_t* sl, void* out, int B,
-                       int H, int KVH, int page, int max_pages, float scale,
-                       cudaStream_t s) {
+template <bool kBf16, bool kInt8, int G>
+cudaError_t dispatch_d(int D, const Args& a) {
   switch (D) {
     case 64:
-      return launch<kBf16, G, 2>(q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                 max_pages, scale, s);
+      return launch<kBf16, kInt8, G, 2>(a);
     case 128:
-      return launch<kBf16, G, 4>(q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                 max_pages, scale, s);
+      return launch<kBf16, kInt8, G, 4>(a);
     case 192:
-      return launch<kBf16, G, 6>(q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                 max_pages, scale, s);
+      return launch<kBf16, kInt8, G, 6>(a);
     case 256:
-      return launch<kBf16, G, 8>(q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                 max_pages, scale, s);
+      return launch<kBf16, kInt8, G, 8>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <bool kBf16>
-cudaError_t dispatch_g(int G, int D, const void* q, const void* kc,
-                       const void* vc, const int32_t* bt, const int32_t* sl,
-                       void* out, int B, int H, int KVH, int page,
-                       int max_pages, float scale, cudaStream_t s) {
+template <bool kBf16, bool kInt8>
+cudaError_t dispatch_g(int G, int D, const Args& a) {
   switch (G) {
     case 1:
-      return dispatch_d<kBf16, 1>(D, q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                  max_pages, scale, s);
+      return dispatch_d<kBf16, kInt8, 1>(D, a);
     case 2:
-      return dispatch_d<kBf16, 2>(D, q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                  max_pages, scale, s);
+      return dispatch_d<kBf16, kInt8, 2>(D, a);
     case 4:
-      return dispatch_d<kBf16, 4>(D, q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                  max_pages, scale, s);
+      return dispatch_d<kBf16, kInt8, 4>(D, a);
     case 8:
-      return dispatch_d<kBf16, 8>(D, q, kc, vc, bt, sl, out, B, H, KVH, page,
-                                  max_pages, scale, s);
+      return dispatch_d<kBf16, kInt8, 8>(D, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -323,27 +378,46 @@ cudaError_t dispatch_g(int G, int D, const void* q, const void* kc,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (q and out share it). With k_scale
+// and v_scale null the caches hold q's dtype; with both given they are
+// int8 and the scales fp32 (num_pages, KVH, page).
 // Returns a cudaError_t: 0 on a successful launch.
 extern "C" int paged_attention_decode(const void* q, const void* k_cache,
                                       const void* v_cache,
+                                      const void* k_scale,
+                                      const void* v_scale,
                                       const int32_t* block_tables,
                                       const int32_t* seq_lens, void* out,
                                       int B, int H, int KVH, int D, int page,
                                       int max_pages, float scale, int dtype,
                                       void* stream) {
   if (B <= 0 || KVH <= 0 || H % KVH != 0 || page <= 0 || max_pages <= 0 ||
-      max_pages > kMaxTablePages)
+      max_pages > kMaxTablePages || (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = H / KVH;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q,
+               k_cache,
+               v_cache,
+               static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               block_tables,
+               seq_lens,
+               out,
+               B,
+               H,
+               KVH,
+               page,
+               max_pages,
+               scale,
+               static_cast<cudaStream_t>(stream)};
+  const bool int8 = k_scale != nullptr;
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_g<false>(G, D, q, k_cache, v_cache, block_tables, seq_lens,
-                          out, B, H, KVH, page, max_pages, scale, s);
+    e = int8 ? dispatch_g<false, true>(G, D, a)
+             : dispatch_g<false, false>(G, D, a);
   else if (dtype == 1)
-    e = dispatch_g<true>(G, D, q, k_cache, v_cache, block_tables, seq_lens,
-                         out, B, H, KVH, page, max_pages, scale, s);
+    e = int8 ? dispatch_g<true, true>(G, D, a)
+             : dispatch_g<true, false>(G, D, a);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -12,7 +12,13 @@ CUDA tensor it launches the hand-written Hopper kernel
 source note there says what bounds it and how the design answers) or
 raises; on a CPU tensor it runs `paged_attention_decode_ref`, the plain
 PyTorch version beside it. The cache writes are index writes, as they
-were XLA scatters in the reference. The int8 KV variant is not ported.
+were XLA scatters in the reference.
+
+int8 KV (the reference's `kv_dtype="int8"`): value pages are int8 with
+fp32 per-(page, head, slot) scales in (num_pages, KVH, page_size) scale
+pages addressed by the same page ids; writes quantize on the way in
+(`quantize_kv`) and the decode kernel's int8 variant dequantizes on the
+way out. The zeroed pad page dequantizes to exact zeros.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from . import build
 __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
            "paged_cache_write", "paged_cache_write_range",
            "alloc_paged_cache", "check_supported_paged", "paged_page_bytes",
+           "quantize_kv", "KV_QMAX", "KV_SCALE_DTYPE",
            "KERNEL_SOURCE", "CUDA_GROUP_SIZES", "CUDA_MAX_TABLE_PAGES"]
 
 KERNEL_SOURCE = "paged_attention.cu"
@@ -35,20 +42,39 @@ KERNEL_SOURCE = "paged_attention.cu"
 CUDA_GROUP_SIZES = (1, 2, 4, 8)
 CUDA_MAX_TABLE_PAGES = 2048
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# int8 KV: symmetric, qmax 127 (the weight quantizer's convention), fp32
+# per-(token, head) scales
+KV_QMAX = 127.0
+KV_SCALE_DTYPE = torch.float32
+
+
+def quantize_kv(x):
+    """Per-(token, head) symmetric int8 quantization over the head dim.
+
+    x (..., D) float -> (int8 values (..., D), fp32 scales (...,)):
+    fp32 absmax clamped at 1e-10, scale = absmax / 127, values
+    round(x / scale) (half to even) clipped to +-127. dequant(q, s) =
+    q * s is within scale / 2 of x per element."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1).clamp_min(1e-10)
+    scale = absmax / KV_QMAX
+    q = torch.round(xf / scale[..., None]).clamp_(-KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scale.to(KV_SCALE_DTYPE)
 
 
 def paged_page_bytes(num_kv_heads, page_size, head_dim, kv_dtype=None):
-    """Device bytes one page costs: K + V payload. The single source for
-    the engine's pool sizing and bytes-moved accounting."""
+    """Device bytes one page costs: K + V payload, plus the fp32 per-slot
+    scales for int8. The single source for the engine's pool sizing and
+    bytes-moved accounting."""
     if kv_dtype in (None, "bf16", "bfloat16", "float16"):
-        width = 2
+        width, scale_b = 2, 0
     elif kv_dtype in ("float32", "fp32"):
-        width = 4
+        width, scale_b = 4, 0
     elif kv_dtype == "int8":
-        raise ValueError("int8 KV pages are not ported to paddle_tpu_torch")
+        width, scale_b = 1, 4
     else:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
-    return 2 * num_kv_heads * page_size * head_dim * width
+    return 2 * num_kv_heads * page_size * (head_dim * width + scale_b)
 
 
 def _dtype_name(dtype) -> str:
@@ -58,7 +84,9 @@ def _dtype_name(dtype) -> str:
 def check_supported_paged(q_shape, cache_shape, dtype, kv_dtype=None):
     """Static shape validation, the reference's rules: q head_dim equals
     the cache's, H a multiple of KVH, head_dim a multiple of 64 and at
-    most 256, page_size a multiple of 8, bfloat16 or float32."""
+    most 256, page_size a multiple of 8, bfloat16 or float32 queries.
+    `kv_dtype` names a quantized cache storage: None (the query dtype)
+    or "int8"."""
     B, H, D = q_shape
     num_pages, KVH, page_size, Dc = cache_shape
     if D != Dc:
@@ -72,28 +100,32 @@ def check_supported_paged(q_shape, cache_shape, dtype, kv_dtype=None):
         raise ValueError(f"page_size {page_size} must be a multiple of 8")
     if _dtype_name(dtype) not in ("bfloat16", "float32"):
         raise ValueError(f"unsupported dtype {dtype} (bfloat16/float32)")
-    if kv_dtype is not None:
-        raise ValueError(f"kv_dtype {kv_dtype!r} is not ported (the cache "
-                         "holds the compute dtype)")
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (None or "
+                         "'int8')")
 
 
 def paged_attention_decode_ref(q, k_cache, v_cache, block_tables, seq_lens,
-                               sm_scale=None):
+                               sm_scale=None, k_scale=None, v_scale=None):
     """Plain PyTorch version: gather each sequence's pages into a dense
-    (B, KVH, P*page, D) view, score in fp32, mask positions >= seq_len,
-    softmax, weight V. A row with seq_len 0 gives zeros (the sum is
-    clamped at 1e-30 like the kernels)."""
+    (B, KVH, P*page, D) view (int8 pages dequantized during the gather,
+    values times their per-slot scales in fp32, the reference kernel's
+    order), score in fp32, mask positions >= seq_len, softmax, weight V.
+    A row with seq_len 0 gives zeros (the sum is clamped at 1e-30 like
+    the kernels)."""
     B, H, D = q.shape
     _, KVH, page, _ = k_cache.shape
     G = H // KVH
     scale = 1.0 / math.sqrt(D) if sm_scale is None else float(sm_scale)
     bt = block_tables.long()
 
-    def dense(cache):                      # (B, KVH, P*page, D) fp32
+    def dense(cache, sc):                  # (B, KVH, P*page, D) fp32
         g = cache[bt].float()              # (B, P, KVH, page, D)
+        if sc is not None:
+            g = g * sc[bt][..., None]
         return g.permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)
 
-    k, v = dense(k_cache), dense(v_cache)
+    k, v = dense(k_cache, k_scale), dense(v_cache, v_scale)
     qg = q.reshape(B, KVH, G, D).float()
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k) * scale
     live = (torch.arange(k.shape[2], device=q.device)[None, :]
@@ -107,21 +139,46 @@ def paged_attention_decode_ref(q, k_cache, v_cache, block_tables, seq_lens,
     return o.reshape(B, H, D).to(q.dtype)
 
 
-def _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens):
+def _check_scales(k_cache, k_scale, v_scale):
+    """The reference's loud mismatch rules: scales come in pairs, only
+    with an int8 cache, and an int8 cache needs them. Returns whether
+    the cache is quantized."""
+    quantized = k_scale is not None or v_scale is not None
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if quantized and k_cache.dtype != torch.int8:
+        raise ValueError(f"scales given but cache dtype is {k_cache.dtype}, "
+                         f"not int8")
+    if not quantized and k_cache.dtype == torch.int8:
+        raise ValueError("int8 cache needs k_scale/v_scale")
+    return quantized
+
+
+def _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens,
+                     k_scale=None, v_scale=None):
     B, H, _ = q.shape
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("seq_lens", seq_lens)):
+    quantized = k_scale is not None
+    tensors = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+               ("block_tables", block_tables), ("seq_lens", seq_lens)]
+    if quantized:
+        tensors += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("seq_lens", seq_lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    want = torch.int8 if quantized else q.dtype
+    if k_cache.dtype != want or v_cache.dtype != want:
         raise ValueError(f"cache dtype {k_cache.dtype}/{v_cache.dtype} "
-                         f"must equal q dtype {q.dtype}")
+                         f"must be {want} (q dtype {q.dtype})")
     if v_cache.shape != k_cache.shape:
         raise ValueError("k_cache and v_cache shapes differ")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != KV_SCALE_DTYPE or t.shape != k_cache.shape[:3]:
+                raise ValueError(f"{name} must be {KV_SCALE_DTYPE} "
+                                 f"{tuple(k_cache.shape[:3])}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise ValueError("block_tables and seq_lens must be int32")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -137,10 +194,10 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens):
                          f"the CUDA kernel takes {CUDA_GROUP_SIZES}")
 
 
-# the C entry of csrc/paged_attention.cu: q, k_cache, v_cache,
-# block_tables, seq_lens, out, B, H, KVH, D, page, max_pages, scale,
-# dtype, stream -> cudaError_t
-C_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+# the C entry of csrc/paged_attention.cu: q, k_cache, v_cache, k_scale,
+# v_scale, block_tables, seq_lens, out, B, H, KVH, D, page, max_pages,
+# scale, dtype, stream -> cudaError_t (null scales: full-width caches)
+C_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -158,28 +215,34 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
 
     q:            (B, H, D) — current-step queries; query head h reads
                   KV head h // (H // KVH).
-    k/v_cache:    (num_pages, KVH, page_size, D), q's dtype.
+    k/v_cache:    (num_pages, KVH, page_size, D), q's dtype — or int8
+                  with k/v_scale given.
     block_tables: (B, max_pages) int32 page ids; slot j covers tokens
                   [j*page_size, (j+1)*page_size); unused slots hold a
                   valid page id (0), masked by seq_lens.
     seq_lens:     (B,) int32 live tokens per sequence (including the
                   token being decoded); 0 marks a pad row -> zeros.
+    k/v_scale:    optional (num_pages, KVH, page_size) fp32 per-slot
+                  dequant scales of int8 caches (both or neither).
     Returns (B, H, D) in q's dtype. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (counted in `.launches`) or raise.
+    CUDA tensors launch the kernel or raise. Launches are counted in
+    `.launches` (full-width caches) and `.int8_launches` (int8).
     """
-    if k_scale is not None or v_scale is not None:
-        raise ValueError("int8 KV (k_scale/v_scale) is not ported")
+    quantized = _check_scales(k_cache, k_scale, v_scale)
     B, H, D = q.shape
-    check_supported_paged(q.shape, k_cache.shape, q.dtype)
+    check_supported_paged(q.shape, k_cache.shape, q.dtype,
+                          kv_dtype="int8" if quantized else None)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return paged_attention_decode_ref(q, k_cache, v_cache, block_tables,
-                                          seq_lens, sm_scale)
+                                          seq_lens, sm_scale, k_scale,
+                                          v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode runs on cuda or cpu "
                          f"tensors, not {q.device}")
-    _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens)
+    _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens, k_scale,
+                     v_scale)
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -188,6 +251,8 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 k_scale.data_ptr() if quantized else None,
+                 v_scale.data_ptr() if quantized else None,
                  block_tables.data_ptr(), seq_lens.data_ptr(),
                  out.data_ptr(), B, H, KVH, D, page,
                  block_tables.shape[1], float(sm_scale),
@@ -195,37 +260,69 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
     if err != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed: "
                            f"cudaError {err}")
-    paged_attention_decode.launches += 1
+    if quantized:
+        paged_attention_decode.int8_launches += 1
+    else:
+        paged_attention_decode.launches += 1
     return out
 
 
 paged_attention_decode.launches = 0
+paged_attention_decode.int8_launches = 0
 
 
 def alloc_paged_cache(num_kv_heads, num_pages, page_size, head_dim,
-                      dtype=torch.bfloat16, device=None):
-    """An empty (k, v) paged cache pair in the kernel's layout, on the
-    card unless `device` says otherwise."""
+                      dtype=torch.bfloat16, device=None, kv_dtype=None):
+    """An empty paged cache in the kernel's layout, on the card unless
+    `device` says otherwise: (k, v) in `dtype`, or with kv_dtype="int8"
+    (k, v, k_scale, v_scale) — int8 value pages and zeroed fp32
+    (num_pages, KVH, page_size) scale pages (zero scales dequantize the
+    pad page to exact zeros)."""
     shape = (num_pages, num_kv_heads, page_size, head_dim)
     dev = resolve_device(device)
+    if kv_dtype == "int8":
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:3], dtype=KV_SCALE_DTYPE, device=dev),
+                torch.zeros(shape[:3], dtype=KV_SCALE_DTYPE, device=dev))
+    if kv_dtype is not None:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
+def _maybe_quantize(cache, new, scale):
+    """Quantize-on-write when the cache is int8. Returns (values to
+    write, per-slot scales or None); raises on a scale/dtype mismatch so
+    a mis-threaded engine config fails loudly, not as garbage KV."""
+    if scale is None:
+        if cache.dtype == torch.int8:
+            raise ValueError("int8 cache write needs scale buffers")
+        return new.to(cache.dtype), None
+    if cache.dtype != torch.int8:
+        raise ValueError(f"scale buffer given but cache dtype is "
+                         f"{cache.dtype}, not int8")
+    return quantize_kv(new)
+
+
 def paged_cache_write(k_cache, v_cache, k_new, v_new, block_tables,
-                      write_pos):
+                      write_pos, k_scale=None, v_scale=None):
     """Write one step's K/V into the paged cache, IN PLACE (the caches
     are engine-owned; returning them keeps the reference's signature).
 
     k_new/v_new: (B, KVH, D) — the current token's key/value per head.
     write_pos:   (B,) — token index being written (seq_len - 1).
+    k/v_scale:   optional fp32 scale pages of int8 caches: the values
+                 are quantized on write and their per-slot scales land
+                 at the same (page, head, slot) indices.
+    Returns (k_cache, v_cache), plus (k_scale, v_scale) when given.
 
     A bucket pad row carries write_pos -1; the reference drops it (an
     out-of-bounds scatter offset), where a torch index of -1 would wrap
     into the last slot. Here such a row is dropped by construction: it
-    rewrites slot 0 of pad page 0 with that slot's own contents, so the
-    cache is bitwise unchanged, with no host sync. Live rows never
-    address page 0 (the allocator never hands it out).
+    rewrites slot 0 of pad page 0 (values and scale) with that slot's own
+    contents, so the cache is bitwise unchanged, with no host sync. Live
+    rows never address page 0 (the allocator never hands it out).
     """
     num_pages, KVH, page_size, D = k_cache.shape
     pos = write_pos.long()
@@ -237,15 +334,21 @@ def paged_cache_write(k_cache, v_cache, k_new, v_new, block_tables,
     pages = torch.where(dead, torch.zeros_like(pages), pages)
     off = torch.where(dead, torch.zeros_like(pos), pos % page_size)
     heads = torch.arange(KVH, device=k_cache.device)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        vals = torch.where(dead[:, None, None], cache[0, :, 0][None],
-                           new.to(cache.dtype))
-        cache[pages[:, None], heads[None, :], off[:, None]] = vals
-    return k_cache, v_cache
+    idx = (pages[:, None], heads[None, :], off[:, None])
+    for cache, new, scale in ((k_cache, k_new, k_scale),
+                              (v_cache, v_new, v_scale)):
+        vals, sc = _maybe_quantize(cache, new, scale)
+        cache[idx] = torch.where(dead[:, None, None], cache[0, :, 0][None],
+                                 vals)
+        if sc is not None:
+            scale[idx] = torch.where(dead[:, None], scale[0, :, 0][None], sc)
+    if k_scale is None:
+        return k_cache, v_cache
+    return k_cache, v_cache, k_scale, v_scale
 
 
 def paged_cache_write_range(k_cache, v_cache, k_new, v_new, block_table,
-                            length, start=0):
+                            length, start=0, k_scale=None, v_scale=None):
     """Write a prefill span's K/V (one sequence) into the paged cache,
     IN PLACE.
 
@@ -258,6 +361,9 @@ def paged_cache_write_range(k_cache, v_cache, k_new, v_new, block_table,
                   pick an arbitrary winner, which is safe only because
                   page 0 is never read unmasked).
     start:        absolute token position of k_new[0].
+    k/v_scale:    optional fp32 scale pages of int8 caches (quantize on
+                  write; scales at the values' (page, head, slot)).
+    Returns (k_cache, v_cache), plus (k_scale, v_scale) when given.
     """
     num_pages, KVH, page_size, D = k_cache.shape
     S = k_new.shape[0]
@@ -271,7 +377,13 @@ def paged_cache_write_range(k_cache, v_cache, k_new, v_new, block_table,
                         torch.zeros_like(page_idx))
     off = pos % page_size
     heads = torch.arange(KVH, device=k_cache.device)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        cache[pages[:, None], heads[None, :], off[:, None]] = \
-            new.to(cache.dtype)
-    return k_cache, v_cache
+    idx = (pages[:, None], heads[None, :], off[:, None])
+    for cache, new, scale in ((k_cache, k_new, k_scale),
+                              (v_cache, v_new, v_scale)):
+        vals, sc = _maybe_quantize(cache, new, scale)
+        cache[idx] = vals
+        if sc is not None:
+            scale[idx] = sc
+    if k_scale is None:
+        return k_cache, v_cache
+    return k_cache, v_cache, k_scale, v_scale

@@ -1,0 +1,196 @@
+"""Weight-only int8 dequant-matmul (port of
+`paddle_tpu/kernels/quant_matmul.py`), the decode-path GEMM of
+`wq="int8"` serving.
+
+`quant_matmul(x2d, qw, scale)` computes x2d (M, K) @ dequant(qw (K, N)
+int8, scale (N,) fp32) -> (M, N) in x2d's dtype. On CUDA tensors it
+launches the hand-written Hopper kernel of `csrc/quant_matmul.cu` (it
+replaces the Pallas `_kernel`; the source note says what bounds it and
+how the design answers) for every shape, counted in `.launches`, or
+raises; on CPU tensors it runs `quant_matmul_ref`, the plain version with
+the kernel's numerics: fp32 accumulation of x.float() @ qw.float(), the
+per-column scale once at the flush, then the cast.
+
+`dequant_matmul` is the reference's scale-first composition
+(`dequant_matmul_xla`): the weight is dequantized, then multiplied.
+`pick_quant_blocks` keeps the reference's tiling rule only because the
+reference's CPU dispatch (`nn/quant::_wint8_supported`) decides by it
+which of the two compositions a shape takes; `nn/quant` asks it on the
+CPU so that CPU results follow the reference's. Its VMEM sizing is the
+TPU's and plays no part on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+__all__ = ["quant_matmul", "quant_matmul_ref", "dequant_matmul",
+           "pick_quant_blocks", "quant_matmul_supported", "KERNEL_SOURCE",
+           "C_ARGTYPES"]
+
+KERNEL_SOURCE = "quant_matmul.cu"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the reference's tiling rule (kernels/quant_matmul.py): divisor search
+# ceilings, and its scoped-VMEM budget and estimator (analysis/vmem.py)
+_BM_MAX, _BK_MAX, _BN_MAX = 256, 1024, 1024
+_VMEM_BUDGET_BYTES = 16 * 1024 * 1024
+_WIDTH = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+
+
+def _fits(bm, bk, bn, x_dtype) -> bool:
+    """The reference's VMEM estimate of one grid step, double-buffered
+    x / int8 weight / scale / out blocks, the fp32 accumulator and two
+    fp32 copies of the largest block, against its 16 MiB budget."""
+    xw = _WIDTH[x_dtype]
+    blocks = [(bm * bk, xw), (bk * bn, 1), (bn, 4), (bm * bn, xw)]
+    total = sum(2 * math.ceil(n * w) for n, w in blocks)
+    total += bm * bn * 4
+    total += 2 * max(n for n, _ in blocks) * 4
+    return total <= _VMEM_BUDGET_BYTES
+
+
+def _divisor_block(dim, cap, step):
+    b = (min(dim, cap) // step) * step
+    while b >= step:
+        if dim % b == 0:
+            return b
+        b -= step
+    return None
+
+
+def pick_quant_blocks(M, K, N, x_dtype=torch.float32):
+    """The reference's (bm, bk, bn) tiling for the TPU grid, or None when
+    it has no legal one (whole-dim blocks, else divisors that are
+    multiples of 8 / 128 / 128, shrunk K first, then N, then M, until
+    the VMEM estimate fits)."""
+    bm = M if M <= _BM_MAX else _divisor_block(M, _BM_MAX, 8)
+    bk = K if K <= _BK_MAX else _divisor_block(K, _BK_MAX, 128)
+    bn = N if N <= _BN_MAX else _divisor_block(N, _BN_MAX, 128)
+    if bm is None or bk is None or bn is None:
+        return None
+    while not _fits(bm, bk, bn, x_dtype):
+        for dim, cur, floor, step in (("k", bk, 128, 128),
+                                      ("n", bn, 128, 128),
+                                      ("m", bm, 8, 8)):
+            if cur <= floor:
+                continue
+            cand = _divisor_block({"k": K, "n": N, "m": M}[dim], cur // 2,
+                                  step)
+            if cand is None:
+                continue
+            if dim == "k":
+                bk = cand
+            elif dim == "n":
+                bn = cand
+            else:
+                bm = cand
+            break
+        else:
+            return None
+    return bm, bk, bn
+
+
+def quant_matmul_supported(M, K, N, x_dtype=torch.float32) -> bool:
+    """True when the reference's Pallas path has a legal tiling."""
+    return pick_quant_blocks(M, K, N, x_dtype) is not None
+
+
+def quant_matmul_ref(x2d, qw, scale):
+    """Plain version with the kernel's numerics: x.float() @ qw.float()
+    accumulated in fp32, the per-column scale applied once to the sum,
+    then a cast to x's dtype."""
+    acc = x2d.float() @ qw.float()
+    return (acc * scale.float()[None, :]).to(x2d.dtype)
+
+
+def dequant_matmul(x2d, qw, scale):
+    """The scale-first composition (the reference's `dequant_matmul_xla`):
+    materialize the fp32 weight qw * scale, then x.float() @ it, cast to
+    x's dtype."""
+    wf = qw.float() * scale.float()[None, :]
+    return (x2d.float() @ wf).to(x2d.dtype)
+
+
+def _check_cuda_args(x2d, qw, scale):
+    M, K = x2d.shape
+    if qw.dim() != 2 or qw.shape[0] != K or tuple(scale.shape) != \
+            (qw.shape[1],):
+        raise ValueError(f"shapes x {tuple(x2d.shape)}, qw "
+                         f"{tuple(qw.shape)}, scale {tuple(scale.shape)} "
+                         f"do not fit (M, K) @ (K, N) with (N,) scales")
+    if x2d.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x dtype {x2d.dtype}: the kernel takes bfloat16 "
+                         f"or float32")
+    if qw.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise ValueError(f"qw must be int8 and scale float32, got "
+                         f"{qw.dtype} / {scale.dtype}")
+    for name, t in (("qw", qw), ("scale", scale)):
+        if t.device != x2d.device:
+            raise ValueError(f"{name} on {t.device}, x on {x2d.device}")
+    for name, t in (("x", x2d), ("qw", qw), ("scale", scale)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if max(x2d.shape + qw.shape) >= 2 ** 31 or M * qw.shape[1] >= 2 ** 31:
+        raise ValueError("dimensions must fit in int32")
+
+
+# the C entries of csrc/quant_matmul.cu:
+#   quant_matmul(x, q, scale, out, ws, M, K, N, splits, dtype, stream)
+#   quant_matmul_splits(M, K, N, num_sms)
+C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+C_SPLITS_ARGTYPES = [ctypes.c_int] * 4
+
+
+def _kernel_lib():
+    lib = build.load(KERNEL_SOURCE)
+    if lib.quant_matmul.argtypes is None:
+        lib.quant_matmul.argtypes = C_ARGTYPES
+        lib.quant_matmul.restype = ctypes.c_int
+        lib.quant_matmul_splits.argtypes = C_SPLITS_ARGTYPES
+        lib.quant_matmul_splits.restype = ctypes.c_int
+    return lib
+
+
+def quant_matmul(x2d, qw, scale):
+    """x2d (M, K) bf16/fp32 @ dequant(qw (K, N) int8, scale (N,) fp32)
+    -> (M, N) in x2d's dtype. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (counted in `.launches`) or raise."""
+    if x2d.device.type == "cpu":
+        return quant_matmul_ref(x2d, qw, scale)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"quant_matmul runs on cuda or cpu tensors, not "
+                         f"{x2d.device}")
+    _check_cuda_args(x2d, qw, scale)
+    M, K = x2d.shape
+    N = qw.shape[1]
+    out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    lib = _kernel_lib()
+    with torch.cuda.device(x2d.device):
+        sms = torch.cuda.get_device_properties(x2d.device) \
+            .multi_processor_count
+        splits = lib.quant_matmul_splits(M, K, N, sms)
+        ws = (torch.empty((splits, M, N), dtype=torch.float32,
+                          device=x2d.device) if splits > 1 else None)
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = lib.quant_matmul(x2d.data_ptr(), qw.data_ptr(),
+                               scale.data_ptr(), out.data_ptr(),
+                               ws.data_ptr() if ws is not None else None,
+                               M, K, N, splits, _DTYPE_CODE[x2d.dtype],
+                               stream)
+    if err != 0:
+        raise RuntimeError(f"quant_matmul kernel launch failed: cudaError "
+                           f"{err}")
+    quant_matmul.launches += 1
+    return out
+
+
+quant_matmul.launches = 0

@@ -8,6 +8,11 @@ either side: the port rebuilds them from the config. The optimizer's
 state crosses in its canonical per-parameter form (`moment1_<i>`,
 `moment2_<i>`, `master_<i>`, `@step`), which both sides' `state_dict()`
 write whether or not the update was fused.
+
+A state dict of a reference model converted for weight-only serving
+(`quantize_for_serving`, wq="int8"/"int4") carries int8 `*.qweight` and
+fp32 `*.weight_scale` in place of each target's `*.weight`; pass the
+same `wq` and the result loads into a port model converted the same way.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..nn.quant import SERVING_WQ_TARGETS
 from .llama import LlamaConfig
 
 __all__ = ["expected_shapes", "from_jax_state_dict",
@@ -25,8 +31,13 @@ __all__ = ["expected_shapes", "from_jax_state_dict",
 _OPT_KEY = re.compile(r"(moment1|moment2|master)_(\d+)")
 
 
-def expected_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
-    """{parameter name: shape} of a port `LlamaForCausalLM` for `cfg`."""
+def expected_shapes(cfg: LlamaConfig, wq=None) -> Dict[str, tuple]:
+    """{name: shape} of a port `LlamaForCausalLM` state dict for `cfg`;
+    with wq="int8"/"int4", of the model after `quantize_for_serving`:
+    each target's (in, out) `weight` becomes `qweight` ((in, out) int8,
+    (in / 2, out) int4) and `weight_scale` (out,)."""
+    if wq not in (None, "int8", "int4"):
+        raise ValueError(f"wq must be None, 'int8' or 'int4', got {wq!r}")
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     kvd = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
     shapes = {"model.embed_tokens.weight": (v, h),
@@ -53,6 +64,15 @@ def expected_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
             shapes[f"model.layers.{layer}.{name}"] = shape
     if not cfg.tie_word_embeddings:
         shapes["lm_head.weight"] = (h, v)
+    if wq is not None:
+        for name in [n for n in shapes
+                     if n.split(".")[-2:] in ([t, "weight"]
+                                              for t in SERVING_WQ_TARGETS)]:
+            k_in, n_out = shapes.pop(name)
+            base = name[:-len("weight")]
+            shapes[base + "qweight"] = (k_in // 2 if wq == "int4" else k_in,
+                                        n_out)
+            shapes[base + "weight_scale"] = (n_out,)
     return shapes
 
 
@@ -63,12 +83,15 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def from_jax_state_dict(np_state, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+def from_jax_state_dict(np_state, cfg: LlamaConfig,
+                        wq=None) -> Dict[str, torch.Tensor]:
     """{name: numpy array} from the reference -> the port's state dict
     (CPU tensors, the arrays' dtypes), ready for
-    `LlamaForCausalLM.load_state_dict(..., strict=True)`. Raises
-    ValueError on a missing or unexpected name or a shape mismatch."""
-    want = expected_shapes(cfg)
+    `LlamaForCausalLM.load_state_dict(..., strict=True)` — for wq set,
+    into a port model converted by `quantize_for_serving` with the same
+    wq. Raises ValueError on a missing or unexpected name or a shape
+    mismatch."""
+    want = expected_shapes(cfg, wq)
     missing = sorted(set(want) - set(np_state))
     extra = sorted(set(np_state) - set(want))
     if missing or extra:

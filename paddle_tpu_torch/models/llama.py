@@ -4,7 +4,8 @@ Ported: the configs, the rope tables, interleaved-pair rotary, the
 training forward (`LlamaForCausalLM.forward(input_ids, labels)`: causal
 attention through the flash kernels, then the shifted, masked-mean
 cross entropy), and the paged decode / chunked-prefill forward passes
-the serving engine runs, with tied or untied heads. Not ported (they
+the serving engine runs (over full-width or int8 KV pages), with tied
+or untied heads. Not ported (they
 raise): the KV-cache forward of generate(), sequence parallelism,
 recompute, and the pipeline model.
 
@@ -119,11 +120,26 @@ def apply_rotary_positions(x, cos_b, sin_b):
     return _rotate(x, cos_b[:, None, None, :], sin_b[:, None, None, :])
 
 
-def _gather_kv(cache, bt, n_kv, hd, b):
-    """A block table's pages as the dense (b, S, KVH, D) view."""
-    g = cache[bt.long()]                      # (..., P, KVH, page, D)
+def _split_kv(kv):
+    """A layer's paged cache tuple -> (k, v, k_scale|None, v_scale|None):
+    (k, v) full width, or the quantized (k, v, k_scale, v_scale) with
+    int8 value pages and fp32 per-slot scales."""
+    k, v, *scales = kv
+    ks, vs = scales if scales else (None, None)
+    return k, v, ks, vs
+
+
+def _gather_kv(cache, bt, n_kv, hd, b, scale=None, cdt=None):
+    """A block table's pages as the dense (b, S, KVH, D) view; int8
+    caches dequantize during the gather (values times their per-slot
+    scales in fp32, then a cast to the compute dtype `cdt`)."""
+    idx = bt.long()
+    g = cache[idx]                            # (..., P, KVH, page, D)
+    if scale is not None:
+        g = g.float() * scale[idx][..., None]
     g = g.transpose(bt.dim(), bt.dim() + 1)   # (..., P, page, KVH, D)
-    return g.reshape(b, -1, n_kv, hd)
+    g = g.reshape(b, -1, n_kv, hd)
+    return g.to(cdt) if scale is not None else g
 
 
 class LlamaAttention(nn.Module):
@@ -172,18 +188,20 @@ class LlamaAttention(nn.Module):
     def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
         """One decode step over the paged KV cache. x (B, 1, hidden);
         cos_b/sin_b (B, D/2) at each row's position; kv = (k_cache,
-        v_cache); seq_lens (B,) INCLUDING the token being decoded. Writes
-        the token's K/V at seq_lens-1, then attends through the
-        paged-decode kernel. Returns (out, kv)."""
+        v_cache), or (k, v, k_scale, v_scale) for int8 KV; seq_lens (B,)
+        INCLUDING the token being decoded. Writes the token's K/V at
+        seq_lens-1 (quantized on write for int8), then attends through
+        the paged-decode kernel. Returns (out, kv)."""
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
         q = apply_rotary_positions(q, cos_b, sin_b)
         k = apply_rotary_positions(k, cos_b, sin_b)
-        paged_cache_write(kv[0], kv[1], k[:, 0], v[:, 0], block_tables,
-                          seq_lens - 1)
+        kc, vc, ks, vs = _split_kv(kv)
+        paged_cache_write(kc, vc, k[:, 0], v[:, 0], block_tables,
+                          seq_lens - 1, k_scale=ks, v_scale=vs)
         out = paged_attention_decode(
-            q.reshape(b, self.n_heads, self.head_dim), kv[0], kv[1],
-            block_tables, seq_lens)
+            q.reshape(b, self.n_heads, self.head_dim), kc, vc,
+            block_tables, seq_lens, k_scale=ks, v_scale=vs)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
         return self.o_proj(out), kv
 
@@ -192,19 +210,23 @@ class LlamaAttention(nn.Module):
         """One prompt CHUNK over the paged cache. x (1, S, hidden) holds
         tokens at positions cache_len..cache_len+S-1, the first
         chunk_len live; cos_c/sin_c (S, D/2) are the rope rows at those
-        positions; block_table (P,) the sequence's page ids. Writes the
-        chunk's K/V, then attends over the gathered pages (cached prefix
-        plus the chunk) under the mask kpos <= cache_len + i — the
-        bottom-right-aligned causal mask written out, never a top-left
-        `is_causal`. Returns (out, kv)."""
+        positions; block_table (P,) the sequence's page ids; kv as in
+        `forward_paged`. Writes the chunk's K/V (quantized on write for
+        int8), then attends over the gathered pages (cached prefix plus
+        the chunk, dequantized during the gather for int8) under the
+        mask kpos <= cache_len + i — the bottom-right-aligned causal mask
+        written out, never a top-left `is_causal`. Returns (out, kv)."""
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
         q = apply_rotary(q, cos_c, sin_c)
         k = apply_rotary(k, cos_c, sin_c)
-        paged_cache_write_range(kv[0], kv[1], k[0], v[0], block_table,
-                                chunk_len, cache_len)
-        kd = _gather_kv(kv[0], block_table, self.n_kv, self.head_dim, 1)
-        vd = _gather_kv(kv[1], block_table, self.n_kv, self.head_dim, 1)
+        kc, vc, ks, vs = _split_kv(kv)
+        paged_cache_write_range(kc, vc, k[0], v[0], block_table, chunk_len,
+                                cache_len, k_scale=ks, v_scale=vs)
+        kd = _gather_kv(kc, block_table, self.n_kv, self.head_dim, 1,
+                        scale=ks, cdt=q.dtype)
+        vd = _gather_kv(vc, block_table, self.n_kv, self.head_dim, 1,
+                        scale=vs, cdt=q.dtype)
         if self.n_kv != self.n_heads:
             rep = self.n_heads // self.n_kv
             kd = kd.repeat_interleave(rep, dim=2)
@@ -310,7 +332,8 @@ class LlamaModel(nn.Module):
         layer (k_cache, v_cache); seq_lens counts the token being decoded
         (its position is seq_lens-1; a pad row's 0 gathers rope row -1,
         which wraps, exactly as in the reference — the row is
-        discarded). Returns (hidden (B, 1, H), paged_caches)."""
+        discarded); an int8 cache is the per-layer 4-tuple (k, v,
+        k_scale, v_scale). Returns (hidden (B, 1, H), paged_caches)."""
         pos = seq_lens.long() - 1
         cos_b, sin_b = self.rope_cos[pos], self.rope_sin[pos]
         x = self.embed_tokens(input_ids)
@@ -324,7 +347,8 @@ class LlamaModel(nn.Module):
         """One prefill CHUNK. input_ids (1, S) at positions
         cache_len..cache_len+S-1 (first chunk_len live); padded tail
         positions past the rope table are clipped to its last row (they
-        are masked out of attention). Returns (hidden (1, S, H),
+        are masked out of attention); paged_caches as in
+        `forward_paged_decode`. Returns (hidden (1, S, H),
         paged_caches)."""
         s = input_ids.shape[1]
         pos = cache_len + torch.arange(s, device=input_ids.device)

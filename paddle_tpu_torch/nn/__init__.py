@@ -1,4 +1,4 @@
-from . import functional
+from . import functional, quant
 from .layer import Embedding, Linear, RMSNorm
 
-__all__ = ["functional", "Linear", "Embedding", "RMSNorm"]
+__all__ = ["functional", "quant", "Linear", "Embedding", "RMSNorm"]

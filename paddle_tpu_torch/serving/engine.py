@@ -32,12 +32,19 @@ buckets, a request's tokens do not depend on what it is batched with
 engine's `torch.Generator` once per launch, BEFORE the supervised call,
 so a retried launch replays bit-identically.
 
+Quantized serving: `kv_dtype="int8"` keeps every layer's K/V pages as
+int8 with fp32 per-slot scale pages (quantized on write, dequantized by
+the paged-decode kernel's int8 variant and by the prefill gather), so a
+`kv_pool_bytes` budget holds ~1.94x the pages; `wq="int8"` / `"int4"`
+converts the model's MLP and LM-head linears in place to weight-only
+quantized ones before the first launch (`nn.quant.quantize_for_serving`;
+int8 runs the dequant-matmul kernel).
+
 Refused for now (`UnsupportedFeature`): speculative decoding
-(`proposer`), `decode_steps > 1`, int8 KV, weight quantization (`wq`),
-LoRA, tensor parallelism (`mesh`), the host spill tier, disaggregated
-roles, the persistent compile cache and per-request tracing. Snapshot
-and resume are not ported: a failed engine raises `EngineFailure` with
-no snapshot.
+(`proposer`), `decode_steps > 1`, LoRA, tensor parallelism (`mesh`), the
+host spill tier, disaggregated roles, the persistent compile cache and
+per-request tracing. Snapshot and resume are not ported: a failed engine
+raises `EngineFailure` with no snapshot.
 """
 from __future__ import annotations
 
@@ -49,8 +56,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.paged_attention import check_supported_paged, paged_page_bytes
+from ..kernels.paged_attention import (alloc_paged_cache,
+                                       check_supported_paged,
+                                       paged_page_bytes)
 from ..models.generation import _sample, sample_noise
+from ..nn.quant import quantize_for_serving
 from ..utils import faults
 from .errors import EngineFailure, EngineOverloaded, UnsupportedFeature
 from .kv_cache import PAD_PAGE, BlockAllocator
@@ -91,9 +101,8 @@ def _pow2_buckets(lo: int, hi: int) -> List[int]:
     return out
 
 
-def _refuse_unported(*, proposer, decode_steps, kv_dtype, wq,
-                     host_spill_pages, mesh, lora, role, compile_cache,
-                     trace):
+def _refuse_unported(*, proposer, decode_steps, host_spill_pages, mesh,
+                     lora, role, compile_cache, trace):
     """Raise UnsupportedFeature naming every requested feature this
     slice of the port does not have (ValueError for invalid values)."""
     if int(decode_steps) < 1:
@@ -103,8 +112,6 @@ def _refuse_unported(*, proposer, decode_steps, kv_dtype, wq,
     asked = {
         "proposer": proposer is not None,
         "decode_steps>1": int(decode_steps) > 1,
-        "kv_dtype": kv_dtype is not None,
-        "wq": wq is not None,
         "host_spill_pages": int(host_spill_pages) > 0,
         "mesh": mesh is not None,
         "lora": lora is not None,
@@ -125,7 +132,10 @@ class ServingEngine:
     model: a LlamaForCausalLM-protocol module (`forward_paged_prefill`,
     `forward_paged_decode`) whose parameters live on `device` — the card
     unless `device="cpu"` is passed. The engine owns the per-layer
-    paged caches, in the model's dtype, on the same device.
+    paged caches (in the model's dtype, or int8 with scale pages for
+    kv_dtype="int8") on the same device. wq="int8"/"int4" quantizes the
+    model's MLP and LM-head weights IN PLACE at construction, as the
+    reference does.
     """
 
     def __init__(self, model, *, device=None, num_pages: int = 128,
@@ -148,17 +158,27 @@ class ServingEngine:
                  kv_dtype: Optional[str] = None, wq: Optional[str] = None,
                  host_spill_pages: int = 0, mesh=None, lora=None,
                  role: str = "both", compile_cache=None, trace=None):
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', got "
+                             f"{kv_dtype!r}")
+        if wq not in (None, "int8", "int4"):
+            raise ValueError(f"wq must be None, 'int8' or 'int4', got "
+                             f"{wq!r}")
         _refuse_unported(proposer=proposer, decode_steps=decode_steps,
-                         kv_dtype=kv_dtype, wq=wq,
                          host_spill_pages=host_spill_pages, mesh=mesh,
                          lora=lora, role=role, compile_cache=compile_cache,
                          trace=trace)
         self.device = resolve_device(device)
-        params = list(model.parameters())
-        if params[0].device != self.device:
-            raise ValueError(f"model parameters live on {params[0].device}, "
+        first = next(model.parameters())
+        if first.device != self.device:
+            raise ValueError(f"model parameters live on {first.device}, "
                              f"the engine on {self.device}: build the "
                              f"model on the engine's device")
+        # in place, before the first launch: the MLP and LM-head weights
+        # become int8/int4 buffers read by every launch
+        self.num_wq_layers = (quantize_for_serving(
+            model, algo=f"weight_only_{wq}") if wq is not None else 0)
+        params = list(model.parameters())
         cfg = model.cfg
         self.model = model
         self.cfg = cfg
@@ -169,8 +189,12 @@ class ServingEngine:
         self.page_size = int(page_size)
         self.dtype = next(p.dtype for p in params if p.is_floating_point())
         dtype_name = str(self.dtype).replace("torch.", "")
+        # what one page costs in THIS engine (int8 values + fp32 scales,
+        # or the model dtype's full-width pages): the pool sizing, the
+        # capacity gauge and the bytes-moved counters hang off it
+        kv_name = kv_dtype or dtype_name
         self.kv_page_bytes = paged_page_bytes(
-            self.num_kv, self.page_size, self.head_dim, dtype_name)
+            self.num_kv, self.page_size, self.head_dim, kv_name)
         if kv_pool_bytes is not None:
             num_pages = max(2, int(kv_pool_bytes) // self.kv_page_bytes)
         self.num_pages = int(num_pages)
@@ -183,7 +207,7 @@ class ServingEngine:
         check_supported_paged(
             (1, self.num_heads, self.head_dim),
             (self.num_pages, self.num_kv, self.page_size, self.head_dim),
-            self.dtype)
+            self.dtype, kv_dtype=kv_dtype)
 
         # longest sequence a request may ever reach (rope table and page
         # supply both bound it)
@@ -228,16 +252,19 @@ class ServingEngine:
         self._step_t0: Optional[float] = None
         self._last_launch_s: Optional[float] = None
 
-        shape = (self.num_pages, self.num_kv, self.page_size, self.head_dim)
-        # one (k, v) pair per layer, written in place by the launches
-        self._kv = [(torch.zeros(shape, dtype=self.dtype, device=self.device),
-                     torch.zeros(shape, dtype=self.dtype, device=self.device))
+        # one (k, v) pair per layer — (k, v, k_scale, v_scale) for int8 —
+        # written in place by the launches
+        self._kv = [alloc_paged_cache(self.num_kv, self.num_pages,
+                                      self.page_size, self.head_dim,
+                                      dtype=self.dtype, device=self.device,
+                                      kv_dtype=kv_dtype)
                     for _ in range(self.num_layers)]
-        # one token's K+V across every layer (bytes-moved accounting)
+        # one token's K+V across every layer, scales included
+        # (bytes-moved accounting)
         self.kv_bytes_per_token = (self.num_layers * self.kv_page_bytes
                                    // self.page_size)
         self.metrics.set_kv_info(
-            kv_dtype=dtype_name, page_bytes=self.kv_page_bytes,
+            kv_dtype=kv_name, page_bytes=self.kv_page_bytes,
             pool_bytes=self.kv_page_bytes * self.num_pages,
             bytes_per_token=self.kv_bytes_per_token)
 
@@ -249,9 +276,10 @@ class ServingEngine:
 
     @property
     def kv_caches(self):
-        """The per-layer (k_cache, v_cache) paged caches, each
-        (num_pages, KVH, page_size, D); page ids come from the
-        allocator."""
+        """The per-layer paged caches: (k_cache, v_cache), each
+        (num_pages, KVH, page_size, D) — plus (k_scale, v_scale), each
+        (num_pages, KVH, page_size) fp32, for int8 KV; page ids come from
+        the allocator."""
         return self._kv
 
     # ------------------------------------------------------------- intake
@@ -427,11 +455,13 @@ class ServingEngine:
 
     def _apply_copies(self, copies):
         """Device-side copy-on-write: copy a page's rows to a fresh page
-        in every layer's K and V."""
+        in every layer's K and V — and, for int8 KV, its scale rows,
+        which are part of the page: a fork that copied only the values
+        would dequantize them with another page's scales."""
         for src, dst in copies:
-            for kc, vc in self._kv:
-                kc[dst].copy_(kc[src])
-                vc[dst].copy_(vc[src])
+            for layer in self._kv:
+                for t in layer:
+                    t[dst].copy_(t[src])
 
     # ------------------------------------------------------------- step
     def _emit(self, req: Request, tok: int, emitted):

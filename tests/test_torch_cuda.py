@@ -13,7 +13,9 @@ import torch
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_optimizer as fo
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import quant_matmul as qm
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn.quant import weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import ServingEngine
 
@@ -112,6 +114,135 @@ def test_engine_on_card_matches_cpu_and_runs_the_kernel(card):
             assert (pa.paged_attention_decode.launches
                     == eng.metrics.counters["decode_launches"]
                     * cfg.num_hidden_layers > 0)
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------------------ quantized serving
+def _int8_case(G, D, seed, device):
+    """The paged case above with its K/V quantized per (slot, head)."""
+    seq_lens = [0, 1, 17, 128, 37, 64, 5, 99]
+    q, kc, vc, bt, sl = (torch.from_numpy(a).to(device) for a in _paged_case(
+        B=8, KVH=4, G=G, D=D, page=16, max_pages=8, seq_lens=seq_lens,
+        seed=seed))
+    (k8, ks), (v8, vs) = pa.quantize_kv(kc), pa.quantize_kv(vc)
+    return q, k8, v8, ks, vs, bt, sl
+
+
+@pytest.mark.parametrize("G,D", [(4, 128), (1, 64), (2, 192), (8, 256)])
+def test_int8_kernel_matches_plain_version(card, G, D):
+    """The int8 variant against the plain version (which dequantizes
+    first): bf16 q within 2e-2 (output rounding), fp32 within 1e-4
+    (summation order and where the scale multiplies), the pad row exact
+    zeros; counted in `.int8_launches` only."""
+    q, k8, v8, ks, vs, bt, sl = _int8_case(G, D, G * D + 1, card)
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        n0 = (pa.paged_attention_decode.launches,
+              pa.paged_attention_decode.int8_launches)
+        got = pa.paged_attention_decode(q.to(dt), k8, v8, bt, sl,
+                                        k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert (pa.paged_attention_decode.launches,
+                pa.paged_attention_decode.int8_launches) == \
+            (n0[0], n0[1] + 1)
+        want = pa.paged_attention_decode_ref(q.to(dt), k8, v8, bt, sl,
+                                             k_scale=ks, v_scale=vs)
+        assert got.dtype == dt
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (dt, err)
+        assert torch.all(got[0] == 0)
+
+
+# (M, K, N): decode rows at Llama-3-8B's gate and down (the latter split
+# over K), a prefill chunk, the LM head's single prefill row, ragged
+# edges in every dimension, and an odd K that defeats the vector loads
+QMM_CASES = [(16, 4096, 14336), (16, 14336, 4096), (64, 4096, 1024),
+             (1, 4096, 2048), (5, 200, 72), (17, 96, 130), (3, 37, 16)]
+
+
+@pytest.mark.parametrize("case", QMM_CASES, ids=str)
+def test_quant_matmul_matches_plain_version(card, case):
+    """bf16 within ||got - ref|| / ||ref|| <= 1e-2 (the output's
+    rounding), fp32 within 1e-4 of max |ref| (summation order)."""
+    M, K, N = case
+    rng = np.random.RandomState(M + K + N)
+    w = torch.from_numpy((rng.randn(K, N) * 0.02).astype(np.float32))
+    qw, s = (t.to(card) for t in weight_quantize(w))
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(card)
+    for dt in (torch.bfloat16, torch.float32):
+        n0 = qm.quant_matmul.launches
+        got = qm.quant_matmul(x.to(dt), qw, s)
+        torch.cuda.synchronize()
+        assert qm.quant_matmul.launches == n0 + 1
+        want = qm.quant_matmul_ref(x.to(dt), qw, s)
+        assert got.dtype == dt and got.shape == (M, N)
+        if dt == torch.float32:
+            _close(got, want, 1e-4)
+        else:
+            _close_rel(got, want, 1e-2)
+
+
+def test_quantized_kernels_refuse_mismatches(card):
+    q, k8, v8, ks, vs, bt, sl = _int8_case(2, 64, 0, card)
+    with pytest.raises(ValueError, match="both"):
+        pa.paged_attention_decode(q, k8, v8, bt, sl, k_scale=ks)
+    with pytest.raises(ValueError, match="needs"):
+        pa.paged_attention_decode(q, k8, v8, bt, sl)
+    with pytest.raises(ValueError, match="not int8"):
+        pa.paged_attention_decode(q, k8.float(), v8.float(), bt, sl,
+                                  k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="k_scale"):
+        pa.paged_attention_decode(q, k8, v8, bt, sl, k_scale=ks.double(),
+                                  v_scale=vs)
+    with pytest.raises(ValueError, match="k_scale"):
+        pa.paged_attention_decode(q, k8, v8, bt, sl, k_scale=ks[1:],
+                                  v_scale=vs)
+    x = torch.zeros(4, 64, device=card)
+    qw = torch.zeros(64, 32, dtype=torch.int8, device=card)
+    s = torch.ones(32, device=card)
+    with pytest.raises(ValueError, match="int8"):
+        qm.quant_matmul(x, qw.float(), s)
+    with pytest.raises(ValueError, match="float32"):
+        qm.quant_matmul(x, qw, s.bfloat16())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        qm.quant_matmul(x.half(), qw, s)
+    with pytest.raises(ValueError, match="fit"):
+        qm.quant_matmul(x, qw[:32].contiguous(), s)
+    with pytest.raises(ValueError, match="on"):
+        qm.quant_matmul(x, qw.cpu(), s)
+
+
+def test_quantized_engine_on_card_matches_cpu(card):
+    """A tiny fp32 Llama served with wq="int8", kv_dtype="int8" on the
+    card gives the CPU's greedy tokens; every decode launch ran the int8
+    paged-decode kernel once per layer and every launch the int8 matmul
+    kernel 3 times per layer plus once for the head."""
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=128)
+    kw = dict(num_pages=64, page_size=8, token_budget=48, batch_buckets=[8],
+              prefill_buckets=[64], pages_buckets=[8], wq="int8",
+              kv_dtype="int8")
+    rng = np.random.RandomState(1)
+    prompts = [(rng.randint(0, 128, int(n)).tolist(), 6)
+               for n in rng.randint(3, 30, 6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(4))
+        model.to(dev)
+        eng = ServingEngine(model, device=dev, **kw)
+        assert eng.num_wq_layers == 7
+        pa.paged_attention_decode.int8_launches = 0
+        qm.quant_matmul.launches = 0
+        rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
+        eng.run()
+        outs[dev] = [eng.requests[r].output_ids for r in rids]
+        if dev == "cuda":
+            c = eng.metrics.counters
+            assert pa.paged_attention_decode.int8_launches == \
+                c["decode_launches"] * cfg.num_hidden_layers > 0
+            assert qm.quant_matmul.launches == \
+                (c["decode_launches"] + c["prefill_chunks"]) * 7
     assert outs["cuda"] == outs["cpu"]
 
 

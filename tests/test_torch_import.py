@@ -51,3 +51,16 @@ def test_no_source_imports_jax_or_reference(path):
             continue
         assert not any(_forbidden(n) for n in names), \
             f"{path.relative_to(ROOT)}:{node.lineno} imports {names}"
+
+
+def test_walk_reaches_the_quantized_serving_modules():
+    """The probe above imports every module the package walk finds; the
+    quantized-serving ones are among them."""
+    import pkgutil
+
+    import paddle_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                   "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.nn.quant",
+            "paddle_tpu_torch.kernels.quant_matmul",
+            "paddle_tpu_torch.kernels.paged_attention"} <= names

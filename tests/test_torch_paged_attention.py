@@ -78,6 +78,8 @@ def test_check_supported_paged_rejects_like_reference(bad):
 
 
 def test_int8_kv_is_refused():
+    """Scales with a full-width cache, and a float16 query, are refused
+    (int8 caches with their scales: tests/test_torch_quant.py)."""
     args = [torch.from_numpy(a) for a in _paged_case(
         B=1, KVH=1, G=1, D=64, page=8, max_pages=1, seq_lens=[3], seed=0)]
     with pytest.raises(ValueError, match="int8"):

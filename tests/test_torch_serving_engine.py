@@ -85,13 +85,17 @@ def test_engine_greedy_token_identical_to_reference(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(proposer=object()), dict(decode_steps=2), dict(kv_dtype="int8"),
-    dict(wq="int8"), dict(lora=object()), dict(mesh=object()),
-    dict(host_spill_pages=4), dict(role="prefill"),
+    dict(proposer=object()), dict(decode_steps=2), dict(role="decode"),
+    dict(wq="int8", kv_dtype="int8", lora=object()), dict(lora=object()),
+    dict(mesh=object()), dict(host_spill_pages=4), dict(role="prefill"),
     dict(compile_cache="/nonexistent"), dict(trace=True)])
 def test_unported_features_are_refused(models, kw):
+    """Quantized serving is ported (tests/test_torch_serving_quant.py);
+    combined with an unported feature it is refused before the model is
+    converted."""
     with pytest.raises(UnsupportedFeature):
         ServingEngine(models[1], device="cpu", **ENGINE_KW, **kw)
+    assert models[1].lm_head.weight is not None
 
 
 def test_device_defaults_to_the_card():
