@@ -11,7 +11,8 @@ edits the copy's CUDA source (the repository's own files are never
 touched), and in a child process on that copy builds the kernels and
 runs the checks the smoke run applies: `chip_smoke.check_flash_kernels`
 for the flash kernels, `chip_smoke.check_quant_kernels` for the int8
-paged-decode and int8 matmul kernels. The children run together and each
+paged-decode and int8 matmul kernels, `chip_smoke.check_lora_kernels` for
+the LoRA shrink/expand pair. The children run together and each
 is waited for.
 
 Faults:
@@ -23,7 +24,11 @@ Faults:
   * qmm_drop_last_k_tile — the int8 matmul skips the last 32-deep K tile
     of every output tile (K 4096 loses 1/128 of its terms);
   * int8_no_v_scale — the int8 paged-decode kernel ignores the V scale
-    (each V row taken as its raw int8 values).
+    (each V row taken as its raw int8 values);
+  * lora_expand_row0_slot — the LoRA expand kernel reads row 0's slot for
+    every row (each row's own partial sums, another adapter's B);
+  * lora_shrink_drop_last_chunk — the LoRA shrink kernel drops the last
+    H chunk of every row (H 4096 loses 512 of its terms).
 
 The unmodified copy must pass every check. A planted fault counts as
 caught when every output it corrupts fails its check at the main path's
@@ -47,6 +52,8 @@ _DKV_LOOP = "    if (!contributes(q0, k0, kT, off, causal)) continue;\n"
 _ALPHA = "expf(m[r] - mn);"
 _K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
 _V_SCALE = "          vsc[u] = vs[row];\n"
+_EXPAND_SLOT = "  const int slot = ids[b];\n"
+_SHRINK_END = "  const int h1 = min(H, h0 + hchunk);\n"
 # name: (source, [(text, replacement, count)], check)
 FAULTS = {
     "skip_tile": ("flash_attention.cu",
@@ -63,6 +70,13 @@ FAULTS = {
     "int8_no_v_scale": ("paged_attention.cu",
                         [(_V_SCALE, "          vsc[u] = 1.f;\n", 1)],
                         "quant"),
+    "lora_expand_row0_slot": ("lora_matmul.cu",
+                              [(_EXPAND_SLOT, "  const int slot = ids[0];\n",
+                                1)], "lora"),
+    "lora_shrink_drop_last_chunk": (
+        "lora_matmul.cu",
+        [(_SHRINK_END, "  const int h1 = c == chunks - 1 ? h0 "
+          ": min(H, h0 + hchunk);\n", 1)], "lora"),
 }
 CHILD = """
 import json
@@ -71,6 +85,8 @@ out = {{}}
 for check in {checks!r}:
     if check == "flash":
         errs, failures = chip_smoke.check_flash_kernels({seed})
+    elif check == "lora":
+        errs, failures, _ = chip_smoke.check_lora_kernels({seed})
     else:
         errs, failures, _ = chip_smoke.check_quant_kernels({seed})
     out[check] = {{"errors": errs, "failures": failures}}
@@ -103,6 +119,15 @@ def must_fail(name: str):
     if name == "qmm_drop_last_k_tile":
         return [("quant", "quant_matmul", f"{s}_bfloat16")
                 for s in qmm_shapes()]
+    if name == "lora_shrink_drop_last_chunk":
+        return [("lora", "lora_matmul", f"{c}_bfloat16")
+                for c in ("decode_r8", "decode_r16", "prefill_r16",
+                          "ragged_r5")]
+    if name == "lora_expand_row0_slot":
+        # a prefill chunk's rows share one slot, and the synthetic rank-8
+        # bucket holds one adapter: there row 0's slot is every row's
+        return [("lora", "lora_matmul", f"{c}_bfloat16")
+                for c in ("decode_r16", "ragged_r5")]
     return [("quant", "paged_attention_decode_int8", "bfloat16")]
 
 
@@ -115,7 +140,7 @@ def main(argv=None) -> int:
         print("chip_fault_check: no CUDA card is available", file=sys.stderr)
         return 2
 
-    copies = {"clean": (None, [], ("flash", "quant"))}
+    copies = {"clean": (None, [], ("flash", "quant", "lora"))}
     copies.update({name: (src, edits, (check,))
                    for name, (src, edits, check) in FAULTS.items()})
     with tempfile.TemporaryDirectory() as tmp:

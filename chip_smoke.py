@@ -20,7 +20,19 @@ Phases, one JSON line each:
                max_new_tokens with finite logits, that the paged-decode
                kernel ran once per layer per decode launch, and that all
                pages return after reset_prefix_cache().
-  4. serve_quant — on the same model object, `ServingEngine(wq="int8",
+  4. serve_lora — on the same bf16 model object, multi-LoRA serving: an
+               `AdapterRegistry` (rank buckets 8 and 16, 4 slots each,
+               all 7 target modules) holding a1 (rank 8), a2 (rank 16)
+               and a3 (rank 16, int8 payload), seeded; the same 16
+               requests on the same schedule, tagged round-robin a1, a2,
+               a3, base. Checks as in phase 3, plus the LoRA shrink and
+               expand kernels once each per (module x layer x rank
+               bucket) per launch, decode launches that mix adapters
+               (adapter_mix p50 > 1), every adapter's refs back to 0 and
+               the registry's invariants. Reports decode tokens/s and
+               step walls beside phase 3's, and whether the base rows'
+               tokens equal phase 3's.
+  5. serve_quant — on the same model object, `ServingEngine(wq="int8",
                kv_dtype="int8")`: the MLP and LM-head weights are
                quantized in place to int8, the KV pages are int8 with
                fp32 scales in the byte budget of phase 3's pool (3971
@@ -32,7 +44,7 @@ Phases, one JSON line each:
                weight bytes before and after, and where each request's
                greedy tokens first leave phase 3's (not gated: random
                weights give near-flat logits).
-  5. train   — the serving model is freed; Llama-3-8B at its published
+  6. train   — the serving model is freed; Llama-3-8B at its published
                widths with depth cut 32 -> 8 layers (bf16, seeded random
                weights) trains on one seeded batch of 1 x 4096 tokens
                with AdamW(3e-4, multi_precision, fused, bf16 moments):
@@ -43,7 +55,7 @@ Phases, one JSON line each:
                layer and the AdamW kernel once per bucket. Reports step
                ms, tokens/s, MFU (bench.py's FLOP reckoning over 989
                TFLOP/s) and peak memory.
-  6. kernels — every kernel against its plain PyTorch version on the same
+  7. kernels — every kernel against its plain PyTorch version on the same
                inputs, then timed with CUDA events (median of 30
                launches, L2 flushed before each) beside its plain
                version, a PyTorch library call computing the same
@@ -75,7 +87,16 @@ Phases, one JSON line each:
                  M 512 and a ragged shape, bf16 within a relative error
                  of 1e-2 and fp32 within 1e-4 of max |ref|
                  (chip_fault_check.py shows that planted faults in
-                 either quantized kernel fail these checks).
+                 either quantized kernel fail these checks);
+               * LoRA shrink + expand: layer 0's gate_proj input, row
+                 slots and gathered stacks of a live serve_lora decode
+                 launch (both rank buckets), a 512-row prefill chunk
+                 and a ragged shape (H 1100, N 72, R 5), bf16 and fp32
+                 x, within 1e-5 of max |ref| (fp32 products either way),
+                 null rows exact zeros, each row bitwise unchanged when
+                 the other rows' ids change (`check_lora_kernels`;
+                 chip_fault_check.py plants two faults); timed beside
+                 the plain version and the gathered bmm composition.
 Then the `{"kernels": [...]}` line, the raw nvidia-smi line, and as the
 last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
@@ -111,7 +132,11 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("paged_attention_decode_int8", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/paged_attention.py:152"),
            ("quant_matmul", _CSRC + "quant_matmul.cu",
-            "paddle_tpu/kernels/quant_matmul.py:162")]
+            "paddle_tpu/kernels/quant_matmul.py:162"),
+           ("lora_shrink", _CSRC + "lora_matmul.cu",
+            "paddle_tpu/kernels/lora_matmul.py:176"),
+           ("lora_expand", _CSRC + "lora_matmul.cu",
+            "paddle_tpu/kernels/lora_matmul.py:176")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the train phase: Llama-3-8B widths, depth cut to fit one card
@@ -123,6 +148,11 @@ FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128), (3, 72, 136, 64))
 # the serve phase's bf16 pool; serve_quant gets the same bytes of int8
 # pages
 SERVE_PAGES = 2048
+# serve_lora: the registry's rank buckets and slots per bucket, and the
+# adapters (name, rank, payload) tagged round-robin with base rows
+LORA_BUCKETS, LORA_SLOTS = (8, 16), 4
+LORA_ADAPTERS = (("a1", 8, None), ("a2", 16, None), ("a3", 16, "int8"))
+LORA_TAGS = tuple(name for name, _, _ in LORA_ADAPTERS) + (None,)
 
 
 def emit(obj) -> None:
@@ -170,6 +200,8 @@ def kernel_kind(name: str) -> str:
         return "paged_decode"
     if "quant_matmul" in n or "reduce_splits" in n:
         return "quant_matmul"
+    if "lora_shrink" in n or "lora_expand" in n:
+        return "lora"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
         return "gemm"
@@ -213,8 +245,9 @@ def serve_prompts(seed: int, vocab: int):
             for n, m in zip(lens, news)]
 
 
-def serve_requests(eng, prompts):
-    """Drive `eng` with `prompts`: 8 up front, 8 once decoding has
+def serve_requests(eng, prompts, adapters=None):
+    """Drive `eng` with `prompts` (tagged with `adapters`, one LoRA
+    adapter name or None per prompt): 8 up front, 8 once decoding has
     begun, until it drains. The first decode-only step after a live
     decode batch of >= 8 rows was captured (`capture_batch`) runs under
     torch.profiler and is reported on its own; the other steps' wall
@@ -222,7 +255,9 @@ def serve_requests(eng, prompts):
     max_new_tokens with finite logits. Returns the serve line's fields,
     the capture and the outputs in prompt order."""
     import torch
-    rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts[:8]]
+    tags = list(adapters or [None] * len(prompts))
+    rids = [eng.add_request(p, max_new_tokens=m, adapter=a)
+            for (p, m), a in zip(prompts[:8], tags)]
     late_added = False
     capture = None
     profiled = None
@@ -233,8 +268,8 @@ def serve_requests(eng, prompts):
     t_serve = time.perf_counter()
     while eng.has_work():
         if not late_added and eng.scheduler.running:
-            rids += [eng.add_request(p, max_new_tokens=m)
-                     for p, m in prompts[8:]]
+            rids += [eng.add_request(p, max_new_tokens=m, adapter=a)
+                     for (p, m), a in zip(prompts[8:], tags[8:])]
             late_added = True
         before = eng.metrics.counters["decode_launches"]
         chunks_before = eng.metrics.counters["prefill_chunks"]
@@ -349,7 +384,7 @@ def phase_serve(seed: int):
     pool_bytes = eng.num_pages * eng.kv_page_bytes
     return ({"paged_attention_decode": launches}, capture,
             {"model": model, "prompts": prompts, "outs": outs,
-             "pool_bytes": pool_bytes, "peak": peak})
+             "pool_bytes": pool_bytes, "peak": peak, "fields": fields})
 
 
 def weight_bytes(model) -> int:
@@ -431,6 +466,331 @@ def phase_serve_quant(served, seed: int):
           "serve_bf16_max_memory_allocated": served["peak"],
           "pages_used_after_reset": eng.allocator.num_used})
     return launches, capture
+
+
+def lora_registry(dims, seed: int):
+    """serve_lora's adapter registry on the card: rank buckets 8 and 16,
+    4 slots each, and the three seeded adapters of LORA_ADAPTERS."""
+    from paddle_tpu_torch.serving.lora import AdapterRegistry, LoRAAdapter
+    reg = AdapterRegistry(dims, rank_buckets=LORA_BUCKETS, slots=LORA_SLOTS,
+                          device="cuda")
+    for i, (name, rank, quant) in enumerate(LORA_ADAPTERS):
+        reg.load(LoRAAdapter.random(name, rank, dims, seed=seed + 11 + i),
+                 quant=quant)
+    return reg
+
+
+def _lora_capture(ctx, x):
+    """A launch's gate_proj input (rows, H), its row slots, and per rank
+    bucket the local slot ids and the gathered (A, Bs) stacks."""
+    return {"x": x.reshape(x.shape[0], -1).clone(),
+            "slots": ctx.row_slots.clone(),
+            "buckets": {r: (ctx._local_ids(bi, 1).clone(),)
+                        + ctx.stacks[r]["gate_proj"]
+                        for bi, r in enumerate(ctx.layout.rank_buckets)}}
+
+
+def phase_serve_lora(served, seed: int):
+    """Multi-LoRA serving on the serve phase's bf16 model (all 32 layers):
+    a registry of the three adapters (all seven target modules), the same
+    16 requests on the same schedule tagged round-robin a1, a2, a3, base.
+    Layer 0's gate_proj input of the decode launch with the most adapter
+    rows among those mixing all three adapters is captured for the
+    kernel check."""
+    import torch
+    from paddle_tpu_torch.kernels.lora_matmul import lora_expand, lora_shrink
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.lora import llama_lora_dims, runtime
+
+    model = served["model"]
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    reg = lora_registry(llama_lora_dims(cfg), seed)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = ServingEngine(model, page_size=16, num_pages=SERVE_PAGES,
+                        batch_buckets=[16], seed=seed, lora=reg)
+    tags = [LORA_TAGS[i % len(LORA_TAGS)]
+            for i in range(len(served["prompts"]))]
+
+    cap, best = {}, [0]
+    delta = runtime.LoRAContext.delta
+
+    def recording(ctx, module, x):
+        # the first gate_proj call of a decode launch is layer 0's; keep
+        # the launch with the most adapter rows that mixes all three
+        # adapters (counted on the host: no device sync)
+        if module == "gate_proj" and x.shape[1] == 1 and \
+                not getattr(ctx, "_looked", False):
+            ctx._looked = True
+            tagged = [r.adapter for r in eng.scheduler.running
+                      if r.adapter is not None]
+            if len(set(tagged)) == len(LORA_ADAPTERS) and \
+                    len(tagged) > best[0]:
+                best[0] = len(tagged)
+                cap.update(_lora_capture(ctx, x))
+        return delta(ctx, module, x)
+
+    torch.cuda.reset_peak_memory_stats()
+    runtime.LoRAContext.delta = recording
+    try:
+        paged_attention_decode.launches = 0      # the main path starts
+        lora_shrink.launches = lora_expand.launches = 0
+        fields, _, outs = serve_requests(eng, served["prompts"], tags)
+        launches = {"paged_attention_decode": paged_attention_decode.launches,
+                    "lora_shrink": lora_shrink.launches,
+                    "lora_expand": lora_expand.launches}  # the path ended
+    finally:
+        runtime.LoRAContext.delta = delta
+    per_launch = len(reg.layout.dims) * cfg.num_hidden_layers \
+        * len(LORA_BUCKETS)
+    launched = fields["decode_launches"] + fields["prefill_launches"]
+    want = {"paged_attention_decode":
+            fields["decode_launches"] * cfg.num_hidden_layers,
+            "lora_shrink": launched * per_launch,
+            "lora_expand": launched * per_launch}
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"serve_lora launches {launches} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    snap = eng.metrics.snapshot()
+    if not snap["adapter_mix_p50"] > 1:
+        raise AssertionError(f"decode launches do not mix adapters: "
+                             f"adapter_mix_p50 {snap['adapter_mix_p50']}")
+    refs = {name: reg.refs_of(name) for name, _, _ in LORA_ADAPTERS}
+    if any(refs.values()):
+        raise AssertionError(f"adapter refs left after the drain: {refs}")
+    reg.check_invariants()
+    eng.reset_prefix_cache()
+    if eng.allocator.num_used != 0:
+        raise AssertionError(f"{eng.allocator.num_used} pages leaked")
+    if not cap:
+        raise AssertionError("no decode launch mixed all three adapters")
+    # base rows: the serve phase's requests, untouched by any adapter
+    base_same = [out == ref for out, ref, a in
+                 zip(outs, served["outs"], tags) if a is None]
+    bf16 = served["fields"]
+    emit({"phase": "serve_lora", "model": "llama_3_8b", "dtype": "bfloat16",
+          "layers": cfg.num_hidden_layers,
+          "adapters": [{"name": n, "rank": r, "payload": q or "float32"}
+                       for n, r, q in LORA_ADAPTERS],
+          "rank_buckets": list(LORA_BUCKETS), "slots": LORA_SLOTS,
+          "targets": list(reg.layout.dims), "load_s": load_s,
+          "pool_bytes": (reg.pool.numel() * 4 + reg.quant_pool.numel()),
+          "tags": tags, **fields, "kernel_launches": launches,
+          "lora_pairs_per_launch": per_launch,
+          "adapter_mix_p50": snap["adapter_mix_p50"],
+          "adapter_mix_p90": snap["adapter_mix_p90"],
+          "adapter_refs_after_drain": refs,
+          "base_rows_identical_to_serve": base_same,
+          "serve_bf16": {k: bf16[k] for k in (
+              "decode_step_ms", "decode_tokens_per_s", "prefill_steps_s",
+              "mixed_steps_s", "decode_steps_s")},
+          "serve_bf16_device_ms": (bf16["profiled_step"] or {}).get(
+              "device_ms"),
+          "max_memory_allocated": peak,
+          "serve_bf16_max_memory_allocated": served["peak"],
+          "pages_used_after_reset": eng.allocator.num_used})
+    return launches, cap
+
+
+def synthetic_lora_decode(seed: int):
+    """A serve_lora-like decode capture without an engine: the registry
+    of phase serve_lora for gate_proj alone at Llama-3-8B's widths, 16
+    rows tagged round-robin a1, a2, a3, base, and a seeded bf16 input."""
+    import torch
+    from paddle_tpu_torch.models.llama import llama_3_8b
+    from paddle_tpu_torch.serving.lora import llama_lora_dims
+    from paddle_tpu_torch.serving.lora.runtime import build_context
+    dims = llama_lora_dims(llama_3_8b(), targets=("gate_proj",))
+    reg = lora_registry(dims, seed)
+    slots = [reg.slot_of(t) if t else 0 for t in LORA_TAGS] * 4
+    ctx = build_context(reg.layout, reg.flat_args(),
+                        torch.tensor(slots, dtype=torch.int32, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    x = torch.randn(len(slots), 1, dims["gate_proj"][0], generator=gen,
+                    device="cuda").bfloat16()
+    return _lora_capture(ctx, x)
+
+
+def lora_cases(seed: int, decode):
+    """{case: (x fp32, ids, A, Bs)} of the LoRA checks: each rank bucket
+    of the decode capture, a prefill chunk of 512 rows (every row the
+    same slot, as one request's chunk) over the capture's rank-16 gate
+    stacks, and a ragged shape (H 1100 and N 72, not multiples of 32,
+    R 5, with a slot-0 row and an id naming no slot)."""
+    import numpy as np
+    import torch
+    cases = {f"decode_r{r}": (decode["x"].float(), ids, a, b)
+             for r, (ids, a, b) in sorted(decode["buckets"].items())}
+    ids16, a16, b16 = decode["buckets"][16]
+    live = ids16[ids16 > 0]
+    slot = int(live[0]) if live.numel() else 1
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    cases["prefill_r16"] = (
+        torch.randn(512, a16.shape[1], generator=gen, device="cuda"),
+        torch.full((512,), slot, dtype=torch.int32, device="cuda"),
+        a16, b16)
+    rng = np.random.RandomState(seed + 9)
+    S, H, R, N, rows = 3, 1100, 5, 72, 37
+    a = rng.randn(S, H, R).astype(np.float32) * 0.02
+    b = rng.randn(S, R, N).astype(np.float32) * 0.02
+    a[0] = b[0] = 0.0
+    ids = rng.randint(1, S, rows).astype(np.int32)
+    ids[:4] = [1, 2, 0, S]
+    cases["ragged_r5"] = (
+        torch.from_numpy(rng.randn(rows, H).astype(np.float32)).cuda(),
+        torch.from_numpy(ids).cuda(), torch.from_numpy(a).cuda(),
+        torch.from_numpy(b).cuda())
+    return cases
+
+
+def check_lora_kernels(seed: int, decode=None):
+    """The LoRA pair (lora_shrink then lora_expand, through `lora_matmul`)
+    on `lora_cases` (over `decode`, a captured serve_lora launch, or a
+    synthetic one) with bf16 and fp32 x against `lora_matmul_ref`: max
+    abs error within 1e-5 of max |ref| (the products are fp32 either way;
+    only the summation order differs), rows of slot 0 or of no slot exact
+    zeros, and each row's delta bitwise unchanged when every other row's
+    id changes. Returns (errors, failures, cases): errors["lora_matmul"]
+    [case] = {"err", "limit", ...}; failures lists the ("lora_matmul",
+    case) that missed. Launches here are not counted as the main
+    path's."""
+    import torch
+    from paddle_tpu_torch.kernels.lora_matmul import (lora_matmul,
+                                                      lora_matmul_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    if decode is None:
+        decode = synthetic_lora_decode(seed)
+    cases = lora_cases(seed, decode)
+    errs, failures = {}, []
+    for name, (x, ids, a, b) in cases.items():
+        S = a.shape[0]
+        null = (ids <= 0) | (ids >= S)
+        for dt in (torch.bfloat16, torch.float32):
+            xx = x.to(dt)
+            got = lora_matmul(xx, ids, a, b)
+            torch.cuda.synchronize()
+            want = lora_matmul_ref(xx, ids, a, b)
+            case = f"{name}_{str(dt).replace('torch.', '')}"
+            err = _max_err(got, want)
+            lim = 1e-5 * want.abs().max().item()
+            # every other row's id changed; a real row keeps its bits
+            r0 = int((~null).nonzero()[0, 0])
+            ids2 = torch.where(torch.arange(len(ids), device=ids.device)
+                               == r0, ids, (ids + 1) % S)
+            again = lora_matmul(xx, ids2, a, b)
+            indep = bool(torch.equal(got[r0], again[r0]))
+            errs[case] = {"err": err, "limit": lim,
+                          "null_rows_zero": bool(torch.all(got[null] == 0)),
+                          "row_independent": indep}
+            if not (err <= lim and torch.isfinite(got).all()
+                    and errs[case]["null_rows_zero"] and indep):
+                failures.append(("lora_matmul", case))
+    return {"lora_matmul": errs}, failures, cases
+
+
+def phase_lora_kernels(decode, launches, seed: int, card: str):
+    """The LoRA kernels on the serve_lora capture (and a prefill chunk and
+    a ragged shape) against their plain versions, then each timed at the
+    main path's decode shape beside the plain version, the gathered bmm
+    composition and the bound; the prefill chunk's times ride along."""
+    import torch
+    from paddle_tpu_torch.kernels.lora_matmul import (
+        lora_chunks, lora_expand, lora_expand_ref, lora_matmul_ref,
+        lora_shrink, lora_shrink_ref)
+
+    errs, failures, cases = check_lora_kernels(seed, decode)
+    emit({"phase": "kernel_check", "kernel": "lora", "errors": errs,
+          "decode_row_slots": decode["slots"].tolist()})
+    if failures:
+        raise AssertionError(f"LoRA kernels disagree with their plain "
+                             f"versions: {failures}")
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fl = flush_buf.zero_
+    per_case = {}
+    for name in ("decode_r16", "prefill_r16"):
+        x, ids, a, b = cases[name]
+        xb = x.bfloat16()
+        rows, H = xb.shape
+        S, _, R = a.shape
+        N = b.shape[2]
+        part = lora_shrink(xb, ids, a)
+        idx = ids.long()
+        # library yardstick, never called by the port: the gathered
+        # composition, A[ids] and Bs[ids] then two batched GEMMs
+        xa = torch.bmm(xb.float()[:, None], a[idx])
+        ms = {"shrink": time_ms(lambda: lora_shrink(xb, ids, a), fl),
+              "expand": time_ms(lambda: lora_expand(part, ids, b), fl)}
+        plain = {"shrink": time_ms(lambda: lora_shrink_ref(xb, ids, a), fl,
+                                   reps=10, warmup=2),
+                 "expand": time_ms(lambda: lora_expand_ref(part, ids, b), fl,
+                                   reps=10, warmup=2)}
+        lib = {"shrink": time_ms(lambda: torch.bmm(xb.float()[:, None],
+                                                   a[idx]), fl),
+               "expand": time_ms(lambda: torch.bmm(xa, b[idx]), fl)}
+        pair_ms = time_ms(lambda: lora_expand(lora_shrink(xb, ids, a),
+                                              ids, b), fl)
+        pair_plain = time_ms(lambda: lora_matmul_ref(xb, ids, a, b), fl,
+                             reps=10, warmup=2)
+        pair_lib = time_ms(lambda: torch.bmm(
+            torch.bmm(xb.float()[:, None], a[idx]), b[idx]), fl)
+        del xa
+        valid = (ids > 0) & (ids < S)
+        live = int(valid.sum())
+        used = len(set(ids[valid].tolist()))
+        chunks = lora_chunks(H)
+        # (bytes each read once / written once, fp32 FMA flops); x is read
+        # only for the live rows, the dead rows get their zeros unread
+        work = {
+            "shrink": (live * H * 2 + used * H * R * 4
+                       + rows * chunks * R * 4, 2 * live * H * R),
+            "expand": (live * chunks * R * 4 + used * R * N * 4
+                       + rows * N * 4, 2 * live * R * N),
+            "pair": (live * H * 2 + used * (H * R + R * N) * 4
+                     + rows * N * 4, 2 * live * (H * R + R * N))}
+        bound = {}
+        for k, (nb, fl_ops) in work.items():
+            b_ms = nb / HBM_BYTES_PER_S * 1e3
+            o_ms = fl_ops / PEAK_FLOPS["float32"] * 1e3
+            bound[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms
+                        else "operations")
+        per_case[name] = {
+            "rows": rows, "H": H, "R": R, "N": N, "slots": S,
+            "live_rows": live, "used_slots": used,
+            "ms": {**ms, "pair": pair_ms},
+            "plain_ms": {**plain, "pair": pair_plain},
+            "library_ms": {**lib, "pair": pair_lib},
+            "bound_ms": {k: v[0] for k, v in bound.items()},
+            "bound_by": {k: v[1] for k, v in bound.items()},
+            "bytes": {k: v[0] for k, v in work.items()},
+            "flops": {k: v[1] for k, v in work.items()}}
+    head = per_case["decode_r16"]
+    e = errs["lora_matmul"]
+    rows_out = []
+    for kern in ("shrink", "expand"):
+        name, source, replaces = KERNEL[f"lora_{kern}"]
+        rows_out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": e["decode_r16_bfloat16"]["err"],
+            "max_abs_err_fp32": e["decode_r16_float32"]["err"],
+            "err_of": "the pair lora_shrink + lora_expand vs "
+                      "lora_matmul_ref",
+            "ms": head["ms"][kern], "kernel_ms": head["ms"][kern],
+            "plain_ms": head["plain_ms"][kern],
+            "bound_ms": head["bound_ms"][kern],
+            "bound_by": head["bound_by"][kern],
+            "library_ms": head["library_ms"][kern],
+            "library": "torch.bmm over the gathered slot stacks "
+                       "(A[ids] / Bs[ids]), gather included",
+            "shape": {"rows": head["rows"], "H": head["H"], "R": head["R"],
+                      "N": head["N"], "slots": head["slots"],
+                      "x": "bfloat16", "row_is": "decode_r16 (gate_proj)"},
+            "shapes": per_case, "bytes": head["bytes"][kern],
+            "flops": head["flops"][kern], "card": card})
+    return rows_out
 
 
 def capture_batch(eng, reqs):
@@ -1154,6 +1514,9 @@ def main(argv=None) -> int:
     launches, capture, served = phase_serve(args.seed)
     gc.collect()                  # the bf16 engine goes; its model stays
     torch.cuda.empty_cache()
+    lora_launches, lora_capture = phase_serve_lora(served, args.seed)
+    gc.collect()                  # the LoRA engine and registry go
+    torch.cuda.empty_cache()
     quant_launches, quant_capture = phase_serve_quant(served, args.seed)
     del served
     gc.collect()                  # the serving model and engine go
@@ -1171,6 +1534,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += phase_quant_kernels(quant_capture, quant_launches, args.seed,
                                    card)
+    del quant_capture
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_lora_kernels(lora_capture, lora_launches, args.seed,
+                                  card)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,9 @@ A state dict of a reference model converted for weight-only serving
 (`quantize_for_serving`, wq="int8"/"int4") carries int8 `*.qweight` and
 fp32 `*.weight_scale` in place of each target's `*.weight`; pass the
 same `wq` and the result loads into a port model converted the same way.
+
+A reference `LoRAAdapter` (numpy factors, rank, alpha) crosses as its
+arrays too (`from_jax_adapter`).
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ import numpy as np
 import torch
 
 from ..nn.quant import SERVING_WQ_TARGETS
+from ..serving.lora.adapter import LoRAAdapter
 from .llama import LlamaConfig
 
 __all__ = ["expected_shapes", "from_jax_state_dict",
-           "from_jax_optimizer_state"]
+           "from_jax_optimizer_state", "from_jax_adapter"]
 
 _OPT_KEY = re.compile(r"(moment1|moment2|master)_(\d+)")
 
@@ -121,3 +125,12 @@ def from_jax_optimizer_state(np_state) -> Dict[str, object]:
         else:
             raise ValueError(f"optimizer state key {key!r} is not ported")
     return out
+
+
+def from_jax_adapter(adapter) -> LoRAAdapter:
+    """The reference's `LoRAAdapter` -> the port's: the same name, rank
+    and alpha, and a copy of every module's fp32 (A, B) arrays."""
+    return LoRAAdapter(adapter.name, adapter.rank,
+                       {m: (np.array(a, np.float32), np.array(b, np.float32))
+                        for m, (a, b) in adapter.weights.items()},
+                       alpha=adapter.alpha)

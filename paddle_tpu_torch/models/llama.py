@@ -5,7 +5,8 @@ training forward (`LlamaForCausalLM.forward(input_ids, labels)`: causal
 attention through the flash kernels, then the shifted, masked-mean
 cross entropy), and the paged decode / chunked-prefill forward passes
 the serving engine runs (over full-width or int8 KV pages), with tied
-or untied heads. Not ported (they
+or untied heads and the multi-LoRA projection hooks (`_lora`: q/k/v of
+every pass, o of the paged passes, gate/up/down of the MLP). Not ported (they
 raise): the KV-cache forward of generate(), sequence parallelism,
 recompute, and the pipeline model.
 
@@ -142,6 +143,23 @@ def _gather_kv(cache, bt, n_kv, hd, b, scale=None, cdt=None):
     return g.to(cdt) if scale is not None else g
 
 
+_apply_lora = None
+
+
+def _lora(name, x, y):
+    """Multi-LoRA serving hook: adds the active launch scope's per-row
+    adapter delta to a projection output. With no scope active
+    (training, lora-less serving) it returns `y` itself, at the cost of
+    one thread-local read. `apply_lora` is resolved on the first call:
+    the serving package imports this module, so it cannot be imported
+    at the top."""
+    global _apply_lora
+    if _apply_lora is None:
+        from ..serving.lora.runtime import apply_lora
+        _apply_lora = apply_lora
+    return _apply_lora(name, x, y)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
                  generator=None):
@@ -159,11 +177,14 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(h, h, **kw)
 
     def _qkv(self, x):
+        """q, k, v of x (B, S, hidden), each through the LoRA hook."""
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.n_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.n_kv, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.n_kv, self.head_dim)
-        return q, k, v
+        q = _lora("q_proj", x, self.q_proj(x))
+        k = _lora("k_proj", x, self.k_proj(x))
+        v = _lora("v_proj", x, self.v_proj(x))
+        return (q.view(b, s, self.n_heads, self.head_dim),
+                k.view(b, s, self.n_kv, self.head_dim),
+                v.view(b, s, self.n_kv, self.head_dim))
 
     def forward(self, x, cos, sin, cache=None, cache_pos=None):
         """Training / full-sequence forward: x (B, S, hidden), cos/sin
@@ -203,7 +224,7 @@ class LlamaAttention(nn.Module):
             q.reshape(b, self.n_heads, self.head_dim), kc, vc,
             block_tables, seq_lens, k_scale=ks, v_scale=vs)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
-        return self.o_proj(out), kv
+        return _lora("o_proj", out, self.o_proj(out)), kv
 
     def forward_paged_prefill(self, x, cos_c, sin_c, kv, block_table,
                               cache_len, chunk_len):
@@ -237,7 +258,7 @@ class LlamaAttention(nn.Module):
         mask = (kpos[None, :] <= qpos[:, None])[None, None]
         out = sdpa_ref(q, kd, vd, mask)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
-        return self.o_proj(out), kv
+        return _lora("o_proj", out, self.o_proj(out)), kv
 
 
 class LlamaMLP(nn.Module):
@@ -252,7 +273,9 @@ class LlamaMLP(nn.Module):
         self.down_proj = Linear(i, h, **kw)
 
     def forward(self, x):
-        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+        h = swiglu(_lora("gate_proj", x, self.gate_proj(x)),
+                   _lora("up_proj", x, self.up_proj(x)))
+        return _lora("down_proj", h, self.down_proj(h))
 
 
 class LlamaDecoderLayer(nn.Module):

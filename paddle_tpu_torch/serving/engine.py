@@ -40,14 +40,24 @@ converts the model's MLP and LM-head linears in place to weight-only
 quantized ones before the first launch (`nn.quant.quantize_for_serving`;
 int8 runs the dequant-matmul kernel).
 
+Multi-LoRA serving: pass `lora` (a `serving.lora.AdapterRegistry` built
+for this model's dims on the engine's device) and tag requests with
+`add_request(adapter=...)`. Adapter A/B factors live paged in the
+registry's pools (refcount pinning, LRU eviction of idle adapters); each
+launch gathers the loaded adapters into per-rank-bucket slot stacks and
+the model's projection hooks add every row's OWN adapter delta through
+the LoRA kernels, so rows of one launch may mix adapters. Radix keys are
+namespaced by (adapter, load generation): prefixes never cross adapters.
+
 Refused for now (`UnsupportedFeature`): speculative decoding
-(`proposer`), `decode_steps > 1`, LoRA, tensor parallelism (`mesh`), the
+(`proposer`), `decode_steps > 1`, tensor parallelism (`mesh`), the
 host spill tier, disaggregated roles, the persistent compile cache and
 per-request tracing. Snapshot and resume are not ported: a failed engine
 raises `EngineFailure` with no snapshot.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Dict, List, Optional
@@ -65,6 +75,9 @@ from ..utils import faults
 from .errors import EngineFailure, EngineOverloaded, UnsupportedFeature
 from .kv_cache import PAD_PAGE, BlockAllocator
 from .metrics import ServingMetrics
+from .lora.adapter import AdapterNotLoaded
+from .lora.runtime import build_context, lora_scope
+from .lora.store import AdapterRegistry
 from .radix_cache import RadixCache
 from .scheduler import Request, RequestState, Scheduler
 from .supervisor import POISON, RetryPolicy, StepSupervisor, classify_failure
@@ -102,7 +115,7 @@ def _pow2_buckets(lo: int, hi: int) -> List[int]:
 
 
 def _refuse_unported(*, proposer, decode_steps, host_spill_pages, mesh,
-                     lora, role, compile_cache, trace):
+                     role, compile_cache, trace):
     """Raise UnsupportedFeature naming every requested feature this
     slice of the port does not have (ValueError for invalid values)."""
     if int(decode_steps) < 1:
@@ -114,7 +127,6 @@ def _refuse_unported(*, proposer, decode_steps, host_spill_pages, mesh,
         "decode_steps>1": int(decode_steps) > 1,
         "host_spill_pages": int(host_spill_pages) > 0,
         "mesh": mesh is not None,
-        "lora": lora is not None,
         "role": role != "both",
         "compile_cache": compile_cache is not None,
         "trace": bool(trace),
@@ -135,7 +147,8 @@ class ServingEngine:
     paged caches (in the model's dtype, or int8 with scale pages for
     kv_dtype="int8") on the same device. wq="int8"/"int4" quantizes the
     model's MLP and LM-head weights IN PLACE at construction, as the
-    reference does.
+    reference does. lora (an AdapterRegistry on the same device) turns
+    on multi-LoRA serving.
     """
 
     def __init__(self, model, *, device=None, num_pages: int = 128,
@@ -166,14 +179,24 @@ class ServingEngine:
                              f"{wq!r}")
         _refuse_unported(proposer=proposer, decode_steps=decode_steps,
                          host_spill_pages=host_spill_pages, mesh=mesh,
-                         lora=lora, role=role, compile_cache=compile_cache,
+                         role=role, compile_cache=compile_cache,
                          trace=trace)
+        if lora is not None and not isinstance(lora, AdapterRegistry):
+            raise TypeError(f"lora must be a serving.lora.AdapterRegistry, "
+                            f"got {type(lora).__name__}")
         self.device = resolve_device(device)
         first = next(model.parameters())
         if first.device != self.device:
             raise ValueError(f"model parameters live on {first.device}, "
                              f"the engine on {self.device}: build the "
                              f"model on the engine's device")
+        if lora is not None and lora.device != self.device:
+            raise ValueError(f"the adapter registry's pools live on "
+                             f"{lora.device}, the engine on {self.device}: "
+                             f"build the registry with the engine's device")
+        # adapter pools, page tables and per-row slots reach every launch
+        # as device tensors; request refs pin adapters until terminal
+        self.lora = lora
         # in place, before the first launch: the MLP and LM-head weights
         # become int8/int4 buffers read by every launch
         self.num_wq_layers = (quantize_for_serving(
@@ -247,6 +270,10 @@ class ServingEngine:
             on_retry=lambda label, attempt: self.metrics.on_step_retry())
         self.failed = False
         self.metrics = ServingMetrics(name=f"serving-{next(_engine_counter)}")
+        if self.lora is not None:
+            # registry lifecycle counters land in this engine's metrics
+            # (loads done before the engine existed carry in)
+            self.lora.bind_counters(self.metrics.counters)
         self.recorder = FlightRecorder(flight_recorder_steps)
         self._step_ev = {"programs": []}
         self._step_t0: Optional[float] = None
@@ -289,13 +316,32 @@ class ServingEngine:
     def add_request(self, prompt_ids, max_new_tokens: int = 32,
                     eos_token_id: Optional[int] = None,
                     ttl_s: Optional[float] = None,
-                    deadline: Optional[float] = None) -> int:
+                    deadline: Optional[float] = None,
+                    adapter: Optional[str] = None) -> int:
         """Queue one request. `ttl_s` (or an absolute engine-clock
         `deadline`) bounds its total lifetime. Raises `EngineOverloaded`
-        when the bounded waiting queue is full."""
+        when the bounded waiting queue is full.
+
+        `adapter` names a LoRA adapter the registry must currently hold:
+        an unknown one is shed typed (`AdapterNotLoaded`) at the door,
+        never served with base weights. An admitted request pins its
+        adapter until it reaches a terminal state."""
         if self.failed:
             raise EngineFailure("engine has failed")
-        req = Request(prompt_ids, max_new_tokens, eos_token_id)
+        if adapter is not None:
+            if self.lora is None:
+                raise AdapterNotLoaded(
+                    f"request names adapter {adapter!r} but this engine "
+                    f"has no adapter registry (lora=None)",
+                    adapter=adapter)
+            if not self.lora.has(adapter):
+                self.metrics.counters["adapter_rejects"] += 1
+                raise AdapterNotLoaded(
+                    f"adapter {adapter!r} is not loaded "
+                    f"(loaded: {self.lora.adapter_names()})",
+                    adapter=adapter)
+        req = Request(prompt_ids, max_new_tokens, eos_token_id,
+                      adapter=adapter)
         if len(req.prompt_ids) + req.max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"prompt {len(req.prompt_ids)} + max_new_tokens "
@@ -314,6 +360,11 @@ class ServingEngine:
         except EngineOverloaded:
             self.metrics.on_shed()
             raise
+        if adapter is not None:
+            self.lora.acquire(adapter)     # pinned until terminal
+            # versioned radix namespace: a reload of the same name never
+            # matches KV cached under the replaced weights
+            req.adapter_key = self.lora.namespace_of(adapter)
         self.requests[req.request_id] = req
         self.metrics.on_add(req.request_id)
         return req.request_id
@@ -330,6 +381,46 @@ class ServingEngine:
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
+
+    # -------------------------------------------------------- multi-LoRA
+    def load_adapter(self, adapter, quant: Optional[str] = None) -> int:
+        """Load a LoRAAdapter into the registry at runtime (only page and
+        table values change). Returns the global launch slot;
+        quant="int8" stores the payload quantized."""
+        if self.lora is None:
+            raise AdapterNotLoaded("engine has no adapter registry "
+                                   "(construct with lora=...)")
+        return self.lora.load(adapter, quant=quant)
+
+    def unload_adapter(self, name: str):
+        """Unload an IDLE adapter (typed AdapterBusy while live requests
+        still pin it)."""
+        if self.lora is None:
+            raise AdapterNotLoaded("engine has no adapter registry "
+                                   "(construct with lora=...)")
+        self.lora.unload(name)
+
+    def _lora_launch_args(self, reqs, B: int) -> tuple:
+        """One launch's LoRA inputs: (row_slots (B,), *registry flat
+        args), on the device; empty when lora is off. Padded batch rows
+        map to global slot 0 (every bucket's null adapter: an exact zero
+        delta)."""
+        if self.lora is None:
+            return ()
+        rows = np.zeros((B,), np.int32)
+        for i, r in enumerate(reqs):
+            if r.adapter is not None:
+                rows[i] = self.lora.slot_of(r.adapter)
+        return (self._to_device(rows),) + self.lora.flat_args()
+
+    def _lora_scope(self, largs):
+        """Scope around a launch's model call: builds the launch's
+        LoRAContext and activates the projection hooks (a null context
+        when lora is off)."""
+        if not largs:
+            return contextlib.nullcontext()
+        return lora_scope(build_context(self.lora.layout, largs[1:],
+                                        largs[0]))
 
     # ----------------------------------------------------------- launches
     def _noise(self, rows: int) -> Optional[torch.Tensor]:
@@ -359,10 +450,11 @@ class ServingEngine:
         # non-final chunks draw nothing: the engine's random stream
         # advances once per token actually emitted
         noise = self._noise(1) if chunk.is_last else None
+        largs = self._lora_launch_args([req], 1)
 
         def launch():
             faults.fire(FAULT_CHUNK)
-            with torch.inference_mode():
+            with torch.inference_mode(), self._lora_scope(largs):
                 logits, _ = self.model.forward_paged_prefill(
                     ids_t, self._kv, bt_t, chunk.start, chunk.length)
                 last = logits[0, 0]      # head ran at the chunk end only
@@ -401,10 +493,14 @@ class ServingEngine:
             sl[i] = r.seq.num_tokens
         ids_t, bt_t, sl_t = (self._to_device(a) for a in (ids, bt, sl))
         noise = self._noise(n)    # drawn once: retries re-run identically
+        largs = self._lora_launch_args(reqs, B)
+        if self.lora is not None:
+            self.metrics.on_adapter_mix(
+                len({r.adapter for r in reqs if r.adapter is not None}))
 
         def launch():
             faults.fire(FAULT_DECODE)
-            with torch.inference_mode():
+            with torch.inference_mode(), self._lora_scope(largs):
                 logits, _ = self.model.forward_paged_decode(
                     ids_t, self._kv, bt_t, sl_t)
                 # finiteness and sampling look at the live rows only;
@@ -655,7 +751,10 @@ class ServingEngine:
         return toks, oks
 
     def _retain(self, req: Request):
-        """Terminal-request retention (bounded window)."""
+        """Terminal-request retention (bounded window). Every terminal
+        path funnels here, so it also unpins the request's adapter."""
+        if self.lora is not None and req.adapter is not None:
+            self.lora.release(req.adapter)
         self._finished_order.append(req.request_id)
         while len(self._finished_order) > self.max_retained_finished:
             self.requests.pop(self._finished_order.pop(0), None)

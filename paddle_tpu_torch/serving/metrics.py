@@ -60,6 +60,18 @@ class ServingMetrics:
             # decode-side launches
             "decode_launches": 0,
             "decode_launch_rows": 0,
+            # multi-LoRA: registry lifecycle (AdapterRegistry.
+            # bind_counters homes them here) — loads, explicit unloads,
+            # LRU evictions of idle adapters, typed load failures (the
+            # injected serving.lora.load_fail fault included), evict-race
+            # guard refusals — and requests rejected at the door for
+            # naming an adapter that is not loaded
+            "adapters_loaded": 0,
+            "adapters_unloaded": 0,
+            "adapters_evicted": 0,
+            "adapter_load_failures": 0,
+            "lora_evict_refusals": 0,
+            "adapter_rejects": 0,
         }
         self._t_start = time.perf_counter()
         self._arrive_t: Dict[int, float] = {}   # in-flight only
@@ -73,6 +85,10 @@ class ServingMetrics:
         # TPOT: decode launch wall seconds / tokens emitted by it
         self._tpot_samples = self.add_reservoir("tpot", scale=1e3,
                                                 suffix="_ms")
+        # distinct adapters per decode launch: p50 > 1 means launches
+        # really mix adapters
+        self._adapter_mix_samples = self.add_reservoir("adapter_mix",
+                                                       digits=2)
         # gauges updated by the engine each step
         self.queue_depth = 0
         self.running = 0
@@ -138,6 +154,10 @@ class ServingMetrics:
         self.counters["decode_launch_rows"] += int(rows)
         if seconds is not None and seconds > 0 and tokens > 0:
             self._tpot_samples.append(seconds / tokens)
+
+    def on_adapter_mix(self, distinct: int):
+        """Distinct adapters (base rows excluded) in one decode launch."""
+        self._adapter_mix_samples.append(int(distinct))
 
     def set_kv_info(self, *, kv_dtype, page_bytes, pool_bytes,
                     bytes_per_token):

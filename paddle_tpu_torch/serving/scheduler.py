@@ -1,6 +1,6 @@
 """Iteration-level continuous-batching scheduler (port of
-`paddle_tpu/serving/scheduler.py`; LoRA namespaces, host-tier promotion
-and the prefill-role handoff are not ported).
+`paddle_tpu/serving/scheduler.py`; host-tier promotion and the
+prefill-role handoff are not ported).
 
 Orca's iteration-level scheduling: every engine step re-forms the batch
 from whatever is in flight, so a finishing request's slot is reused
@@ -35,7 +35,20 @@ from .errors import EngineOverloaded
 from .kv_cache import BlockAllocator, BlocksExhausted
 
 __all__ = ["RequestState", "Request", "PrefillChunk", "ScheduleStep",
-           "Scheduler"]
+           "Scheduler", "adapter_prefix_key"]
+
+
+def adapter_prefix_key(ids, adapter):
+    """Radix-cache key of a (possibly adapter'd) token sequence: a request
+    served under a LoRA adapter namespaces every token with the adapter
+    key, so identical token prefixes under different adapters (or adapter
+    and base) never share cached KV pages, whose K/V differ by the
+    adapter delta. Length-preserving, so the page-alignment math is
+    untouched; the tree compares tokens by equality only, so tuple
+    tokens slot straight in."""
+    if adapter is None:
+        return ids
+    return [(adapter, t) for t in ids]
 
 
 class RequestState(enum.Enum):
@@ -53,7 +66,8 @@ class Request:
 
     def __init__(self, prompt_ids, max_new_tokens: int,
                  eos_token_id: Optional[int] = None,
-                 request_id: Optional[int] = None):
+                 request_id: Optional[int] = None,
+                 adapter: Optional[str] = None):
         self.request_id = (next(_req_counter) if request_id is None
                            else request_id)
         self.prompt_ids = [int(t) for t in prompt_ids]
@@ -79,6 +93,11 @@ class Request:
         self.deadline: Optional[float] = None
         # set by ServingEngine.abort(); honored at the next boundary
         self.aborted = False
+        # LoRA adapter name (None = base model), mapped to a launch slot
+        # per launch. `adapter_key` namespaces the radix keys; the engine
+        # sets it to the registry's versioned (name, load generation)
+        self.adapter = adapter
+        self.adapter_key = adapter
 
     # prompt the next prefill must process (original prompt + anything
     # generated before a preemption — recompute-style resume)
@@ -207,7 +226,11 @@ class Scheduler:
         (finish AND preemption both donate)."""
         if self.prefix_cache is None or req.seq is None:
             return
-        ids = req.prompt_ids + req.output_ids
+        # adapter-namespaced key: an adapter'd request's KV holds the
+        # adapter delta, so it never serves another adapter's (or the
+        # base model's, or a reloaded same-name adapter's) prefix
+        ids = adapter_prefix_key(req.prompt_ids + req.output_ids,
+                                 req.adapter_key)
         n = min(req.num_computed, len(ids), req.seq.num_tokens)
         ps = self.allocator.page_size
         full = (n // ps) * ps
@@ -307,7 +330,8 @@ class Scheduler:
             n = len(ids)
             mpages, m = [], 0
             if self.prefix_cache is not None:
-                mpages, m = self.prefix_cache.match(ids)
+                mpages, m = self.prefix_cache.match(
+                    adapter_prefix_key(ids, req.adapter_key))
                 if m >= n:
                     # full hit: the LAST token must still run through
                     # the model to produce the next-token logits

@@ -12,12 +12,14 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_optimizer as fo
+from paddle_tpu_torch.kernels import lora_matmul as lm
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import quant_matmul as qm
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn.quant import weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import (AdapterRegistry, LoRAAdapter,
+                                      ServingEngine)
 
 pytestmark = pytest.mark.cuda
 
@@ -243,6 +245,130 @@ def test_quantized_engine_on_card_matches_cpu(card):
                 c["decode_launches"] * cfg.num_hidden_layers > 0
             assert qm.quant_matmul.launches == \
                 (c["decode_launches"] + c["prefill_chunks"]) * 7
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------------------------ LoRA
+# (rows, H, R, N, S): the port's small decode shape, Llama-3-8B gate_proj
+# at 16 decode rows (8 H chunks), a ragged one (H and N not multiples of
+# 32, R 5, a partial last chunk) and the largest rank
+LORA_CASES = [(8, 256, 8, 128, 4), (16, 4096, 16, 14336, 4),
+              (37, 1100, 5, 72, 3), (3, 128, 256, 130, 2)]
+
+
+def _lora_case(rows, H, R, N, S, seed, device):
+    """Seeded x, ids (the null slot 0, slot 1, random slots and one id S
+    naming no slot), A and Bs stacks with a NON-zero slot 0 (which no row may
+    read)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(rows, H).astype(np.float32))
+    a = torch.from_numpy((rng.randn(S, H, R) * 0.02).astype(np.float32))
+    b = torch.from_numpy((rng.randn(S, R, N) * 0.02).astype(np.float32))
+    ids = rng.randint(0, S, rows).astype(np.int32)
+    ids[0], ids[1], ids[-1] = 0, 1, S
+    return [t.to(device) for t in (x, torch.from_numpy(ids), a, b)]
+
+
+@pytest.mark.parametrize("case", LORA_CASES, ids=str)
+def test_lora_kernels_match_plain_versions(card, case):
+    """lora_shrink, lora_expand and the pair within 1e-5 of max |ref|
+    (fp32 products either way; only the summation order differs), bf16
+    and fp32 x; rows of slot 0 or no slot exact zeros; one launch each."""
+    x, ids, a, b = _lora_case(*case, seed=sum(case), device=card)
+    null = (ids <= 0) | (ids >= a.shape[0])
+    for dt in (torch.bfloat16, torch.float32):
+        xx = x.to(dt)
+        before = (lm.lora_shrink.launches, lm.lora_expand.launches)
+        got = lm.lora_matmul(xx, ids, a, b)
+        torch.cuda.synchronize()
+        assert (lm.lora_shrink.launches, lm.lora_expand.launches) == \
+            (before[0] + 1, before[1] + 1)
+        want = lm.lora_matmul_ref(xx, ids, a, b)
+        tol = 1e-5 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol, dt
+        assert torch.all(got[null] == 0)
+        part = lm.lora_shrink(xx, ids, a)
+        part_ref = lm.lora_shrink_ref(xx, ids, a)
+        assert (part - part_ref).abs().max().item() <= \
+            1e-5 * part_ref.abs().max().item()
+        out = lm.lora_expand(part_ref, ids, b)
+        out_ref = lm.lora_expand_ref(part_ref, ids, b)
+        assert (out - out_ref).abs().max().item() <= \
+            1e-5 * out_ref.abs().max().item()
+
+
+def test_lora_kernel_rows_are_bitwise_independent(card):
+    """A row's delta keeps every bit when every other row's id and every
+    other slot's weights change."""
+    x, ids, a, b = _lora_case(16, 4096, 16, 4096, 4, seed=3, device=card)
+    ids = torch.full_like(ids, 2)
+    base = lm.lora_matmul(x.bfloat16(), ids, a, b)
+    ids2 = torch.tensor([2, 1, 3, 0, 4, 1] + [2, 3] * 5, dtype=torch.int32,
+                        device=card)
+    a2, b2 = a.clone(), b.clone()
+    a2[[1, 3]] *= 7.0
+    b2[[1, 3]] = -b2[[1, 3]]
+    again = lm.lora_matmul(x.bfloat16(), ids2, a2, b2)
+    keep = ids2 == 2
+    assert torch.equal(base[keep], again[keep])
+
+
+def test_lora_kernels_refuse_what_they_do_not_take(card):
+    x, ids, a, b = _lora_case(4, 256, 8, 64, 3, seed=1, device=card)
+    with pytest.raises(ValueError, match="rank"):
+        lm.lora_matmul(x, ids, torch.zeros(3, 256, 257, device=card),
+                       torch.zeros(3, 257, 64, device=card))
+    with pytest.raises(ValueError, match="int32"):
+        lm.lora_matmul(x, ids.long(), a, b)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        lm.lora_matmul(x.half(), ids, a, b)
+    with pytest.raises(ValueError, match="on"):
+        lm.lora_matmul(x, ids.cpu(), a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lora_matmul(x, ids, a.transpose(1, 2).contiguous()
+                       .transpose(1, 2), b)
+    with pytest.raises(ValueError, match="share"):
+        lm.lora_matmul(x, ids, a, b[:2].contiguous())
+
+
+def test_lora_engine_on_card_matches_cpu(card):
+    """A tiny fp32 Llama served with two rank buckets of adapters (one of
+    them int8) on the card gives the CPU's greedy tokens; every launch
+    ran the LoRA pair once per module, layer and rank bucket."""
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=128)
+    kw = dict(num_pages=64, page_size=8, token_budget=48, batch_buckets=[8],
+              prefill_buckets=[64], pages_buckets=[8])
+    rng = np.random.RandomState(2)
+    names = ["l4", "h8", "q8", None]
+    prompts = [(rng.randint(0, 128, int(n)).tolist(), 6, names[i % 4])
+               for i, n in enumerate(rng.randint(3, 30, 8))]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(4))
+        model.to(dev)
+        reg = AdapterRegistry.for_model(model, rank_buckets=(4, 8), slots=3,
+                                        device=dev)
+        for name, rank, seed, quant in (("l4", 4, 1, None), ("h8", 8, 2, None),
+                                        ("q8", 6, 3, "int8")):
+            reg.load(LoRAAdapter.random(name, rank, reg.layout.dims,
+                                        seed=seed, scale=0.2), quant=quant)
+        eng = ServingEngine(model, device=dev, lora=reg, **kw)
+        lm.lora_shrink.launches = lm.lora_expand.launches = 0
+        rids = [eng.add_request(p, max_new_tokens=m, adapter=a)
+                for p, m, a in prompts]
+        eng.run()
+        outs[dev] = [eng.requests[r].output_ids for r in rids]
+        if dev == "cuda":
+            c = eng.metrics.counters
+            want = (c["decode_launches"] + c["prefill_chunks"]) * 7 \
+                * cfg.num_hidden_layers * 2
+            assert lm.lora_shrink.launches == lm.lora_expand.launches \
+                == want > 0
+            assert all(reg.refs_of(n) == 0 for n in names if n)
+            reg.check_invariants()
     assert outs["cuda"] == outs["cpu"]
 
 

@@ -64,3 +64,17 @@ def test_walk_reaches_the_quantized_serving_modules():
     assert {"paddle_tpu_torch.nn.quant",
             "paddle_tpu_torch.kernels.quant_matmul",
             "paddle_tpu_torch.kernels.paged_attention"} <= names
+
+
+def test_walk_reaches_the_lora_modules():
+    """The multi-LoRA modules are among those the probe imports."""
+    import pkgutil
+
+    import paddle_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                   "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.serving.lora",
+            "paddle_tpu_torch.serving.lora.adapter",
+            "paddle_tpu_torch.serving.lora.store",
+            "paddle_tpu_torch.serving.lora.runtime",
+            "paddle_tpu_torch.kernels.lora_matmul"} <= names

@@ -14,7 +14,8 @@ import torch
 
 from paddle_tpu.serving import ServingEngine as JaxEngine
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.serving import ServingEngine, UnsupportedFeature
+from paddle_tpu_torch.serving import (AdapterRegistry, ServingEngine,
+                                      UnsupportedFeature)
 
 from _torch_parity import SMALL, model_pair
 
@@ -84,17 +85,31 @@ def test_engine_greedy_token_identical_to_reference(models):
     port.allocator.check_invariants()
 
 
+# the string "registry" stands for a CPU AdapterRegistry for SMALL
 @pytest.mark.parametrize("kw", [
     dict(proposer=object()), dict(decode_steps=2), dict(role="decode"),
-    dict(wq="int8", kv_dtype="int8", lora=object()), dict(lora=object()),
+    dict(wq="int8", kv_dtype="int8", decode_steps=2),
+    dict(lora="registry", proposer=object()),
     dict(mesh=object()), dict(host_spill_pages=4), dict(role="prefill"),
     dict(compile_cache="/nonexistent"), dict(trace=True)])
 def test_unported_features_are_refused(models, kw):
-    """Quantized serving is ported (tests/test_torch_serving_quant.py);
-    combined with an unported feature it is refused before the model is
-    converted."""
+    """Quantized serving (tests/test_torch_serving_quant.py) and LoRA
+    (tests/test_torch_serving_lora.py) are ported; combined with an
+    unported feature they are refused, before the model is converted."""
+    if kw.get("lora") == "registry":
+        kw = dict(kw, lora=AdapterRegistry.for_model(models[1],
+                                                     device="cpu"))
     with pytest.raises(UnsupportedFeature):
         ServingEngine(models[1], device="cpu", **ENGINE_KW, **kw)
+    assert models[1].lm_head.weight is not None
+
+
+def test_lora_of_the_wrong_type_is_refused(models):
+    """lora takes an AdapterRegistry; anything else is a TypeError, raised
+    before the model is converted."""
+    with pytest.raises(TypeError, match="AdapterRegistry"):
+        ServingEngine(models[1], device="cpu", lora=object(), wq="int8",
+                      **ENGINE_KW)
     assert models[1].lm_head.weight is not None
 
 
