@@ -12,8 +12,9 @@ touched), and in a child process on that copy builds the kernels and
 runs the checks the smoke run applies: `chip_smoke.check_flash_kernels`
 for the flash kernels, `chip_smoke.check_quant_kernels` for the int8
 paged-decode and int8 matmul kernels, `chip_smoke.check_lora_kernels` for
-the LoRA shrink/expand pair. The children run together and each
-is waited for.
+the LoRA shrink/expand pair, `chip_smoke.check_packed_kernels` for the
+flash kernels' segment and flashmask modes, `chip_smoke.check_norm_kernel`
+for rms_norm_rows. The children run together and each is waited for.
 
 Faults:
   * skip_tile  — the flash forward and dQ kernels skip the second key
@@ -28,11 +29,27 @@ Faults:
   * lora_expand_row0_slot — the LoRA expand kernel reads row 0's slot for
     every row (each row's own partial sums, another adapter's B);
   * lora_shrink_drop_last_chunk — the LoRA shrink kernel drops the last
-    H chunk of every row (H 4096 loses 512 of its terms).
+    H chunk of every row (H 4096 loses 512 of its terms);
+  * seg_global_causal — the segment mode applies the global causal mask
+    (key j <= query i + Sk - Sq) instead of the per-sequence one (pos_k <=
+    pos_q): equal for self-attention over whole documents, wrong once the
+    sequences' q/k lengths differ unevenly (the ragged varlen case);
+  * masked_break_at_gap — the masked modes' fwd and dQ k-loops stop at the
+    first tile that does not contribute (a `break` where a later tile can
+    contribute again): every document after the first loses its keys;
+  * rms_residual_after_square — rms_norm_rows takes the mean of squares of
+    x before the residual is added (the residual joins only the output);
+  * seg_visit_every_tile — the segment mode's skip predicate lets every
+    tile through: the outputs stay right (masked scores add exact zeros),
+    so only the count of visited tile pairs against the plain predicate
+    catches it.
 
 The unmodified copy must pass every check. A planted fault counts as
 caught when every output it corrupts fails its check at the main path's
-shapes in bf16, the main path's type. Prints one JSON line per copy and
+shapes in bf16, the main path's type (seg_global_causal: at the ragged
+varlen case, the only one where the two causal masks differ;
+seg_visit_every_tile: the visited-tile counts of the varlen cases). Prints
+one JSON line per copy and
 exits 0 only when the clean copy passed and every fault was caught.
 """
 from __future__ import annotations
@@ -47,8 +64,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CSRC = "paddle_tpu_torch/kernels/csrc/"
-_FWD_DQ_LOOP = "    if (!contributes(q0, k0, kT, off, causal)) break;\n"
-_DKV_LOOP = "    if (!contributes(q0, k0, kT, off, causal)) continue;\n"
+_FWD_DQ_LOOP = "      if (!contributes(q0, k0, kT, off, causal)) break;\n"
+_DKV_LOOP = "      if (!contributes(q0, k0, kT, off, causal)) continue;\n"
+_SEG_CAUSAL = "(causal && sCol[kT + cj] > rpos[r])"
+_SEG_CAUSAL_DKV = "(causal && kpos[e >> 1] > sCol[kT + ci])"
+_MASKED_LOOP = "    for (int base = 0; base < nk; base += 32) {\n"
+_MASKED_BALLOT = ("                  : 0);\n      }\n"
+                  "      unsigned live = __ballot_sync(0xffffffffu, c);\n")
+_SEG_SKIP = "  return overlap && !(causal && one_seq && all_future);\n"
+_RMS_PASS1 = "    load_row<T, kRes, V>(f, xr, rr, c);\n#pragma unroll\n" \
+             "    for (int i = 0; i < V; ++i) ss = fmaf(f[i], f[i], ss);\n"
 _ALPHA = "expf(m[r] - mn);"
 _K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
 _V_SCALE = "          vsc[u] = vs[row];\n"
@@ -58,9 +83,9 @@ _SHRINK_END = "  const int h1 = min(H, h0 + hchunk);\n"
 FAULTS = {
     "skip_tile": ("flash_attention.cu",
                   [(_FWD_DQ_LOOP, _FWD_DQ_LOOP
-                    + "    if (kt == 1) continue;\n", 2),
+                    + "      if (kt == 1) continue;\n", 2),
                    (_DKV_LOOP, _DKV_LOOP
-                    + "    if (qt == blockIdx.x + 1) continue;\n", 1)],
+                    + "      if (qt == blockIdx.x + 1) continue;\n", 1)],
                   "flash"),
     "no_rescale": ("flash_attention.cu", [(_ALPHA, "1.f;", 1)], "flash"),
     "qmm_drop_last_k_tile": (
@@ -77,6 +102,21 @@ FAULTS = {
         "lora_matmul.cu",
         [(_SHRINK_END, "  const int h1 = c == chunks - 1 ? h0 "
           ": min(H, h0 + hchunk);\n", 1)], "lora"),
+    "seg_global_causal": ("flash_attention.cu",
+                          [(_SEG_CAUSAL, "(causal && col > row + off)", 2),
+                           (_SEG_CAUSAL_DKV, "(causal && key > qi + off)",
+                            1)], "packed"),
+    "masked_break_at_gap": (
+        "flash_attention.cu",
+        [(_MASKED_LOOP, "    bool stop = false;\n" + _MASKED_LOOP, 2),
+         (_MASKED_BALLOT, _MASKED_BALLOT
+          + "      live = stop ? 0u : live & ~(live + 1u);\n"
+          "      stop = stop || live != 0xffffffffu;\n", 2)], "packed"),
+    "seg_visit_every_tile": ("flash_attention.cu",
+                             [(_SEG_SKIP, "  return true;\n", 1)], "packed"),
+    "rms_residual_after_square": (
+        "fused_norm.cu",
+        [(_RMS_PASS1, _RMS_PASS1.replace("kRes", "false"), 1)], "norm"),
 }
 CHILD = """
 import json
@@ -87,6 +127,11 @@ for check in {checks!r}:
         errs, failures = chip_smoke.check_flash_kernels({seed})
     elif check == "lora":
         errs, failures, _ = chip_smoke.check_lora_kernels({seed})
+    elif check == "packed":
+        errs, failures = chip_smoke.check_packed_kernels({seed})
+    elif check == "norm":
+        errs, failures = chip_smoke.check_norm_kernel({seed})
+        errs = {{"rms_norm_rows": errs}}
     else:
         errs, failures, _ = chip_smoke.check_quant_kernels({seed})
     out[check] = {{"errors": errs, "failures": failures}}
@@ -108,7 +153,7 @@ def plant(root: Path, source: str, edits) -> None:
 def must_fail(name: str):
     """The (check, output, case) triples a fault has to make fail: every
     output it corrupts at the main path's shapes in bf16."""
-    from chip_smoke import FLASH_SHAPES, qmm_shapes
+    from chip_smoke import FLASH_SHAPES, NORM_SHAPES, qmm_shapes
     bh, sq, sk, d = FLASH_SHAPES[0]
     flash_case = f"bfloat16_S{sq}x{sk}_D{d}"
     if name == "skip_tile":
@@ -123,6 +168,21 @@ def must_fail(name: str):
         return [("lora", "lora_matmul", f"{c}_bfloat16")
                 for c in ("decode_r8", "decode_r16", "prefill_r16",
                           "ragged_r5")]
+    if name == "seg_global_causal":
+        # the full-width documents are self-attention over whole sequences,
+        # where the two masks coincide; the ragged case's do not
+        return [("packed", o, "varlen_ragged_bfloat16")
+                for o in ("out", "lse", "dq", "dk", "dv")]
+    if name == "masked_break_at_gap":
+        return [("packed", o, f"{c}_bfloat16") for o in ("out", "lse", "dq")
+                for c in ("varlen_full", "flashmask_doc_full")]
+    if name == "seg_visit_every_tile":
+        return [("packed", "tiles", f"{c}_{dt}")
+                for c in ("varlen_full", "varlen_ragged")
+                for dt in ("bfloat16", "float32")]
+    if name == "rms_residual_after_square":
+        return [("norm", "rms_norm_rows", f"{r}x{h}_bfloat16_residual")
+                for r, h in NORM_SHAPES]
     if name == "lora_expand_row0_slot":
         # a prefill chunk's rows share one slot, and the synthetic rank-8
         # bucket holds one adapter: there row 0's slot is every row's
@@ -140,7 +200,8 @@ def main(argv=None) -> int:
         print("chip_fault_check: no CUDA card is available", file=sys.stderr)
         return 2
 
-    copies = {"clean": (None, [], ("flash", "quant", "lora"))}
+    copies = {"clean": (None, [], ("flash", "quant", "lora", "packed",
+                                   "norm"))}
     copies.update({name: (src, edits, (check,))
                    for name, (src, edits, check) in FAULTS.items()})
     with tempfile.TemporaryDirectory() as tmp:

@@ -8,9 +8,9 @@ the kernels build for sm_90a):
 
 Phases, one JSON line each:
   1. device  — the card (`nvidia-smi` name and power limit), torch/CUDA.
-  2. build   — compiles every CUDA kernel of the serving and training
-               paths from the repository's sources (one nvcc per source,
-               in parallel).
+  2. build   — compiles every CUDA kernel of the serving, training and
+               packed-attention paths and rms_norm_rows from the
+               repository's sources (one nvcc per source, in parallel).
   3. serve   — builds Llama-3-8B (`llama_3_8b`, all 32 layers, bf16)
                from seeded random weights on the card and serves 16
                greedy requests (prompts of 128-1024 tokens, 32-64 new
@@ -55,7 +55,26 @@ Phases, one JSON line each:
                layer and the AdamW kernel once per bucket. Reports step
                ms, tokens/s, MFU (bench.py's FLOP reckoning over 989
                TFLOP/s) and peak memory.
-  7. kernels — every kernel against its plain PyTorch version on the same
+  7. packed_attention — Llama-3-8B's attention widths (32 heads, the 8
+               KV heads repeated, head_dim 128, bf16) over one packed row
+               of 8192 tokens, seeded documents of 128-2048 tokens (the
+               last cut to fit), forward + backward (autograd.grad of
+               <out, dout>) through flash_attn_unpadded (causal),
+               flash_attn_varlen_qkvpacked, flashmask_attention with the
+               causal document mask (C 1) and with window_size=1024: 2
+               warm-up and 4 timed calls each. Checks every call launched
+               its variant's fwd, dQ and dK/dV kernels once, finite
+               outputs and gradients, one document's change leaving every
+               other row of outputs and gradients bitwise unchanged, the
+               varlen and document-mask entries within flash_error's bf16
+               limit, one whole-row document against the causal flash
+               kernel, and the tile pairs each kernel counts as visited
+               (a counted launch on each entry's masks) against the plain
+               predicate `flash_visits_ref`. Reports ms per fwd + bwd,
+               TFLOP/s over the allowed (q, k) pairs, those tiles over
+               the grid's, peak memory and one profiled call's device
+               time by kind.
+  8. kernels — every kernel against its plain PyTorch version on the same
                inputs, then timed with CUDA events (median of 30
                launches, L2 flushed before each) beside its plain
                version, a PyTorch library call computing the same
@@ -96,7 +115,26 @@ Phases, one JSON line each:
                  null rows exact zeros, each row bitwise unchanged when
                  the other rows' ids change (`check_lora_kernels`;
                  chip_fault_check.py plants two faults); timed beside
-                 the plain version and the gathered bmm composition.
+                 the plain version and the gathered bmm composition;
+               * the flash kernels' segment and flashmask modes: the
+                 packed row at full width as segments, as the causal
+                 document mask and as the window (plain versions over
+                 head groups of 8), and small ragged cases — varlen with
+                 uneven q/k lengths (Sq 100, Sk 148, D 64), flashmask
+                 causal C 2, non-causal C 2 and C 4, per-head bounds — in
+                 bf16 and fp32 with flash_error's limits, each kernel's
+                 count of visited tile pairs equal to the plain
+                 predicate's (`check_packed_kernels`); timed at full
+                 width (tile summaries prebuilt, as the autograd
+                 Functions pass them) beside SDPA with the equivalent
+                 dense boolean mask and the bound of the allowed pairs;
+               * rms_norm_rows at (4096, 4096), (16, 4096) and (7, 1100),
+                 bf16 and fp32, with an fp32 weight and one in x's dtype,
+                 with and without a residual: bf16 within one bf16 ulp,
+                 fp32 within 1e-5 relative
+                 (`check_norm_kernel`); timed beside
+                 torch.nn.functional.rms_norm and its byte bound (no
+                 main path calls it: 0 launches).
 Then the `{"kernels": [...]}` line, the raw nvidia-smi line, and as the
 last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
@@ -136,7 +174,21 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("lora_shrink", _CSRC + "lora_matmul.cu",
             "paddle_tpu/kernels/lora_matmul.py:176"),
            ("lora_expand", _CSRC + "lora_matmul.cu",
-            "paddle_tpu/kernels/lora_matmul.py:176")]
+            "paddle_tpu/kernels/lora_matmul.py:176"),
+           ("flash_attention_varlen_fwd", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:179"),
+           ("flash_attention_varlen_dq", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:333"),
+           ("flash_attention_varlen_dkv", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:386"),
+           ("flashmask_attention_fwd", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:179"),
+           ("flashmask_attention_dq", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:333"),
+           ("flashmask_attention_dkv", _CSRC + "flash_attention.cu",
+            "paddle_tpu/kernels/flash_attention.py:386"),
+           ("rms_norm_rows", _CSRC + "fused_norm.cu",
+            "paddle_tpu/kernels/fused_norm.py:36")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the train phase: Llama-3-8B widths, depth cut to fit one card
@@ -153,6 +205,17 @@ SERVE_PAGES = 2048
 LORA_BUCKETS, LORA_SLOTS = (8, 16), 4
 LORA_ADAPTERS = (("a1", 8, None), ("a2", 16, None), ("a3", 16, "int8"))
 LORA_TAGS = tuple(name for name, _, _ in LORA_ADAPTERS) + (None,)
+# packed_attention: Llama-3-8B's attention widths (32 query heads, the 8
+# KV heads repeated to 32, head_dim 128) over one packed row of Llama-3's
+# context; documents of seeded lengths in [128, 2048], the last cut to fit
+PACK_TOKENS, PACK_HEADS, PACK_KV_HEADS, PACK_DIM = 8192, 32, 8, 128
+PACK_DOC_LENS, PACK_WINDOW = (128, 2048), 1024
+PACK_WARMUP, PACK_TIMED = 2, 4
+# the reference kernel each masked variant drives it through
+PACK_ENTRY = {"varlen": "paddle_tpu/kernels/flash_attention.py:721",
+              "flashmask": "paddle_tpu/kernels/flash_attention.py:763"}
+# rms_norm_rows: the train phase's tokens x hidden, and decode rows
+NORM_SHAPES = ((TRAIN_SEQ, 4096), (16, 4096), (7, 1100))
 
 
 def emit(obj) -> None:
@@ -1475,6 +1538,651 @@ def phase_adamw_kernel(launches, bucket, seed: int, card: str):
             "bytes": nbytes, "flops": flops, "card": card}
 
 
+# ------------------------------------------------------ packed attention
+def pack_documents(seed: int, total: int = PACK_TOKENS):
+    """Seeded document lengths in PACK_DOC_LENS filling `total` tokens,
+    the last cut to fit."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 12)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.randint(PACK_DOC_LENS[0], PACK_DOC_LENS[1] + 1)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def packed_pairs(lens, window=None) -> int:
+    """Allowed (q, k) pairs per head: causal within each document, or
+    the causal sliding window over the whole row (w + 1 keys a row)."""
+    if window is None:
+        return sum(n * (n + 1) // 2 for n in lens)
+    S = sum(lens)
+    return sum(min(r, window) + 1 for r in range(S))
+
+
+def packed_masks(lens):
+    """The mask kwargs of the flash entries for each packed_attention
+    entry kind, on the card: "varlen" (the documents as segment rows),
+    "document" (C 1 bounds, each column's document end) and "window"
+    (C 1 bounds min(c + PACK_WINDOW + 1, S), what window_size gives)."""
+    import numpy as np
+    import torch
+    S = sum(lens)
+
+    def bounds(b):
+        return torch.tensor(b, dtype=torch.int32, device="cuda").view(1, 1, S)
+    return {"varlen": dict(seg=_segment_rows(lens, lens), H=PACK_HEADS),
+            "document": dict(fm=bounds(np.repeat(np.cumsum(lens), lens)),
+                             fm_causal=True, H=PACK_HEADS),
+            "window": dict(fm=bounds(np.minimum(np.arange(S) + PACK_WINDOW
+                                                + 1, S)),
+                           fm_causal=True, H=PACK_HEADS)}
+
+
+def kernel_tile(dtype, D: int) -> int:
+    """The flash kernels' tile rows (csrc Cfg::kTile): 64, or 32 for fp32
+    at head_dim > 128."""
+    import torch
+    return 32 if dtype == torch.float32 and D > 128 else 64
+
+
+def masked_visits(q, k, v, do, kw, causal, scale):
+    """One counted launch of each masked kernel on (BH, S, D) inputs:
+    ({"fwd", "dq", "dkv": tile pairs the kernel visited}, the plain
+    version's count `flash_visits_ref`, the tile pairs of the grid), all
+    summed over B*H."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    counts = {kern: torch.zeros(1, dtype=torch.int32, device=q.device)
+              for kern in ("fwd", "dq", "dkv")}
+    out, lse = fa.flash_fwd(q, k, v, scale, causal, visits=counts["fwd"],
+                            **kw)
+    args = (q, k, v, do, lse, fa.flash_delta(out, do), scale, causal)
+    fa.flash_dq(*args, visits=counts["dq"], **kw)
+    fa.flash_dkv(*args, visits=counts["dkv"], **kw)
+    BH, Sq, D = q.shape
+    Sk, tile = k.shape[1], kernel_tile(q.dtype, D)
+    plain = fa.flash_visits_ref(BH, Sq, Sk, causal, tile=tile, **kw)
+    grid = BH * -(-Sq // tile) * -(-Sk // tile)
+    return {kern: int(c.item()) for kern, c in counts.items()}, plain, grid
+
+
+def packed_inputs(seed: int, lens, dtype=None):
+    """q (S, 32, 128) and k/v (the 8 KV heads repeated to 32) and a
+    seeded dout, bf16 by default, on the card."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    S, H, KVH, D = sum(lens), PACK_HEADS, PACK_KV_HEADS, PACK_DIM
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+
+    def draw(heads):
+        return torch.randn(S, heads, D, generator=gen, device="cuda")
+    q = draw(H).to(dtype)
+    k, v = (draw(KVH).repeat_interleave(H // KVH, dim=1).to(dtype)
+            for _ in range(2))
+    return q, k, v, draw(H).to(dtype)
+
+
+def packed_entries(lens):
+    """The four entry points of packed_attention, each a function of its
+    leaves (q, k, v, or the packed qkv) -> out (S, H, D), and how to build
+    the leaves from (q, k, v)."""
+    import math
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+    S, D = sum(lens), PACK_DIM
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32,
+                      device="cuda")
+    ends = torch.tensor(np.repeat(np.cumsum(lens), lens), dtype=torch.int32,
+                        device="cuda").view(1, 1, S, 1)
+    mx, scale = max(lens), 1.0 / math.sqrt(D)
+    three = (lambda q, k, v: (q, k, v))
+    return {
+        "flash_attn_unpadded": (three, lambda q, k, v: F.flash_attn_unpadded(
+            q, k, v, cu, cu, mx, mx, scale, causal=True)[0]),
+        "flash_attn_varlen_qkvpacked": (
+            lambda q, k, v: (torch.stack([q, k, v], dim=1),),
+            lambda qkv: F.flash_attn_varlen_qkvpacked(
+                qkv, cu, cu, mx, mx, scale, causal=True)[0]),
+        "flashmask_document": (three, lambda q, k, v: F.flashmask_attention(
+            q[None], k[None], v[None], ends, causal=True)[0]),
+        "flashmask_window": (three, lambda q, k, v: F.flashmask_attention(
+            q[None], k[None], v[None], window_size=PACK_WINDOW,
+            causal=True)[0]),
+    }
+
+
+def _fwd_bwd(fn, leaves, dout):
+    import torch
+    xs = [t.detach().requires_grad_() for t in leaves]
+    out = fn(*xs)
+    grads = torch.autograd.grad(out, xs, dout)
+    return out.detach(), grads
+
+
+def phase_packed_attention(seed: int):
+    """Forward + backward at Llama-3-8B's attention widths over one packed
+    row of documents, through flash_attn_unpadded (causal, the
+    documents' cu_seqlens), flash_attn_varlen_qkvpacked (the same data),
+    flashmask_attention with the causal document mask (C 1, each column's
+    bound its document's end) and with window_size=PACK_WINDOW: 2 warm-up
+    and 4 timed calls each. Checks each call launched its variant's fwd,
+    dQ and dK/dV kernels once, every output and gradient finite, each
+    document isolated bitwise, the varlen and document-mask entries in
+    agreement, and one whole-row document against the plain causal
+    kernel. Returns the main path's launches and the documents."""
+    import math
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    lens = pack_documents(seed)
+    S, H, D = sum(lens), PACK_HEADS, PACK_DIM
+    q, k, v, dout = packed_inputs(seed, lens)
+    entries = packed_entries(lens)
+    fns = {"fwd": fa.flash_fwd, "dq": fa.flash_dq, "dkv": fa.flash_dkv}
+    results, per_entry = {}, {}
+    for f in fns.values():                       # the main path starts
+        f.launches = f.varlen_launches = f.flashmask_launches = 0
+    for name, (make, fn) in entries.items():
+        leaves = make(q, k, v)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        times = []
+        for i in range(PACK_WARMUP + PACK_TIMED):
+            t0 = time.perf_counter()
+            res = _fwd_bwd(fn, leaves, dout)
+            torch.cuda.synchronize()
+            if i >= PACK_WARMUP:
+                times.append(time.perf_counter() - t0)
+        results[name] = res
+        # what the calls added on top of what was already allocated
+        per_entry[name] = {"ms": [t * 1e3 for t in times],
+                           "peak_bytes_above_start":
+                               torch.cuda.max_memory_allocated() - start}
+    launches = {f"{kind}_{k_}": getattr(f, f"{kind}_launches")
+                for kind in ("varlen", "flashmask")
+                for k_, f in fns.items()}
+    plain = {k_: f.launches for k_, f in fns.items()}
+    # the main path ended
+    calls = 2 * (PACK_WARMUP + PACK_TIMED)      # two entry points a variant
+    if set(launches.values()) != {calls} or any(plain.values()):
+        raise AssertionError(f"packed_attention launches {launches} (want "
+                             f"{calls} each), plain-mode {plain} (want 0)")
+    for name, (out, grads) in results.items():
+        if not all(torch.isfinite(t).all() for t in (out,) + grads):
+            raise AssertionError(f"{name}: non-finite output or gradient")
+    # the tile pairs each kind's kernels visit, counted by the kernels on
+    # the masks its entry points build, against the plain predicate
+    visits = {}
+    qh, kh, vh, doh = (t.transpose(0, 1).contiguous()
+                       for t in (q, k, v, dout))
+    for kind, kw in packed_masks(lens).items():
+        got, want, grid = masked_visits(qh, kh, vh, doh, kw, True,
+                                        1.0 / math.sqrt(D))
+        if set(got.values()) != {want}:
+            raise AssertionError(f"{kind}: the kernels visited {got} tile "
+                                 f"pairs, the plain predicate {want}")
+        visits[kind] = {"tiles_visited_per_head": got["fwd"] // H,
+                        "tiles_in_grid_per_head": grid // H}
+    del qh, kh, vh, doh
+
+    # agreement: the varlen and document-mask entries compute one function
+    agree = {}
+    a, c = results["flash_attn_unpadded"], results["flashmask_document"]
+    for o, (got, want) in zip(("out", "dq", "dk", "dv"),
+                              zip((c[0],) + c[1], (a[0],) + a[1])):
+        err, lim = flash_error(got, want, o, "bfloat16")
+        agree[o] = {"err": err, "limit": lim, "bitwise": torch.equal(got,
+                                                                     want)}
+        if not err <= lim:
+            raise AssertionError(f"varlen and flashmask disagree on {o}: "
+                                 f"{err} > {lim}")
+    # isolation: one document's q/k/v changed, every other row bitwise equal
+    j = len(lens) // 2
+    lo = sum(lens[:j])
+    other = torch.ones(S, dtype=torch.bool, device="cuda")
+    other[lo:lo + lens[j]] = False
+    q2, k2, v2 = (t.clone() for t in (q, k, v))
+    for t in (q2, k2, v2):
+        t[lo:lo + lens[j]] = t[lo:lo + lens[j]] * -1.5 + 0.25
+    isolated = {}
+    for name in ("flash_attn_unpadded", "flash_attn_varlen_qkvpacked",
+                 "flashmask_document"):
+        make, fn = entries[name]
+        out2, grads2 = _fwd_bwd(fn, make(q2, k2, v2), dout)
+        out, grads = results[name]
+        # rows are tokens in every output and gradient (qkv's included)
+        same = all(torch.equal(x[other], y[other])
+                   for x, y in zip((out,) + grads, (out2,) + grads2))
+        changed = not torch.equal(out[~other], out2[~other])
+        isolated[name] = same
+        if not (same and changed):
+            raise AssertionError(f"{name}: document {j} leaks into the "
+                                 f"others (or its own rows did not change)")
+    # one document spanning the row against the plain causal kernel
+    whole = packed_entries([S])["flash_attn_unpadded"][1]
+    got = _fwd_bwd(whole, (q, k, v), dout)
+    want = _fwd_bwd(lambda a_, b_, c_: fa.flash_attention_bshd(
+        a_[None], b_[None], c_[None], causal=True)[0], (q, k, v), dout)
+    single = {}
+    for o, x, y in zip(("out", "dq", "dk", "dv"), (got[0],) + got[1],
+                       (want[0],) + want[1]):
+        err, lim = flash_error(x, y, o, "bfloat16")
+        single[o] = {"err": err, "limit": lim, "bitwise": torch.equal(x, y)}
+        if not err <= lim:
+            raise AssertionError(f"one-document varlen != causal flash on "
+                                 f"{o}: {err} > {lim}")
+    # a profiled call of each entry point: device time and launches by kind
+    for name, (make, fn) in entries.items():
+        leaves = make(q, k, v)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _fwd_bwd(fn, leaves, dout)
+            torch.cuda.synchronize()
+        per_entry[name]["profiled_call"] = profile_summary(
+            prof, time.perf_counter() - t0)
+    for name, rec in per_entry.items():
+        ms = statistics.median(rec["ms"])
+        kind = ("varlen" if "flashmask" not in name
+                else name.split("_", 1)[1])
+        pairs = H * packed_pairs(lens, PACK_WINDOW if kind == "window"
+                                 else None)
+        tiles = visits["varlen" if kind == "varlen" else kind]
+        rec.update({"ms_median": ms, "allowed_pairs": pairs,
+                    "flops": 18 * D * pairs,
+                    "tflops_per_s": 18 * D * pairs / ms / 1e9, **tiles,
+                    "tile_share": tiles["tiles_visited_per_head"]
+                    / tiles["tiles_in_grid_per_head"]})
+    emit({"phase": "packed_attention", "tokens": S, "heads": H,
+          "kv_heads_repeated": PACK_KV_HEADS, "head_dim": D,
+          "dtype": "bfloat16", "documents": len(lens), "doc_lens": lens,
+          "window": PACK_WINDOW, "warmup": PACK_WARMUP, "timed": PACK_TIMED,
+          "flops_basis": "18 * D per allowed (q, k) pair and head: fwd 4, "
+                         "dQ 6, dK/dV 8 (the kernels' products)",
+          "entries": per_entry, "kernel_launches": launches,
+          "plain_mode_launches": plain, "varlen_vs_flashmask": agree,
+          "isolated_document": j, "isolation_bitwise": isolated,
+          "single_document_vs_causal_flash": single})
+    return {f"flash_attention_{k_}" if k_.startswith("varlen") else
+            f"flashmask_attention_{k_.split('_')[1]}": n
+            for k_, n in launches.items()}, lens
+
+
+def _by_head_groups(fn, args, kw, group: int = 8):
+    """A plain flash version over head groups of `group` (its fp32 score
+    tensors at S 8192 stay ~2 GB each), joined along B*H. `args` are
+    (BH, ...) tensors or scalars; the segment rows and flashmask bounds in
+    `kw` are cut to each group's batch row (or heads, for Hm = H)."""
+    import torch
+    BH, H = args[0].shape[0], kw.get("H", 1)
+    if BH <= group:
+        return fn(*args, **kw)
+    if H % group:
+        raise ValueError(f"H {H} is not a multiple of the group {group}")
+    parts = []
+    for h0 in range(0, BH, group):
+        b = h0 // H
+        sub = dict(kw, H=group)
+        if kw.get("seg") is not None:
+            sub["seg"] = tuple(s_[b:b + 1] for s_ in kw["seg"])
+        if kw.get("fm") is not None:
+            fm = kw["fm"]
+            sub["fm"] = fm[h0:h0 + group] if fm.shape[0] == BH \
+                else fm[b:b + 1]
+        parts.append(fn(*[a[h0:h0 + group] if torch.is_tensor(a) else a
+                          for a in args], **sub))
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p_, dim=0) for p_ in zip(*parts))
+    return torch.cat(parts, dim=0)
+
+
+def _segment_rows(lens_q, lens_k, B=1):
+    """(segq, segk) (B, 2, S) int32 rows [id; causal position], query
+    positions shifted by each sequence's k_len - q_len."""
+    import numpy as np
+    import torch
+
+    def rows(lens, shift):
+        ids = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
+        pos = np.concatenate([np.arange(n) + d for n, d in zip(lens, shift)])
+        return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            np.stack([ids, pos]), (B, 2, sum(lens))), dtype=np.int32)).cuda()
+    shift = [kl - ql for ql, kl in zip(lens_q, lens_k)]
+    return rows(lens_q, shift), rows(lens_k, [0] * len(lens_k))
+
+
+def _bounds(kind, B, Hm, S):
+    """(B*Hm, C, S) int32 flashmask bounds, fm_causal: a causal band of
+    width 24 + 16·head (C 2), non-causal C 2 (+-20) and C 4."""
+    import numpy as np
+    import torch
+    col = np.arange(S)
+    w = (24 + 16 * (np.arange(B * Hm) % Hm))[:, None, None]
+    if kind == "band":
+        b, causal = [np.minimum(col + w, S), np.full((B * Hm, 1, S), S)], True
+    elif kind == "nc2":
+        b, causal = [np.minimum(col + w, S), np.maximum(col - w, 0)], False
+    else:
+        b, causal = [np.minimum(col + w // 2, S), np.minimum(col + w, S),
+                     np.zeros((B * Hm, 1, S), int),
+                     np.maximum(col - w, 0)], False
+    b = [np.broadcast_to(x, (B * Hm, 1, S)) for x in b]
+    return torch.from_numpy(np.concatenate(b, 1).astype(np.int32)).cuda(), \
+        causal
+
+
+def packed_cases(seed: int, lens):
+    """{case: (q, k, v, dout (BH, S, D) fp32, masks kw, causal)} of the
+    masked flash checks: the phase's documents at full width (B*H 32,
+    S 8192, D 128) with each entry kind's masks (`packed_masks`: segments,
+    the causal document mask, the window), and small ragged ones —
+    varlen with non-uniform q/k lengths (Sq 100 != Sk 148, not tile
+    multiples; D 64), flashmask causal C 2, non-causal C 2 and C 4, and
+    per-head bounds (Hm = H)."""
+    import torch
+    q, k, v, do = (t.float().transpose(0, 1).contiguous()
+                   for t in packed_inputs(seed, lens, torch.float32))
+    full = {"varlen": "varlen_full", "document": "flashmask_doc_full",
+            "window": "flashmask_window_full"}
+    cases = {full[kind]: (q, k, v, do, kw, True)
+             for kind, kw in packed_masks(lens).items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+
+    def draw(bh, s, d):
+        return torch.randn(bh, s, d, generator=gen, device="cuda")
+    lq, lk = [40, 9, 51], [60, 25, 63]
+    cases["varlen_ragged"] = (draw(4, 100, 64), draw(4, 148, 64),
+                              draw(4, 148, 64), draw(4, 100, 64),
+                              dict(seg=_segment_rows(lq, lk, B=2), H=2), True)
+    for name, kind, (B, H, S_, D) in (
+            ("flashmask_band_c2", "band", (1, 2, 136, 128)),
+            ("flashmask_nc2", "nc2", (1, 2, 136, 64)),
+            ("flashmask_nc4", "nc4", (1, 3, 160, 64)),
+            ("flashmask_heads", "band", (2, 3, 130, 64))):
+        fm, causal = _bounds(kind, B, H if name.endswith("heads") else 1, S_)
+        x = [draw(B * H, S_, D) for _ in range(4)]
+        cases[name] = (*x, dict(fm=fm, fm_causal=causal, H=H), causal)
+    return cases
+
+
+def check_packed_kernels(seed: int, lens=None):
+    """The six masked flash kernels (segment and flashmask modes of fwd,
+    dQ, dK/dV) against their plain versions on `packed_cases`, in bf16
+    and fp32, with `flash_error`'s limits, and the tile pairs each
+    visited against the plain predicate (`flash_visits_ref`). Returns
+    (errors, failures): errors[output][case], errors["tiles"][case];
+    failures the (output, case) that missed or gave a non-finite value,
+    ("tiles", case) where a kernel's count differs. Launches here are
+    not the main path's."""
+    import math
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    lens = lens or pack_documents(seed)
+    errs, failures = {}, []
+    for name, (q0, k0, v0, do0, kw, causal) in packed_cases(seed,
+                                                           lens).items():
+        scale = 1.0 / math.sqrt(q0.shape[-1])
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).replace("torch.", "")
+            case = f"{name}_{dname}"
+            q, k, v, do = (t.to(dt) for t in (q0, k0, v0, do0))
+            counts = torch.zeros(3, dtype=torch.int32, device="cuda")
+            out, lse = fa.flash_fwd(q, k, v, scale, causal,
+                                    visits=counts[0:1], **kw)
+            ref_out, ref_lse = _by_head_groups(
+                fa.flash_fwd_ref, (q, k, v, scale, causal), kw)
+            delta = fa.flash_delta(ref_out, do)
+            args = (q, k, v, do, ref_lse, delta, scale, causal)
+            dq = fa.flash_dq(*args, visits=counts[1:2], **kw)
+            dk, dv = fa.flash_dkv(*args, visits=counts[2:3], **kw)
+            torch.cuda.synchronize()
+            BH, Sq, D = q.shape
+            tile = kernel_tile(dt, D)
+            want = fa.flash_visits_ref(BH, Sq, k.shape[1], causal, tile=tile,
+                                       **kw)
+            got = dict(zip(("fwd", "dq", "dkv"), counts.tolist()))
+            errs.setdefault("tiles", {})[case] = {
+                **got, "plain": want,
+                "grid": BH * -(-Sq // tile) * -(-k.shape[1] // tile)}
+            if set(got.values()) != {want}:
+                failures.append(("tiles", case))
+            pairs = {"out": (out, ref_out), "lse": (lse, ref_lse),
+                     "dq": (dq, _by_head_groups(fa.flash_dq_ref, args, kw))}
+            pairs.update(zip(("dk", "dv"), zip(
+                (dk, dv), _by_head_groups(fa.flash_dkv_ref, args, kw))))
+            for output, (got, want) in pairs.items():
+                if output == "lse":         # rows that see no key: -1e30
+                    live = want > -1e29
+                    got, want = got[live], want[live]
+                err, lim = flash_error(got, want, output, dname)
+                errs.setdefault(output, {})[case] = {
+                    "err": err, "limit": lim,
+                    "max_abs": _max_err(got, want)}
+                if not (err <= lim and torch.isfinite(got).all()):
+                    failures.append((output, case))
+            del q, k, v, do, out, lse, ref_out, ref_lse, delta, args
+            del dq, dk, dv, pairs
+    return errs, failures
+
+
+def phase_packed_kernels(launches, lens, seed: int, card: str):
+    """The masked flash kernels against their plain versions, then each
+    timed at the phase's full-width shape (bf16, the documents as
+    segments and as the causal document mask) beside its plain version,
+    SDPA with the equivalent dense boolean mask, and its bound from the
+    allowed pairs."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    errs, failures = check_packed_kernels(seed, lens)
+    emit({"phase": "kernel_check", "kernel": "flash_attention_masked",
+          "errors": errs})
+    if failures:
+        raise AssertionError(f"masked flash kernels disagree with their "
+                             f"plain versions: {failures}")
+    S, H, D = sum(lens), PACK_HEADS, PACK_DIM
+    q, k, v, do = (t.transpose(0, 1).contiguous()
+                   for t in packed_inputs(seed, lens))       # (H, S, D)
+    scale = 1.0 / math.sqrt(D)
+    masks = packed_masks(lens)
+    variants = {"varlen": masks["varlen"], "flashmask": masks["document"]}
+    ids = torch.repeat_interleave(torch.arange(len(lens), device="cuda"),
+                                  torch.tensor(lens, device="cuda"))
+    pos = torch.arange(S, device="cuda")
+    dense = ((ids[:, None] == ids[None, :])
+             & (pos[None, :] <= pos[:, None]))[None, None]   # (1,1,S,S)
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fl = flush_buf.zero_
+    pairs = H * packed_pairs(lens)
+    e = q.element_size()
+    qkv_bytes, stats_bytes = H * S * D * e, H * S * 4
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=dense), fl, reps=10, warmup=2)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=dense)
+        torch.autograd.grad(o, (qg, kg, vg), do4)
+    lib_bwd = time_ms(sdpa_fwd_bwd, fl, reps=10, warmup=2) - lib_fwd
+    del qg, kg, vg
+    rows = []
+    for variant, kw in variants.items():
+        mask_bytes = (2 * 2 * S * 4 if variant == "varlen" else S * 4)
+        # the tile summaries, built once a call by the autograd Functions
+        masks_ = (kw.get("seg"), kw.get("fm"), kw.get("fm_causal", True))
+        summ_ms = time_ms(lambda: fa.tile_summary(*masks_), fl)
+        kern_kw = dict(kw, summary=fa.tile_summary(*masks_))
+        out, lse = fa.flash_fwd(q, k, v, scale, True, **kern_kw)
+        delta = fa.flash_delta(out, do)
+        args = (q, k, v, do, lse, delta, scale, True)
+        ms = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v, scale, True,
+                                                  **kern_kw), fl),
+              "dq": time_ms(lambda: fa.flash_dq(*args, **kern_kw), fl),
+              "dkv": time_ms(lambda: fa.flash_dkv(*args, **kern_kw), fl)}
+        plain = {
+            "fwd": time_ms(lambda: _by_head_groups(
+                fa.flash_fwd_ref, (q, k, v, scale, True), kw), fl, reps=5,
+                warmup=1),
+            "dq": time_ms(lambda: _by_head_groups(fa.flash_dq_ref, args, kw),
+                          fl, reps=5, warmup=1),
+            "dkv": time_ms(lambda: _by_head_groups(fa.flash_dkv_ref, args,
+                                                   kw), fl, reps=5,
+                           warmup=1)}
+        work = {"fwd": (4 * D * pairs, 4 * qkv_bytes + stats_bytes),
+                "dq": (6 * D * pairs, 5 * qkv_bytes + 2 * stats_bytes),
+                "dkv": (8 * D * pairs, 6 * qkv_bytes + 2 * stats_bytes)}
+        outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
+        case = f"{variant}_full" if variant == "varlen" \
+            else "flashmask_doc_full"
+        tiles = errs["tiles"][f"{case}_bfloat16"]
+        for kern in ("fwd", "dq", "dkv"):
+            flops, nbytes = work[kern]
+            nbytes += mask_bytes
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            rname = (f"flash_attention_varlen_{kern}" if variant == "varlen"
+                     else f"flashmask_attention_{kern}")
+            name, source, replaces = KERNEL[rname]
+            worst = {key: max(errs[o][f"{case}_{dt}"][key]
+                              for o in outputs[kern])
+                     for key, dt in (("max_abs", "bfloat16"),
+                                     ("err", "bfloat16"))}
+            worst32 = max(errs[o][f"{case}_float32"]["max_abs"]
+                          for o in outputs[kern])
+            rows.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "entry": PACK_ENTRY[variant],
+                "launches": launches[name],
+                "max_abs_err": worst["max_abs"], "rel_err": worst["err"],
+                "max_abs_err_fp32": worst32,
+                "ms": ms[kern], "kernel_ms": ms[kern],
+                "tile_summary_ms": summ_ms,
+                "tile_summary_note": "the plain torch ops that build the "
+                                     "skip predicate's summaries, once per "
+                                     "fwd + bwd call, not in ms",
+                "plain_ms": plain[kern], "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": lib_fwd if kern == "fwd" else lib_bwd,
+                "library": ("torch.nn.functional.scaled_dot_product_attention"
+                            " with the dense (S, S) boolean document mask" +
+                            ("" if kern == "fwd" else
+                             ": backward (dQ, dK, dV in one call), fwd+bwd "
+                             "minus fwd")),
+                "tflops_per_s": flops / ms[kern] / 1e9,
+                "allowed_pairs": pairs,
+                "tiles_visited": tiles[kern], "tiles_in_grid": tiles["grid"],
+                "tiles_note": "(q tile, k tile) pairs over B*H, counted by "
+                              "the kernel in the bf16 check",
+                "shape": {"BH": H, "S": S, "D": D, "documents": len(lens),
+                          "causal": True, "dtype": "bfloat16"},
+                "bytes": nbytes, "flops": flops, "card": card})
+        del out, lse, delta, args
+    return rows
+
+
+# ----------------------------------------------------------- RMSNorm rows
+def check_norm_kernel(seed: int):
+    """rms_norm_rows against its plain version at NORM_SHAPES, bf16 and
+    fp32 x, with an fp32 weight and one in x's dtype (the timed inputs),
+    with and without the residual: bf16 within one bf16 ulp of each
+    reference element (the fp32 values before the cast differ by
+    summation order and rsqrtf), fp32 within 1e-5 of each element's
+    magnitude (+1e-6). Returns (errors, failures)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    errs, failures = {}, []
+    for R, Hd in NORM_SHAPES:
+        x, res = (torch.randn(R, Hd, generator=gen, device="cuda") * 2
+                  for _ in range(2))
+        w = torch.randn(Hd, generator=gen, device="cuda")
+        for dt, tol in ((torch.bfloat16, 2.0 ** -7), (torch.float32, 1e-5)):
+            for wt in dict.fromkeys((torch.float32, dt)):
+                for r in (None, res.to(dt)):
+                    got = fn.rms_norm_rows(x.to(dt), w.to(wt), r)
+                    want = fn.rms_norm_rows_ref(x.to(dt), w.to(wt), r)
+                    torch.cuda.synchronize()
+                    d = (got.float() - want.float()).abs()
+                    ratio = (d / (tol * want.float().abs() + 1e-6)).max() \
+                        .item()
+                    case = (f"{R}x{Hd}_{str(dt).replace('torch.', '')}"
+                            f"{'_residual' if r is not None else ''}"
+                            f"{'_fp32_weight' if wt != dt else ''}")
+                    errs[case] = {"max_abs": d.max().item(),
+                                  "worst_err_over_limit": ratio}
+                    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+                        failures.append(("rms_norm_rows", case))
+    return errs, failures
+
+
+def phase_norm_kernel(launches: int, seed: int, card: str):
+    """rms_norm_rows checked, then timed at (TRAIN_SEQ, 4096) and decode
+    rows (16, 4096) beside its plain version, torch.nn.functional.rms_norm
+    and its byte bound. No model calls it: `launches`, its count over the
+    main paths, is 0."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    errs, failures = check_norm_kernel(seed)
+    emit({"phase": "kernel_check", "kernel": "rms_norm_rows",
+          "errors": errs})
+    if failures:
+        raise AssertionError(f"rms_norm_rows disagrees with its plain "
+                             f"version: {failures}")
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fl = flush_buf.zero_
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    shapes = {}
+    for R, Hd in NORM_SHAPES[:2]:
+        for dt in (torch.bfloat16, torch.float32):
+            for has_res in (False, True):
+                x = torch.randn(R, Hd, generator=gen, device="cuda").to(dt)
+                r = x * 0.5 if has_res else None
+                w = torch.randn(Hd, generator=gen, device="cuda").to(dt)
+                e = x.element_size()
+                nbytes = (2 + has_res) * R * Hd * e + Hd * e
+                lib = (lambda: F.rms_norm(x if r is None else x + r, (Hd,),
+                                          w, 1e-6))
+                if not hasattr(F, "rms_norm"):       # torch < 2.4
+                    lib = None
+                shapes[f"{R}x{Hd}_{str(dt).replace('torch.', '')}"
+                       f"{'_residual' if has_res else ''}"] = {
+                    "ms": time_ms(lambda: fn.rms_norm_rows(x, w, r), fl),
+                    "plain_ms": time_ms(lambda: fn.rms_norm_rows_ref(
+                        x, w, r), fl),
+                    "library_ms": time_ms(lib, fl) if lib else None,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bytes": nbytes}
+    head = shapes[f"{TRAIN_SEQ}x4096_bfloat16"]
+    name, source, replaces = KERNEL["rms_norm_rows"]
+    worst = max(v["max_abs"] for c, v in errs.items() if "bfloat16" in c)
+    worst32 = max(v["max_abs"] for c, v in errs.items() if "float32" in c)
+    return [{"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "launches_note": "no reference model calls rms_norm_rows: the "
+                              "main paths launch it 0 times",
+             "max_abs_err": worst, "max_abs_err_fp32": worst32,
+             "ms": head["ms"], "kernel_ms": head["ms"],
+             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+             "bound_by": "bytes", "library_ms": head["library_ms"],
+             "library": "torch.nn.functional.rms_norm (residual added "
+                        "beforehand where there is one)",
+             "gb_per_s": head["bytes"] / head["ms"] / 1e6,
+             "shape": {"R": TRAIN_SEQ, "H": 4096, "dtype": "bfloat16",
+                       "residual": False, "weight": "bfloat16"},
+             "shapes": shapes, "bytes": head["bytes"], "flops": 0,
+             "card": card}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1511,6 +2219,8 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": reports})
 
+    from paddle_tpu_torch.kernels import fused_norm
+    fused_norm.rms_norm_rows.launches = 0     # no main path below calls it
     launches, capture, served = phase_serve(args.seed)
     gc.collect()                  # the bf16 engine goes; its model stays
     torch.cuda.empty_cache()
@@ -1523,6 +2233,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_launches, bucket = phase_train(args.seed)
     gc.collect()                  # so do the model and the optimizer
+    torch.cuda.empty_cache()
+    packed_launches, lens = phase_packed_attention(args.seed)
+    norm_launches = fused_norm.rms_norm_rows.launches   # the main paths ended
+    gc.collect()
     torch.cuda.empty_cache()
     kernels = phase_kernels(capture, launches, args.seed, card)
     del capture
@@ -1539,6 +2253,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += phase_lora_kernels(lora_capture, lora_launches, args.seed,
                                   card)
+    del lora_capture
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_packed_kernels(packed_launches, lens, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_norm_kernel(norm_launches, args.seed, card)
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,29 @@
 // the softmax sum is clamped at 1e-30 at finalize, so a row that sees no
 // key gives zeros (the plain versions beside the wrappers agree).
 //
+// Three mask modes, a template parameter of every kernel (never a branch
+// at run time: the plain mode keeps its own loop and its speed):
+//   * kPlain     — none, or the causal mask above (`flash_attention_bshd`);
+//   * kSegment   — varlen packing (`flash_attention_varlen_bshd`): per-token
+//                  (segment id, position in its sequence) rows of shape
+//                  (B, 2, S); a query sees a key only in its own segment,
+//                  and under `causal` only when pos_k <= pos_q. No global
+//                  causal mask applies (the reference's `_apply_masks`);
+//   * kFlashmask — per-key-column row bounds (B*Hm, C, Sk), Hm 1 or H
+//                  (`flashmask_attention_bshd`); `causal` adds the global
+//                  causal mask, `fm_causal` picks the bounds' meaning.
+// Tiles are skipped with the TPU kernel's `_block_contributes`, carried
+// over exactly: overlapping segment-id ranges, the one-sequence
+// all-future skip, and the C == 1 causal document skip (q0 >= the tile's
+// largest start). Those ranges come from per-32-row summaries the wrapper
+// computes with plain torch ops, once for the three kernels of a call; a
+// caller may ask for the count of visited tile pairs (`Mask::visits`).
+// Under the masked modes a skipped tile can be followed by a contributing
+// one, so each warp evaluates the predicate for 32 tiles at once (one
+// lane per tile, every warp alike) and the loop visits the set bits of
+// the ballot: no early exit, and a skipped tile costs no memory round
+// trip of its own.
+//
 // Bound on this card: operations. At the training shape (S 4096, D 128)
 // each kernel does ~D/2 multiply-adds per byte it must move, far above
 // the ~295 flop/byte where the H100's bf16 tensor cores bind, so the
@@ -247,6 +270,112 @@ __device__ __forceinline__ bool contributes(int q0, int k0, int tile,
   return !causal || k0 <= q0 + tile - 1 + off;
 }
 
+// ---------------------------------------------------------- mask modes
+enum { kPlain = 0, kSegment = 1, kFlashmask = 2 };
+constexpr int kGroup = 32;  // rows a summary entry covers
+
+// The masked modes' extra inputs (null in the plain mode). Summaries are
+// over 32-row groups of the in-range rows; a tile (64 or 32 rows) spans
+// one or two groups.
+struct Mask {
+  const int* segq;   // (B, 2, Sq): segment id, position in its sequence
+  const int* segk;   // (B, 2, Sk)
+  const int* qsum;   // (B, 4, ceil(Sq/32)): min id, max id, min pos, max pos
+  const int* ksum;   // (B, 4, ceil(Sk/32))
+  const int* fm;     // (B*Hm, C, Sk): row bounds of each key column
+  const int* fmsum;  // (B*Hm, ceil(Sk/32)): largest bound 0 (C == 1 causal)
+  int* visits;       // null, or a count of the (q, k) tile pairs visited
+  int H, Hm, C, fm_causal;
+};
+
+// adds a ballot's visited tiles to `visits`: once a block (every warp
+// holds the same ballot) and only from the first D chunk
+__device__ __forceinline__ void count_visits(const Mask& mk, unsigned live) {
+  if (mk.visits && threadIdx.x == 0 && blockIdx.z == 0)
+    atomicAdd(mk.visits, __popc(live));
+}
+
+struct SegRange {
+  int idmin, idmax, posmin, posmax;
+};
+
+// the summary of rows [r0, r0 + tile) from a batch row's (4, ng) summary
+__device__ __forceinline__ SegRange seg_range(const int* sum, int ng, int r0,
+                                              int tile) {
+  SegRange r{0x7fffffff, -0x7fffffff - 1, 0x7fffffff, -0x7fffffff - 1};
+  const int g1 = min(ng, (r0 + tile) / kGroup);
+  for (int g = r0 / kGroup; g < g1; ++g) {
+    r.idmin = min(r.idmin, sum[g]);
+    r.idmax = max(r.idmax, sum[ng + g]);
+    r.posmin = min(r.posmin, sum[2 * ng + g]);
+    r.posmax = max(r.posmax, sum[3 * ng + g]);
+  }
+  return r;
+}
+
+// `_block_contributes` under segments: the id ranges overlap, and under
+// causal the pair is not one shared sequence with every key after every
+// query.
+__device__ __forceinline__ bool seg_contributes(const SegRange& q,
+                                                const SegRange& k,
+                                                int causal) {
+  const bool overlap = q.idmin <= k.idmax && q.idmax >= k.idmin;
+  const bool one_seq = q.idmin == k.idmax && q.idmax == k.idmin;
+  const bool all_future = k.posmin > q.posmax;
+  return overlap && !(causal && one_seq && all_future);
+}
+
+// the largest bound-0 entry over key rows [k0, k0 + tile)
+__device__ __forceinline__ int fm_start_max(const int* sum, int ng, int k0,
+                                            int tile) {
+  int mx = -0x7fffffff - 1;
+  const int g1 = min(ng, (k0 + tile) / kGroup);
+  for (int g = k0 / kGroup; g < g1; ++g) mx = max(mx, sum[g]);
+  return mx;
+}
+
+// `_block_contributes` under flashmask: the causal bound, then the C == 1
+// causal document skip (every row of the q tile at or past every start).
+__device__ __forceinline__ bool fm_contributes(int q0, int k0, int tile,
+                                               int off, int causal,
+                                               const Mask& mk,
+                                               int start_max) {
+  return contributes(q0, k0, tile, off, causal) &&
+         !(mk.C == 1 && mk.fm_causal && q0 >= start_max);
+}
+
+// `_flashmask_block_mask` for one score: is `row` masked by the bounds
+// b[0], b[stride], ... of its key column?
+__device__ __forceinline__ bool fm_masked(int row, const int* b, int stride,
+                                          int C, int fm_causal) {
+  if (fm_causal)
+    return C == 1 ? row >= b[0] : (row >= b[0] && row < b[stride]);
+  if (C == 2) return row >= b[0] || row < b[stride];
+  return (row >= b[0] && row < b[stride]) ||
+         (row >= b[2 * stride] && row < b[3 * stride]);
+}
+
+// the key columns' mask inputs of tile [k0, k0 + tile) into shared memory:
+// segment (id, pos) rows, or the C bound rows
+template <int kMode>
+__device__ __forceinline__ void stage_cols(int* dst, const Mask& mk,
+                                           const int* seg_b, const int* fm_b,
+                                           int k0, int tile, int S,
+                                           int threads) {
+  if constexpr (kMode == kSegment) {
+    for (int i = threadIdx.x; i < tile; i += threads) {
+      const int c = k0 + i;
+      dst[i] = c < S ? seg_b[c] : 0;
+      dst[tile + i] = c < S ? seg_b[S + c] : 0;
+    }
+  } else if constexpr (kMode == kFlashmask) {
+    for (int i = threadIdx.x; i < mk.C * tile; i += threads) {
+      const int cc = i / tile, c = k0 + i - cc * tile;
+      dst[i] = c < S ? fm_b[static_cast<size_t>(cc) * S + c] : 0;
+    }
+  }
+}
+
 // (acc rows g, g+8) of the fragment in global memory, rows < S, columns
 // [c0, c0 + NT*8) clipped at D, each divided by its row's `div` (a true
 // division, as the plain version rounds).
@@ -275,14 +404,14 @@ __device__ __forceinline__ void store_rows(typename Tr<kBf16>::T* dst,
 // ----------------------------------------------------------------- fwd
 // grid (q tiles, B*H, D chunks); q tiles run last-first so the heaviest
 // causal tiles start first.
-template <bool kBf16, int DP>
+template <bool kBf16, int DP, int kMode>
 __global__ void __launch_bounds__(Cfg<kBf16, DP>::kThreads)
 flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
                  const typename Tr<kBf16>::T* __restrict__ k,
                  const typename Tr<kBf16>::T* __restrict__ v,
                  typename Tr<kBf16>::T* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int D, float scale,
-                 int causal) {
+                 int causal, const Mask mk) {
   using C = Cfg<kBf16, DP>;
   using T = typename Tr<kBf16>::T;
   constexpr int kT = C::kTile, kNT = kT / 8, kDT = C::kDC / 8;
@@ -291,6 +420,7 @@ flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
   T* sK = sQ + C::kTileElems;
   T* sV = sK + C::kTileElems;
   T* sP = sV + C::kTileElems;
+  int* sCol = reinterpret_cast<int*>(sP + C::kWarps * C::kSlabElems);
 
   const int nq = (Sq + kT - 1) / kT;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kT;
@@ -305,16 +435,33 @@ flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
   const T* qw = sQ + warp * 16 * C::kLd;
   T* pw = sP + warp * C::kSlabElems;
 
+  // the masked modes' inputs of this block's rows and batch row
+  const size_t b = bh / (kMode == kPlain ? 1 : mk.H);
+  const int* segk_b = kMode == kSegment ? mk.segk + b * 2 * Sk : nullptr;
+  const size_t fh = mk.Hm == 1 ? b : bh;
+  const int* fm_b = kMode == kFlashmask
+                        ? mk.fm + fh * static_cast<size_t>(mk.C) * Sk
+                        : nullptr;
+  int rid[2] = {0, 0}, rpos[2] = {0, 0};
+  if constexpr (kMode == kSegment) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < Sq) {
+        rid[r] = mk.segq[b * 2 * Sq + row];
+        rpos[r] = mk.segq[b * 2 * Sq + Sq + row];
+      }
+    }
+  }
+
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[kDT][4];
   zero(acc);
-  const int nk = (Sk + kT - 1) / kT;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kT;
-    if (!contributes(q0, k0, kT, off, causal)) break;
+  auto step = [&](int k0) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<kBf16, DP>(sK, kb, k0, Sk, D);
     load_tile<kBf16, DP>(sV, vb, k0, Sk, D);
+    stage_cols<kMode>(sCol, mk, segk_b, fm_b, k0, kT, Sk, C::kThreads);
     __syncthreads();
     float s[kNT][4];
     zero(s);
@@ -327,9 +474,18 @@ flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = k0 + j * 8 + 2 * t + e;
+          const int cj = j * 8 + 2 * t + e;
+          const int col = k0 + cj;
           const float x = s[j][2 * r + e] * scale;
-          const bool masked = col >= Sk || (causal && col > row + off);
+          bool masked;
+          if constexpr (kMode == kSegment)
+            masked = col >= Sk || sCol[cj] != rid[r] ||
+                     (causal && sCol[kT + cj] > rpos[r]);
+          else if constexpr (kMode == kFlashmask)
+            masked = col >= Sk || (causal && col > row + off) ||
+                     fm_masked(row, sCol + cj, kT, mk.C, mk.fm_causal);
+          else
+            masked = col >= Sk || (causal && col > row + off);
           s[j][2 * r + e] = masked ? kNegInf : x;
           mx = fmaxf(mx, s[j][2 * r + e]);
         }
@@ -361,6 +517,39 @@ flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
     __syncwarp();
     gemm_ab<kBf16, kDT, kT>(acc, pw, C::kPLd, sV + dc0, C::kLd);
     __syncwarp();
+  };
+  const int nk = (Sk + kT - 1) / kT;
+  if constexpr (kMode == kPlain) {
+    for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * kT;
+      if (!contributes(q0, k0, kT, off, causal)) break;
+      step(k0);
+    }
+  } else {
+    const int nqg = (Sq + kGroup - 1) / kGroup, nkg = (Sk + kGroup - 1) / kGroup;
+    SegRange qr{};
+    if constexpr (kMode == kSegment) qr = seg_range(mk.qsum + b * 4 * nqg, nqg, q0, kT);
+    for (int base = 0; base < nk; base += 32) {
+      const int kt = base + lane;
+      bool c = false;
+      if (kt < nk) {
+        if constexpr (kMode == kSegment)
+          c = seg_contributes(
+              qr, seg_range(mk.ksum + b * 4 * nkg, nkg, kt * kT, kT), causal);
+        else
+          c = fm_contributes(
+              q0, kt * kT, kT, off, causal, mk,
+              mk.C == 1 && mk.fm_causal
+                  ? fm_start_max(mk.fmsum + fh * nkg, nkg, kt * kT, kT)
+                  : 0);
+      }
+      unsigned live = __ballot_sync(0xffffffffu, c);
+      count_visits(mk, live);
+      while (live) {
+        step((base + __ffs(live) - 1) * kT);
+        live &= live - 1;
+      }
+    }
   }
 
   float safe[2];
@@ -377,7 +566,7 @@ flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
 
 // ------------------------------------------------------------------ dq
 // grid (q tiles, B*H, D chunks)
-template <bool kBf16, int DP>
+template <bool kBf16, int DP, int kMode>
 __global__ void __launch_bounds__(Cfg<kBf16, DP>::kThreads)
 flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
                 const typename Tr<kBf16>::T* __restrict__ k,
@@ -386,7 +575,7 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
                 typename Tr<kBf16>::T* __restrict__ dq, int Sq, int Sk, int D,
-                float scale, int causal) {
+                float scale, int causal, const Mask mk) {
   using C = Cfg<kBf16, DP>;
   using T = typename Tr<kBf16>::T;
   constexpr int kT = C::kTile, kNT = kT / 8, kDT = C::kDC / 8;
@@ -396,6 +585,7 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
   T* sK = sdO + C::kTileElems;
   T* sV = sK + C::kTileElems;
   T* sS = sV + C::kTileElems;
+  int* sCol = reinterpret_cast<int*>(sS + C::kWarps * C::kSlabElems);
 
   const int nq = (Sq + kT - 1) / kT;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kT;
@@ -419,15 +609,32 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
     delta_r[r] = row < Sq ? delta[bh * Sq + row] : 0.f;
   }
 
+  // the masked modes' inputs of this block's rows and batch row
+  const size_t b = bh / (kMode == kPlain ? 1 : mk.H);
+  const int* segk_b = kMode == kSegment ? mk.segk + b * 2 * Sk : nullptr;
+  const size_t fh = mk.Hm == 1 ? b : bh;
+  const int* fm_b = kMode == kFlashmask
+                        ? mk.fm + fh * static_cast<size_t>(mk.C) * Sk
+                        : nullptr;
+  int rid[2] = {0, 0}, rpos[2] = {0, 0};
+  if constexpr (kMode == kSegment) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < Sq) {
+        rid[r] = mk.segq[b * 2 * Sq + row];
+        rpos[r] = mk.segq[b * 2 * Sq + Sq + row];
+      }
+    }
+  }
+
   float acc[kDT][4];
   zero(acc);
-  const int nk = (Sk + kT - 1) / kT;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kT;
-    if (!contributes(q0, k0, kT, off, causal)) break;
+  auto step = [&](int k0) {
     __syncthreads();
     load_tile<kBf16, DP>(sK, kb, k0, Sk, D);
     load_tile<kBf16, DP>(sV, vb, k0, Sk, D);
+    stage_cols<kMode>(sCol, mk, segk_b, fm_b, k0, kT, Sk, C::kThreads);
     __syncthreads();
     float s[kNT][4], dp[kNT][4];
     zero(s);
@@ -440,9 +647,17 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int row = q0 + warp * 16 + g + 8 * r;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool masked =
-            row >= Sq || col >= Sk || (causal && col > row + off);
+        const int cj = j * 8 + 2 * t + (e & 1);
+        const int col = k0 + cj;
+        bool masked;
+        if constexpr (kMode == kSegment)
+          masked = row >= Sq || col >= Sk || sCol[cj] != rid[r] ||
+                   (causal && sCol[kT + cj] > rpos[r]);
+        else if constexpr (kMode == kFlashmask)
+          masked = row >= Sq || col >= Sk || (causal && col > row + off) ||
+                   fm_masked(row, sCol + cj, kT, mk.C, mk.fm_causal);
+        else
+          masked = row >= Sq || col >= Sk || (causal && col > row + off);
         const float p = masked ? 0.f : expf(s[j][e] * scale - lse_r[r]);
         s[j][e] = p * (dp[j][e] - delta_r[r]) * scale;
       }
@@ -450,6 +665,39 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
     __syncwarp();
     gemm_ab<kBf16, kDT, kT>(acc, dsw, C::kPLd, sK + dc0, C::kLd);
     __syncwarp();
+  };
+  const int nk = (Sk + kT - 1) / kT;
+  if constexpr (kMode == kPlain) {
+    for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * kT;
+      if (!contributes(q0, k0, kT, off, causal)) break;
+      step(k0);
+    }
+  } else {
+    const int nqg = (Sq + kGroup - 1) / kGroup, nkg = (Sk + kGroup - 1) / kGroup;
+    SegRange qr{};
+    if constexpr (kMode == kSegment) qr = seg_range(mk.qsum + b * 4 * nqg, nqg, q0, kT);
+    for (int base = 0; base < nk; base += 32) {
+      const int kt = base + lane;
+      bool c = false;
+      if (kt < nk) {
+        if constexpr (kMode == kSegment)
+          c = seg_contributes(
+              qr, seg_range(mk.ksum + b * 4 * nkg, nkg, kt * kT, kT), causal);
+        else
+          c = fm_contributes(
+              q0, kt * kT, kT, off, causal, mk,
+              mk.C == 1 && mk.fm_causal
+                  ? fm_start_max(mk.fmsum + fh * nkg, nkg, kt * kT, kT)
+                  : 0);
+      }
+      unsigned live = __ballot_sync(0xffffffffu, c);
+      count_visits(mk, live);
+      while (live) {
+        step((base + __ffs(live) - 1) * kT);
+        live &= live - 1;
+      }
+    }
   }
   const float one[2] = {1.f, 1.f};
   store_rows<kBf16, kDT>(dq + bh * Sq * D, acc, q0 + warp * 16, Sq, dc0, D,
@@ -459,7 +707,7 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
 // ----------------------------------------------------------------- dkv
 // grid (k tiles, B*H, D chunks); a block owns kTile key rows and loops
 // over the q tiles that can see them.
-template <bool kBf16, int DP>
+template <bool kBf16, int DP, int kMode>
 __global__ void __launch_bounds__(Cfg<kBf16, DP>::kThreads)
 flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
                  const typename Tr<kBf16>::T* __restrict__ k,
@@ -469,7 +717,7 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
                  const float* __restrict__ delta,
                  typename Tr<kBf16>::T* __restrict__ dk,
                  typename Tr<kBf16>::T* __restrict__ dv, int Sq, int Sk,
-                 int D, float scale, int causal) {
+                 int D, float scale, int causal, const Mask mk) {
   using C = Cfg<kBf16, DP>;
   using T = typename Tr<kBf16>::T;
   constexpr int kT = C::kTile, kNT = kT / 8, kDT = C::kDC / 8;
@@ -482,6 +730,8 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
   T* sS = sP + C::kWarps * C::kSlabElems;
   float* sLse = reinterpret_cast<float*>(sS + C::kWarps * C::kSlabElems);
   float* sDelta = sLse + kT;
+  int* sCol = reinterpret_cast<int*>(sDelta + kT);  // the q tile's (id, pos)
+  int* sKeyFm = sCol + 4 * kT;                      // this block's key bounds
 
   const int k0 = blockIdx.x * kT;
   const size_t bh = blockIdx.y;
@@ -498,13 +748,31 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
   T* pw = sP + warp * C::kSlabElems;
   T* dsw = sS + warp * C::kSlabElems;
 
+  // the masked modes' inputs of this block's keys and batch row
+  const size_t b = bh / (kMode == kPlain ? 1 : mk.H);
+  const int* segq_b = kMode == kSegment ? mk.segq + b * 2 * Sq : nullptr;
+  const size_t fh = mk.Hm == 1 ? b : bh;
+  int kid[2] = {0, 0}, kpos[2] = {0, 0};
+  if constexpr (kMode == kSegment) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + warp * 16 + g + 8 * r;
+      if (key < Sk) {
+        kid[r] = mk.segk[b * 2 * Sk + key];
+        kpos[r] = mk.segk[b * 2 * Sk + Sk + key];
+      }
+    }
+  } else if constexpr (kMode == kFlashmask) {
+    // read after the first step's __syncthreads
+    stage_cols<kMode>(sKeyFm, mk, nullptr,
+                      mk.fm + fh * static_cast<size_t>(mk.C) * Sk, k0, kT, Sk,
+                      C::kThreads);
+  }
+
   float acc_k[kDT][4], acc_v[kDT][4];
   zero(acc_k);
   zero(acc_v);
-  const int nq = (Sq + kT - 1) / kT;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kT;
-    if (!contributes(q0, k0, kT, off, causal)) continue;
+  auto step = [&](int q0) {
     __syncthreads();
     load_tile<kBf16, DP>(sQ, qb, q0, Sq, D);
     load_tile<kBf16, DP>(sdO, dob, q0, Sq, D);
@@ -513,6 +781,8 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
       sLse[i] = live ? lse[bh * Sq + q0 + i] : 0.f;
       sDelta[i] = live ? delta[bh * Sq + q0 + i] : 0.f;
     }
+    if constexpr (kMode == kSegment)
+      stage_cols<kMode>(sCol, mk, segq_b, nullptr, q0, kT, Sq, C::kThreads);
     __syncthreads();
     // transposed scores: rows are this warp's keys, columns queries
     float s[kNT][4], dp[kNT][4];
@@ -524,11 +794,19 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+        const int kl = warp * 16 + g + 8 * (e >> 1);
+        const int key = k0 + kl;
         const int ci = j * 8 + 2 * t + (e & 1);
         const int qi = q0 + ci;
-        const bool masked =
-            qi >= Sq || key >= Sk || (causal && key > qi + off);
+        bool masked;
+        if constexpr (kMode == kSegment)
+          masked = qi >= Sq || key >= Sk || sCol[ci] != kid[e >> 1] ||
+                   (causal && kpos[e >> 1] > sCol[kT + ci]);
+        else if constexpr (kMode == kFlashmask)
+          masked = qi >= Sq || key >= Sk || (causal && key > qi + off) ||
+                   fm_masked(qi, sKeyFm + kl, kT, mk.C, mk.fm_causal);
+        else
+          masked = qi >= Sq || key >= Sk || (causal && key > qi + off);
         const float p = masked ? 0.f : expf(s[j][e] * scale - sLse[ci]);
         s[j][e] = p;
         dp[j][e] = p * (dp[j][e] - sDelta[ci]) * scale;
@@ -539,6 +817,39 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
     gemm_ab<kBf16, kDT, kT>(acc_v, pw, C::kPLd, sdO + dc0, C::kLd);
     gemm_ab<kBf16, kDT, kT>(acc_k, dsw, C::kPLd, sQ + dc0, C::kLd);
     __syncwarp();
+  };
+  const int nq = (Sq + kT - 1) / kT;
+  if constexpr (kMode == kPlain) {
+    for (int qt = 0; qt < nq; ++qt) {
+      const int q0 = qt * kT;
+      if (!contributes(q0, k0, kT, off, causal)) continue;
+      step(q0);
+    }
+  } else {
+    const int nqg = (Sq + kGroup - 1) / kGroup, nkg = (Sk + kGroup - 1) / kGroup;
+    SegRange kr{};
+    int start_max = 0;
+    if constexpr (kMode == kSegment)
+      kr = seg_range(mk.ksum + b * 4 * nkg, nkg, k0, kT);
+    else if (mk.C == 1 && mk.fm_causal)
+      start_max = fm_start_max(mk.fmsum + fh * nkg, nkg, k0, kT);
+    for (int base = 0; base < nq; base += 32) {
+      const int qt = base + lane;
+      bool c = false;
+      if (qt < nq) {
+        if constexpr (kMode == kSegment)
+          c = seg_contributes(
+              seg_range(mk.qsum + b * 4 * nqg, nqg, qt * kT, kT), kr, causal);
+        else
+          c = fm_contributes(qt * kT, k0, kT, off, causal, mk, start_max);
+      }
+      unsigned live = __ballot_sync(0xffffffffu, c);
+      count_visits(mk, live);
+      while (live) {
+        step((base + __ffs(live) - 1) * kT);
+        live &= live - 1;
+      }
+    }
   }
   const float one[2] = {1.f, 1.f};
   store_rows<kBf16, kDT>(dk + bh * Sk * D, acc_k, k0 + warp * 16, Sk, dc0, D,
@@ -549,13 +860,15 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
 
 // ------------------------------------------------------------- launches
 template <bool kBf16, int DP>
-size_t smem_bytes(int kind) {  // 0 fwd, 1 dq, 2 dkv
+size_t smem_bytes(int kind, int mode) {  // kind: 0 fwd, 1 dq, 2 dkv
   using C = Cfg<kBf16, DP>;
   const size_t e = sizeof(typename Tr<kBf16>::T);
   const size_t tile = C::kTileElems * e, slab = C::kWarps * C::kSlabElems * e;
-  if (kind == 0) return 3 * tile + slab;
-  if (kind == 1) return 4 * tile + slab;
-  return 4 * tile + 2 * slab + 2 * C::kTile * sizeof(float);
+  // the masked modes' column inputs (and dkv's key bounds), as ints
+  const size_t cols = mode == kPlain ? 0 : (kind == 2 ? 8 : 4) * C::kTile * 4;
+  if (kind == 0) return 3 * tile + slab + cols;
+  if (kind == 1) return 4 * tile + slab + cols;
+  return 4 * tile + 2 * slab + 2 * C::kTile * sizeof(float) + cols;
 }
 
 struct Args {
@@ -563,118 +876,173 @@ struct Args {
   void *out, *lse, *dq, *dk, *dv;
   int BH, Sq, Sk, D;
   float scale;
-  int causal;
+  int causal, mode;
+  Mask mk;
   cudaStream_t stream;
 };
 
-template <bool kBf16, int DP>
+template <bool kBf16, int DP, int kMode>
 cudaError_t launch(int kind, const Args& a) {
   using C = Cfg<kBf16, DP>;
   using T = typename Tr<kBf16>::T;
-  const size_t sm = smem_bytes<kBf16, DP>(kind);
+  const size_t sm = smem_bytes<kBf16, DP>(kind, kMode);
   const int rows = kind == 2 ? a.Sk : a.Sq;
   const dim3 grid((rows + C::kTile - 1) / C::kTile, a.BH,
                   (a.D + C::kDC - 1) / C::kDC);
   cudaError_t e;
   if (kind == 0) {
-    e = cudaFuncSetAttribute(flash_fwd_kernel<kBf16, DP>,
+    e = cudaFuncSetAttribute(flash_fwd_kernel<kBf16, DP, kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(sm));
     if (e != cudaSuccess) return e;
-    flash_fwd_kernel<kBf16, DP><<<grid, C::kThreads, sm, a.stream>>>(
+    flash_fwd_kernel<kBf16, DP, kMode><<<grid, C::kThreads, sm, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<T*>(a.out),
-        static_cast<float*>(a.lse), a.Sq, a.Sk, a.D, a.scale, a.causal);
+        static_cast<float*>(a.lse), a.Sq, a.Sk, a.D, a.scale, a.causal,
+        a.mk);
   } else if (kind == 1) {
-    e = cudaFuncSetAttribute(flash_dq_kernel<kBf16, DP>,
+    e = cudaFuncSetAttribute(flash_dq_kernel<kBf16, DP, kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(sm));
     if (e != cudaSuccess) return e;
-    flash_dq_kernel<kBf16, DP><<<grid, C::kThreads, sm, a.stream>>>(
+    flash_dq_kernel<kBf16, DP, kMode><<<grid, C::kThreads, sm, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse_in),
         static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.Sq,
-        a.Sk, a.D, a.scale, a.causal);
+        a.Sk, a.D, a.scale, a.causal, a.mk);
   } else {
-    e = cudaFuncSetAttribute(flash_dkv_kernel<kBf16, DP>,
+    e = cudaFuncSetAttribute(flash_dkv_kernel<kBf16, DP, kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(sm));
     if (e != cudaSuccess) return e;
-    flash_dkv_kernel<kBf16, DP><<<grid, C::kThreads, sm, a.stream>>>(
+    flash_dkv_kernel<kBf16, DP, kMode><<<grid, C::kThreads, sm, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse_in),
         static_cast<const float*>(a.delta), static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.Sq, a.Sk, a.D, a.scale, a.causal);
+        static_cast<T*>(a.dv), a.Sq, a.Sk, a.D, a.scale, a.causal, a.mk);
   }
   return cudaGetLastError();
 }
 
-template <bool kBf16>
+template <bool kBf16, int kMode>
 cudaError_t dispatch_d(int kind, const Args& a) {
-  if (a.D <= 64) return launch<kBf16, 64>(kind, a);
-  if (a.D <= 128) return launch<kBf16, 128>(kind, a);
-  return launch<kBf16, 256>(kind, a);
+  if (a.D <= 64) return launch<kBf16, 64, kMode>(kind, a);
+  if (a.D <= 128) return launch<kBf16, 128, kMode>(kind, a);
+  return launch<kBf16, 256, kMode>(kind, a);
+}
+
+template <bool kBf16>
+cudaError_t dispatch_mode(int kind, const Args& a) {
+  if (a.mode == kSegment) return dispatch_d<kBf16, kSegment>(kind, a);
+  if (a.mode == kFlashmask) return dispatch_d<kBf16, kFlashmask>(kind, a);
+  return dispatch_d<kBf16, kPlain>(kind, a);
+}
+
+// What the masked modes take: their inputs present, H dividing B*H, Hm 1
+// or H, C 1|2 with causal bounds or 2|4 without, and the start summary
+// for the C == 1 causal skip.
+bool mask_ok(const Args& a) {
+  const Mask& m = a.mk;
+  if (a.mode == kPlain) return true;
+  if (m.H <= 0 || a.BH % m.H != 0) return false;
+  if (a.mode == kSegment)
+    return m.segq && m.segk && m.qsum && m.ksum;
+  if (a.mode != kFlashmask || !m.fm || a.Sq != a.Sk) return false;
+  if (m.Hm != 1 && m.Hm != m.H) return false;
+  if (m.fm_causal ? (m.C != 1 && m.C != 2) : (m.C != 2 && m.C != 4))
+    return false;
+  return !(m.C == 1 && m.fm_causal && !m.fmsum);
 }
 
 int run(int kind, const Args& a, int dtype) {
   if (a.BH <= 0 || a.BH > 65535 || a.Sq <= 0 || a.Sk <= 0 || a.D <= 0 ||
-      a.D > 256 || a.D % 8 != 0)
+      a.D > 256 || a.D % 8 != 0 || !mask_ok(a))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_d<false>(kind, a);
+    e = dispatch_mode<false>(kind, a);
   else if (dtype == 1)
-    e = dispatch_d<true>(kind, a);
+    e = dispatch_mode<true>(kind, a);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
+}
+
+Args make_args(const void* segq, const void* segk, const void* qsum,
+               const void* ksum, const void* fm, const void* fmsum,
+               void* visits, int BH, int Sq, int Sk, int D, int H,
+               int fm_heads, int fm_cols, float scale, int causal,
+               int fm_causal, int mode, void* stream) {
+  Args a{};
+  a.BH = BH; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
+  a.causal = causal; a.mode = mode;
+  a.mk.segq = static_cast<const int*>(segq);
+  a.mk.segk = static_cast<const int*>(segk);
+  a.mk.qsum = static_cast<const int*>(qsum);
+  a.mk.ksum = static_cast<const int*>(ksum);
+  a.mk.fm = static_cast<const int*>(fm);
+  a.mk.fmsum = static_cast<const int*>(fmsum);
+  a.mk.visits = static_cast<int*>(visits);
+  a.mk.H = H; a.mk.Hm = fm_heads; a.mk.C = fm_cols;
+  a.mk.fm_causal = fm_causal;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs share
 // it; lse and delta are float32). Shapes: q/dout/out/dq (BH, Sq, D),
-// k/v/dk/dv (BH, Sk, D), lse/delta (BH, Sq). Each returns a cudaError_t:
-// 0 on a successful launch.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, void* lse,
-                                   int BH, int Sq, int Sk, int D, float scale,
-                                   int causal, int dtype, void* stream) {
-  Args a{};
+// k/v/dk/dv (BH, Sk, D), lse/delta (BH, Sq). mode: 0 plain (causal or
+// none), 1 segment, 2 flashmask. The masked modes' inputs, as in `Mask`:
+// segq/segk (B, 2, S) int32 and their (B, 4, ceil(S/32)) summaries
+// (segment mode); fm (B*fm_heads, fm_cols, Sk) int32 and its
+// (B*fm_heads, ceil(Sk/32)) start summary (flashmask mode; the summary
+// only for fm_cols 1 with fm_causal); H heads per batch row. `visits`,
+// if not null, gains the (q, k) tile pairs a masked mode visits. Pointers
+// a mode does not use may be null. Each returns a cudaError_t: 0 on a
+// successful launch, cudaErrorInvalidValue for arguments it refuses.
+extern "C" int flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* segq, const void* segk, const void* qsum, const void* ksum,
+    const void* fm, const void* fmsum, void* visits, int BH, int Sq, int Sk,
+    int D, int H, int fm_heads, int fm_cols, float scale, int causal,
+    int fm_causal, int mode, int dtype, void* stream) {
+  Args a = make_args(segq, segk, qsum, ksum, fm, fmsum, visits, BH, Sq, Sk,
+                     D, H, fm_heads, fm_cols, scale, causal, fm_causal, mode,
+                     stream);
   a.q = q; a.k = k; a.v = v; a.out = out; a.lse = lse;
-  a.BH = BH; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
-  a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
   return run(0, a, dtype);
 }
 
-extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dq, int BH, int Sq,
-                                  int Sk, int D, float scale, int causal,
-                                  int dtype, void* stream) {
-  Args a{};
+extern "C" int flash_attention_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* segq,
+    const void* segk, const void* qsum, const void* ksum, const void* fm,
+    const void* fmsum, void* visits, int BH, int Sq, int Sk, int D, int H,
+    int fm_heads, int fm_cols, float scale, int causal, int fm_causal,
+    int mode, int dtype, void* stream) {
+  Args a = make_args(segq, segk, qsum, ksum, fm, fmsum, visits, BH, Sq, Sk,
+                     D, H, fm_heads, fm_cols, scale, causal, fm_causal, mode,
+                     stream);
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse; a.delta = delta;
   a.dq = dq;
-  a.BH = BH; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
-  a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
   return run(1, a, dtype);
 }
 
-extern "C" int flash_attention_dkv(const void* q, const void* k,
-                                   const void* v, const void* dout,
-                                   const void* lse, const void* delta,
-                                   void* dk, void* dv, int BH, int Sq, int Sk,
-                                   int D, float scale, int causal, int dtype,
-                                   void* stream) {
-  Args a{};
+extern "C" int flash_attention_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* segq,
+    const void* segk, const void* qsum, const void* ksum, const void* fm,
+    const void* fmsum, void* visits, int BH, int Sq, int Sk, int D, int H,
+    int fm_heads, int fm_cols, float scale, int causal, int fm_causal,
+    int mode, int dtype, void* stream) {
+  Args a = make_args(segq, segk, qsum, ksum, fm, fmsum, visits, BH, Sq, Sk,
+                     D, H, fm_heads, fm_cols, scale, causal, fm_causal, mode,
+                     stream);
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse_in = lse; a.delta = delta;
   a.dk = dk; a.dv = dv;
-  a.BH = BH; a.Sq = Sq; a.Sk = Sk; a.D = D; a.scale = scale;
-  a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
   return run(2, a, dtype);
 }

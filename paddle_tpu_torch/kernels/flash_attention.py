@@ -1,5 +1,6 @@
 """Flash attention forward and backward (port of
-`paddle_tpu/kernels/flash_attention.py`, the plain-causal core).
+`paddle_tpu/kernels/flash_attention.py`): the plain-causal core, and its
+varlen (segment-id) and flashmask (column-bound) variants.
 
 Layout: the public `flash_attention_bshd` takes (B, S, H, D) like the
 reference; the three kernel entries work on (B*H, S, D) contiguous.
@@ -17,8 +18,28 @@ plain PyTorch version beside it (`flash_fwd_ref`, `flash_dq_ref`,
 exactly 0, the softmax sum clamped at 1e-30, so a row that sees no key
 gives zeros). `FlashAttention` is the autograd Function over them.
 
-Not ported: the varlen (segment-id) and flashmask variants, and the
-reference's TPU block autotuner (the CUDA kernels pick their own tiles).
+The masked variants take the reference's extra inputs on the same
+entries: `seg=(segq, segk)`, per-token (segment id, position in its
+sequence) rows of shape (B, 2, S) int32 — a query sees a key only in its
+own segment, and under `causal` only when pos_k <= pos_q (no global
+causal mask); or `fm=`, flashmask row bounds (B*Hm, C, Sk) int32 with Hm
+1 or H and C 1|2 (`fm_causal`) or 2|4, on top of the causal mask when
+`causal`. `H` is the number of heads per batch row. On a CUDA tensor
+they launch the segment or flashmask mode of the same kernels (counted
+in `.varlen_launches` / `.flashmask_launches`). The skip predicate reads
+per-32-row tile summaries that `tile_summary` builds with plain torch ops
+(`_segment_summary`: 3 launches a side, 4 when S is not a multiple of
+32; `_start_summary`, C == 1 with causal bounds only: 1 to 3); an entry
+takes them as `summary=` or builds them itself. `visits=`, a one-element
+int32 tensor on the card, gains the (q, k) tile pairs a masked kernel
+visits (`flash_visits_ref` is its plain version). `FlashAttentionVarlen` and `FlashMask` are the autograd Functions
+(`_flash_core_seg`, `_flash_core_fm`): they build the summaries once for
+the three kernels of a call; the integer inputs get no gradient.
+`flash_attention_varlen_bshd` and `flashmask_attention_bshd` are the
+reference's public entries.
+
+Not ported: the reference's TPU block autotuner (the CUDA kernels pick
+their own tiles).
 """
 from __future__ import annotations
 
@@ -29,9 +50,13 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention_bshd", "FlashAttention", "flash_fwd", "flash_dq",
+__all__ = ["flash_attention_bshd", "flash_attention_varlen_bshd",
+           "flashmask_attention_bshd", "FlashAttention",
+           "FlashAttentionVarlen", "FlashMask", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
-           "flash_delta", "check_supported", "NEG_INF", "KERNEL_SOURCE"]
+           "flash_delta", "tile_summary", "flash_visits_ref",
+           "check_supported", "NEG_INF",
+           "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = "flash_attention.cu"
 NEG_INF = -1e30
@@ -57,32 +82,81 @@ def check_supported(q_shape, k_shape, dtype):
 
 
 # ------------------------------------------------------- plain versions
-def _probs(q, k, lse, sm_scale, causal):
-    """fp32 scores (BH, Sq, Sk) with the causal mask as NEG_INF, and the
+def _flashmask_block_mask(fm, Sq, fm_causal):
+    """Flashmask bounds (N, C, Sk) -> (N, Sq, Sk) bool, True where a
+    score is masked: row r of key column c per the reference's
+    startend_row_indices (C 1: r >= start; C 2 causal: start <= r < end;
+    C 2 non-causal: r >= start or r < end; C 4: two [start, end) bands).
+    """
+    rows = torch.arange(Sq, device=fm.device)[None, :, None]
+    b = [fm[:, c][:, None, :] for c in range(fm.shape[1])]
+    if fm_causal:
+        if len(b) == 1:
+            return rows >= b[0]
+        return (rows >= b[0]) & (rows < b[1])
+    if len(b) == 2:
+        return (rows >= b[0]) | (rows < b[1])
+    return ((rows >= b[0]) & (rows < b[1])) | ((rows >= b[2]) & (rows < b[3]))
+
+
+def _per_head(x, BH, H):
+    """Rows of a per-batch-row input (B or B*Hm leading) for each of the
+    BH heads: x itself when it has BH rows, else each row H times."""
+    return x if x.shape[0] == BH else x.repeat_interleave(H, dim=0)
+
+
+def _apply_masks(s, causal, seg=None, fm=None, fm_causal=True, H=1):
+    """Scores (BH, Sq, Sk) -> (scores with NEG_INF where masked, the
+    visibility mask or None), as the reference's `_apply_masks`: the
+    bottom-right causal mask only without segments; segments allow
+    equal ids and, under causal, pos_k <= pos_q; flashmask bounds on top.
+    """
+    BH, Sq, Sk = s.shape
+    keep = None
+    if causal and seg is None:
+        qpos = torch.arange(Sq, device=s.device)[:, None]
+        kpos = torch.arange(Sk, device=s.device)[None, :]
+        keep = kpos <= qpos + (Sk - Sq)
+    if seg is not None:
+        segq, segk = (_per_head(x, BH, H) for x in seg)
+        keep = segq[:, 0, :, None] == segk[:, 0, None, :]
+        if causal:
+            keep = keep & (segk[:, 1, None, :] <= segq[:, 1, :, None])
+    if fm is not None:
+        allow = ~_flashmask_block_mask(_per_head(fm, BH, H), Sq, fm_causal)
+        keep = allow if keep is None else keep & allow
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    return s, keep
+
+
+def _masked_exp(s, ref):
+    """exp(s - ref), exactly 0 for a masked (NEG_INF) score even when
+    `ref` is NEG_INF too (a row that has seen no key)."""
+    return torch.where(s <= NEG_INF / 2, torch.zeros((), device=s.device),
+                       torch.exp(s - ref))
+
+
+def _probs(q, k, lse, sm_scale, causal, seg=None, fm=None, fm_causal=True,
+           H=1):
+    """fp32 scores (BH, Sq, Sk) with every mask as NEG_INF, and the
     visibility mask (None when nothing is masked). With `lse` given,
     also exp(s - lse) with masked entries exactly 0."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    keep = None
-    if causal:
-        Sq, Sk = q.shape[1], k.shape[1]
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        kpos = torch.arange(Sk, device=q.device)[None, :]
-        keep = kpos <= qpos + (Sk - Sq)
-        s = s.masked_fill(~keep, NEG_INF)
+    s, keep = _apply_masks(s, causal, seg, fm, fm_causal, H)
     if lse is None:
         return s, keep
-    p = torch.exp(s - lse[..., None])
-    return (p if keep is None else p.masked_fill(~keep, 0.0)), keep
+    ref = lse[..., None]
+    return (torch.exp(s - ref) if keep is None else _masked_exp(s, ref)), keep
 
 
-def flash_fwd_ref(q, k, v, sm_scale, causal):
+def flash_fwd_ref(q, k, v, sm_scale, causal, seg=None, fm=None,
+                  fm_causal=True, H=1):
     """(BH, Sq, D), (BH, Sk, D) x2 -> out (BH, Sq, D) in q's dtype and
     lse (BH, Sq) fp32."""
-    s, keep = _probs(q, k, None, sm_scale, causal)
+    s, keep = _probs(q, k, None, sm_scale, causal, seg, fm, fm_causal, H)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    if keep is not None:
-        p = p.masked_fill(~keep, 0.0)
+    p = torch.exp(s - m) if keep is None else _masked_exp(s, m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.matmul(p, v.float()) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
@@ -94,21 +168,25 @@ def flash_delta(out, dout):
     return (dout.float() * out.float()).sum(dim=-1)
 
 
-def _dscores(q, k, v, dout, lse, delta, sm_scale, causal):
-    p, _ = _probs(q, k, lse, sm_scale, causal)
+def _dscores(q, k, v, dout, lse, delta, sm_scale, causal, *masks):
+    p, _ = _probs(q, k, lse, sm_scale, causal, *masks)
     dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
     return p, p * (dp - delta[..., None]) * sm_scale
 
 
-def flash_dq_ref(q, k, v, dout, lse, delta, sm_scale, causal):
+def flash_dq_ref(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
+                 fm=None, fm_causal=True, H=1):
     """dQ (BH, Sq, D) in q's dtype, from the saved lse and delta."""
-    _, ds = _dscores(q, k, v, dout, lse, delta, sm_scale, causal)
+    _, ds = _dscores(q, k, v, dout, lse, delta, sm_scale, causal, seg, fm,
+                     fm_causal, H)
     return torch.matmul(ds, k.float()).to(q.dtype)
 
 
-def flash_dkv_ref(q, k, v, dout, lse, delta, sm_scale, causal):
+def flash_dkv_ref(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
+                  fm=None, fm_causal=True, H=1):
     """(dK, dV), each (BH, Sk, D) in k's / v's dtype."""
-    p, ds = _dscores(q, k, v, dout, lse, delta, sm_scale, causal)
+    p, ds = _dscores(q, k, v, dout, lse, delta, sm_scale, causal, seg, fm,
+                     fm_causal, H)
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     dv = torch.matmul(p.transpose(-1, -2), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -118,16 +196,19 @@ def flash_dkv_ref(q, k, v, dout, lse, delta, sm_scale, causal):
 # the C entries of csrc/flash_attention.cu (pointers and the stream as
 # c_void_p: a bare int would be cut to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every entry's tail after its outputs: segq, segk, qsum, ksum, fm, fmsum,
+# visits, BH, Sq, Sk, D, H, fm_heads, fm_cols, scale, causal, fm_causal,
+# mode, dtype, stream
+_TAIL = [_P] * 7 + [_I] * 7 + [_F] + [_I] * 4 + [_P]
 C_ARGTYPES = {
-    # q, k, v, out, lse, BH, Sq, Sk, D, scale, causal, dtype, stream
-    "flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
-    # q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D, scale, causal, dtype,
-    # stream
-    "flash_attention_dq": [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P],
-    # q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, D, scale, causal,
-    # dtype, stream
-    "flash_attention_dkv": [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P],
+    "flash_attention_fwd": [_P] * 5 + _TAIL,    # q, k, v, out, lse
+    # q, k, v, dout, lse, delta, dq
+    "flash_attention_dq": [_P] * 7 + _TAIL,
+    # q, k, v, dout, lse, delta, dk, dv
+    "flash_attention_dkv": [_P] * 8 + _TAIL,
 }
+_MODE = {"plain": 0, "varlen": 1, "flashmask": 2}
+GROUP = 32      # rows of one tile-summary entry (csrc: kGroup)
 
 
 def _entry(name):
@@ -170,6 +251,102 @@ def _check_cuda_args(q, k, v, *rest):
             raise ValueError("lse/delta must be float32 (B*H, Sq)")
 
 
+def _check_masks(q, k, seg, fm, H, visits):
+    """What only the wrapper can see of the masked modes' inputs: contiguous
+    int32 tensors on q's device with the rows the kernels read — segments
+    (B, 2, Sq) / (B, 2, Sk), flashmask bounds (B or B*H, C, Sk), `visits`
+    (1,). The C entry refuses the rest (flashmask with Sq != Sk, C)."""
+    BH, Sq, _ = q.shape
+    Sk = k.shape[1]
+    if seg is not None and fm is not None:
+        raise ValueError("segment ids and flashmask bounds do not combine")
+    if H < 1 or BH % H:
+        raise ValueError(f"H = {H} does not divide B*H = {BH}")
+    B = BH // H
+    want = ([("segq", seg[0], (B, 2, Sq)), ("segk", seg[1], (B, 2, Sk))]
+            if seg is not None else [])
+    if fm is not None:
+        if fm.dim() != 3 or fm.shape[0] not in (B, BH) or fm.shape[2] != Sk:
+            raise ValueError(f"flashmask bounds {tuple(fm.shape)} are not "
+                             f"(B*Hm, C, {Sk}) with Hm 1 or {H}")
+        want.append(("fm", fm, tuple(fm.shape)))
+    if visits is not None:
+        want.append(("visits", visits, (1,)))
+    for name, t, shape in want:
+        if t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 {shape} on "
+                             f"{q.device}, not {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _group_pad(x, group=GROUP):
+    """(N, R, S) -> (N, R, ceil(S/group), group), the last row repeated
+    past S so a group's min and max are those of its in-range rows."""
+    N, R, S = x.shape
+    pad = -S % group
+    if pad:
+        x = torch.cat([x, x[..., -1:].expand(N, R, pad)], dim=-1)
+    return x.view(N, R, -1, group)
+
+
+def _segment_summary(seg):
+    """(B, 2, S) segment rows -> (B, 4, ceil(S/32)) int32: min id, max
+    id, min position, max position of each 32-row group."""
+    x = _group_pad(seg)
+    lo, hi = x.amin(dim=-1), x.amax(dim=-1)
+    return torch.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], dim=1)
+
+
+def _start_summary(fm):
+    """(N, C, Sk) bounds -> (N, ceil(Sk/32)) int32: the largest start
+    (bound 0) of each 32-column group."""
+    return _group_pad(fm[:, :1].contiguous()).amax(dim=-1)[:, 0].contiguous()
+
+
+def tile_summary(seg=None, fm=None, fm_causal=True):
+    """The skip predicate's tile summaries for one set of masks, as a
+    masked entry's `summary=`: (qsum, ksum, fmsum), None where the mode
+    takes none — the segment rows' (`_segment_summary`), or the bounds'
+    start summary (C == 1 with causal bounds only)."""
+    if seg is not None:
+        return _segment_summary(seg[0]), _segment_summary(seg[1]), None
+    if fm is not None and fm.shape[1] == 1 and fm_causal:
+        return None, None, _start_summary(fm)
+    return None, None, None
+
+
+def flash_visits_ref(BH, Sq, Sk, causal, seg=None, fm=None, fm_causal=True,
+                     H=1, tile=64):
+    """The plain version of a masked kernel's `visits`: the (q tile, k
+    tile) pairs the reference's `_block_contributes` lets through at the
+    kernels' tile (64 rows; 32 for fp32 at head_dim > 128), summed over
+    the B*H heads. Segment mode: overlapping id ranges, less the
+    one-sequence all-future pairs under `causal`; flashmask: the causal
+    bound, less the C == 1 causal document skip."""
+    x = seg[0] if seg is not None else fm
+    q0 = torch.arange(0, Sq, tile, device=x.device)[:, None]
+    k0 = torch.arange(0, Sk, tile, device=x.device)[None, :]
+    if seg is not None:
+        (qlo, qhi), (klo, khi) = ((g.amin(-1), g.amax(-1)) for g in (
+            _group_pad(seg[0], tile), _group_pad(seg[1], tile)))
+        ok = (qlo[:, 0, :, None] <= khi[:, 0, None, :]) \
+            & (qhi[:, 0, :, None] >= klo[:, 0, None, :])
+        if causal:
+            one = (qlo[:, 0, :, None] == khi[:, 0, None, :]) \
+                & (qhi[:, 0, :, None] == klo[:, 0, None, :])
+            ok = ok & ~(one & (klo[:, 1, None, :] > qhi[:, 1, :, None]))
+        return int(ok.sum()) * H
+    ok = (k0 <= q0 + tile - 1 + Sk - Sq) if causal \
+        else torch.ones(q0.shape[0], k0.shape[1], dtype=torch.bool,
+                        device=x.device)
+    ok = ok.expand(fm.shape[0], -1, -1)
+    if fm.shape[1] == 1 and fm_causal:
+        start = _group_pad(fm, tile).amax(dim=-1)[:, 0]     # (N, nk)
+        ok = ok & (q0[None] < start[:, None, :])
+    return int(ok.sum()) * (BH // fm.shape[0])
+
+
 def _device_kind(q, name):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
@@ -181,69 +358,87 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_fwd(q, k, v, sm_scale, causal):
-    """Forward: (out (BH, Sq, D), lse (BH, Sq) fp32)."""
+def _launch(fn, name, q, k, outs, ins, sm_scale, causal, seg, fm,
+            fm_causal, H, summary, visits):
+    """One launch of `name` in the mode its masks ask for; counts it on
+    `fn`. `outs`/`ins` are the entry's tensor arguments after q, k (v,
+    dout, lse, delta; out, lse / dq / dk, dv)."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    mode, kind = _MODE["plain"], "launches"
+    masks = (None,) * 7
+    if seg is not None or fm is not None:
+        _check_masks(q, k, seg, fm, H, visits)
+        if summary is None:
+            summary = tile_summary(seg, fm, fm_causal)
+        mode = _MODE["varlen" if seg is not None else "flashmask"]
+        kind = "varlen_launches" if seg is not None else "flashmask_launches"
+        masks = (*(seg or (None, None)), *summary[:2], fm, summary[2],
+                 visits)
+    ptrs = [t.data_ptr() for t in (q, k) + ins + outs]
+    with torch.cuda.device(q.device):
+        err = _entry(name)(
+            *ptrs, *(None if t is None else t.data_ptr() for t in masks),
+            BH, Sq, Sk, D, int(H),
+            fm.shape[0] * H // BH if fm is not None else 1,
+            fm.shape[1] if fm is not None else 0, float(sm_scale),
+            int(bool(causal)), int(bool(fm_causal)), mode,
+            _DTYPE_CODE[q.dtype], _stream(q))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed or refused its "
+                           f"arguments: cudaError {err}")
+    setattr(fn, kind, getattr(fn, kind) + 1)
+
+
+def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
+              H=1, summary=None, visits=None):
+    """Forward: (out (BH, Sq, D), lse (BH, Sq) fp32). `summary` and
+    `visits` are for the card's masked modes (the module docstring)."""
     if _device_kind(q, "flash_fwd") == "cpu":
-        return flash_fwd_ref(q, k, v, sm_scale, causal)
+        return flash_fwd_ref(q, k, v, sm_scale, causal, seg, fm, fm_causal,
+                             H)
     _check_cuda_args(q, k, v)
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        err = _entry("flash_attention_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), BH, Sq, k.shape[1], D, float(sm_scale),
-            int(bool(causal)), _DTYPE_CODE[q.dtype], _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
-                           f"cudaError {err}")
-    flash_fwd.launches += 1
+    _launch(flash_fwd, "flash_attention_fwd", q, k, (out, lse), (v,),
+            sm_scale, causal, seg, fm, fm_causal, H, summary, visits)
     return out, lse
 
 
-def flash_dq(q, k, v, dout, lse, delta, sm_scale, causal):
+def flash_dq(q, k, v, dout, lse, delta, sm_scale, causal, seg=None, fm=None,
+             fm_causal=True, H=1, summary=None, visits=None):
     """dQ (BH, Sq, D) in q's dtype."""
     if _device_kind(q, "flash_dq") == "cpu":
-        return flash_dq_ref(q, k, v, dout, lse, delta, sm_scale, causal)
+        return flash_dq_ref(q, k, v, dout, lse, delta, sm_scale, causal, seg,
+                            fm, fm_causal, H)
     _check_cuda_args(q, k, v, dout, lse, delta)
-    BH, Sq, D = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _entry("flash_attention_dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Sq,
-            k.shape[1], D, float(sm_scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_dq kernel launch failed: "
-                           f"cudaError {err}")
-    flash_dq.launches += 1
+    _launch(flash_dq, "flash_attention_dq", q, k, (dq,),
+            (v, dout, lse, delta), sm_scale, causal, seg, fm, fm_causal, H,
+            summary, visits)
     return dq
 
 
-def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal):
+def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
+              fm=None, fm_causal=True, H=1, summary=None, visits=None):
     """(dK, dV), each (BH, Sk, D) in k's dtype."""
     if _device_kind(q, "flash_dkv") == "cpu":
-        return flash_dkv_ref(q, k, v, dout, lse, delta, sm_scale, causal)
+        return flash_dkv_ref(q, k, v, dout, lse, delta, sm_scale, causal,
+                             seg, fm, fm_causal, H)
     _check_cuda_args(q, k, v, dout, lse, delta)
-    BH, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _entry("flash_attention_dkv")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            BH, Sq, k.shape[1], D, float(sm_scale), int(bool(causal)),
-            _DTYPE_CODE[q.dtype], _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_dkv kernel launch failed: "
-                           f"cudaError {err}")
-    flash_dkv.launches += 1
+    _launch(flash_dkv, "flash_attention_dkv", q, k, (dk, dv),
+            (v, dout, lse, delta), sm_scale, causal, seg, fm, fm_causal, H,
+            summary, visits)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+flash_fwd.launches = flash_fwd.varlen_launches = 0
+flash_dq.launches = flash_dq.varlen_launches = 0
+flash_dkv.launches = flash_dkv.varlen_launches = 0
+flash_fwd.flashmask_launches = flash_dq.flashmask_launches = 0
+flash_dkv.flashmask_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -269,10 +464,68 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class FlashAttentionVarlen(torch.autograd.Function):
+    """Segment-masked attention over (BH, S, D) (the reference's
+    `_flash_core_seg`): segq (B, 2, Sq) / segk (B, 2, Sk) int32 rows of
+    [segment id; position in its sequence], H heads per batch row."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segq, segk, sm_scale, causal, H):
+        seg = (segq, segk)
+        qsum, ksum, _ = summary = tile_summary(seg)
+        out, lse = flash_fwd(q, k, v, sm_scale, causal, seg=seg, H=H,
+                             summary=summary)
+        ctx.save_for_backward(q, k, v, out, lse, segq, segk, qsum, ksum)
+        ctx.sm_scale, ctx.causal, ctx.H = sm_scale, causal, H
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, segq, segk, qsum, ksum = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = flash_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, ctx.sm_scale, ctx.causal)
+        kw = dict(seg=(segq, segk), H=ctx.H, summary=(qsum, ksum, None))
+        dq = flash_dq(*args, **kw)
+        dk, dv = flash_dkv(*args, **kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class FlashMask(torch.autograd.Function):
+    """Flashmask attention over (BH, S, D) (the reference's
+    `_flash_core_fm`): fm (B*Hm, C, Sk) int32 row bounds."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, fm, sm_scale, causal, fm_causal, H):
+        summary = tile_summary(fm=fm, fm_causal=fm_causal)
+        out, lse = flash_fwd(q, k, v, sm_scale, causal, fm=fm,
+                             fm_causal=fm_causal, H=H, summary=summary)
+        ctx.save_for_backward(q, k, v, out, lse, fm, summary[2])
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.fm_causal, ctx.H = fm_causal, H
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, fm, fmsum = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = flash_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, ctx.sm_scale, ctx.causal)
+        kw = dict(fm=fm, fm_causal=ctx.fm_causal, H=ctx.H,
+                  summary=(None, None, fmsum))
+        dq = flash_dq(*args, **kw)
+        dk, dv = flash_dkv(*args, **kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def _to_bhsd(x):
     B, S, H, D = x.shape
     # at B == 1 the reshape is a strided view, so ask for the copy
     return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+
+def _from_bhsd(out, B, H, S, D):
+    return out.reshape(B, H, S, D).transpose(1, 2)
 
 
 def flash_attention_bshd(q, k, v, causal=False, sm_scale=None):
@@ -286,4 +539,81 @@ def flash_attention_bshd(q, k, v, causal=False, sm_scale=None):
         sm_scale = 1.0 / math.sqrt(D)
     out = FlashAttention.apply(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v),
                                float(sm_scale), bool(causal))
-    return out.reshape(B, H, Sq, D).transpose(1, 2)
+    return _from_bhsd(out, B, H, Sq, D)
+
+
+def _positions_in_segments(seg):
+    """Per-token position within its (contiguous) segment: (B, S) ->
+    (B, S) int32, p - the start of p's segment."""
+    B, S = seg.shape
+    p = torch.arange(S, dtype=torch.int32, device=seg.device)[None, :]
+    boundary = torch.where(seg != torch.roll(seg, 1, dims=1), p,
+                           torch.zeros_like(p))
+    boundary[:, 0] = 0
+    start = torch.cummax(boundary, dim=1).values
+    return p - start
+
+
+def flash_attention_varlen_bshd(q, k, v, q_segment_ids, kv_segment_ids,
+                                causal=False, sm_scale=None,
+                                q_positions=None, kv_positions=None):
+    """Packed (varlen) attention via per-token segment ids: q/k/v
+    (B, S, H, D), ids (B, Sq) / (B, Sk). A token attends only within its
+    segment; causal is per sequence: key position <= query position
+    (positions from the ids, or given — `flash_attn_unpadded` shifts the
+    query's by its sequence's k_len - q_len)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if not q.is_cuda:
+        check_supported(tuple(q.shape), tuple(k.shape), q.dtype)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    ids_q = q_segment_ids.to(torch.int32).reshape(B, Sq)
+    ids_k = kv_segment_ids.to(torch.int32).reshape(B, Sk)
+    if causal:
+        pos_q = (q_positions.to(torch.int32).reshape(B, Sq)
+                 if q_positions is not None
+                 else _positions_in_segments(ids_q))
+        pos_k = (kv_positions.to(torch.int32).reshape(B, Sk)
+                 if kv_positions is not None
+                 else _positions_in_segments(ids_k))
+    else:
+        pos_q = torch.zeros_like(ids_q)
+        pos_k = torch.zeros_like(ids_k)
+    segq = torch.stack([ids_q, pos_q], dim=1)      # (B, 2, Sq)
+    segk = torch.stack([ids_k, pos_k], dim=1)
+    out = FlashAttentionVarlen.apply(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v),
+                                     segq, segk, float(sm_scale),
+                                     bool(causal), int(H))
+    return _from_bhsd(out, B, H, Sq, D)
+
+
+def flashmask_attention_bshd(q, k, v, startend_row_indices, causal=True,
+                             sm_scale=None):
+    """Flashmask attention (the reference's `flashmask_attention_bshd`):
+    startend_row_indices (B, 1|H, Sk, C) int32, C 1|2 causal or 2|4
+    non-causal — each key column's masked row ranges, rebuilt tile by
+    tile in the kernel, never a dense (B, H, Sq, Sk) mask."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if not q.is_cuda:
+        check_supported(tuple(q.shape), tuple(k.shape), q.dtype)
+    if Sq != Sk:
+        raise ValueError("flashmask requires Sq == Sk")
+    Hm = startend_row_indices.shape[1]
+    C = startend_row_indices.shape[3]
+    if Hm not in (1, H):
+        raise ValueError(f"flashmask heads dim {Hm} must be 1 or {H}")
+    if causal and C not in (1, 2):
+        raise ValueError("causal flashmask needs 1 or 2 bound columns")
+    if not causal and C not in (2, 4):
+        raise ValueError("non-causal flashmask needs 2 or 4 bound columns")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    # (B, Hm, Sk, C) -> (B*Hm, C, Sk)
+    fm = startend_row_indices.to(torch.int32).transpose(2, 3) \
+        .reshape(B * Hm, C, Sk).contiguous()
+    out = FlashMask.apply(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), fm,
+                          float(sm_scale), bool(causal), bool(causal),
+                          int(H))
+    return _from_bhsd(out, B, H, Sq, D)

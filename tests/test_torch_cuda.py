@@ -594,3 +594,307 @@ def test_train_steps_on_card_match_cpu_and_run_the_kernels(card):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=1e-4)
     assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+# ----------------------------------------- varlen and flashmask attention
+def _segments(B, lens_q, lens_k=None):
+    """(segq, segk) (B, 2, S) int32 rows [segment id; position in it]
+    for sequences of the given lengths, the same in every batch row; the
+    query positions shifted by each sequence's k_len - q_len (as
+    flash_attn_unpadded does)."""
+    lens_k = lens_k or lens_q
+    def rows(lens, shift):
+        ids = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
+        pos = np.concatenate([np.arange(n) + d for n, d in zip(lens, shift)])
+        return np.stack([ids, pos]).astype(np.int32)
+    shift = [kl - ql for ql, kl in zip(lens_q, lens_k)]
+    return (np.broadcast_to(rows(lens_q, shift), (B, 2, sum(lens_q))).copy(),
+            np.broadcast_to(rows(lens_k, [0] * len(lens_k)),
+                            (B, 2, sum(lens_k))).copy())
+
+
+def _fm_bounds(kind, B, Hm, S, seed):
+    """(B*Hm, C, S) int32 flashmask bounds and fm_causal: a document mask
+    (C 1), a causal band (C 2), non-causal C 2 and C 4, random widths."""
+    rng = np.random.RandomState(seed)
+    col = np.arange(S)
+    if kind == "doc":
+        ends = np.sort(rng.choice(np.arange(8, S), 3, replace=False))
+        b = np.searchsorted(ends, col, side="right")
+        start = np.append(ends, S)[b][None]
+        return np.ascontiguousarray(np.broadcast_to(start, (B * Hm, 1, S)),
+                                    dtype=np.int32), True
+    w = rng.randint(8, 48, size=(B * Hm, 1, 1))
+    if kind == "band":
+        return np.concatenate([np.minimum(col + w, S),
+                               np.full((B * Hm, 1, S), S)], 1) \
+            .astype(np.int32), True
+    if kind == "nc2":
+        return np.concatenate([np.minimum(col + w, S),
+                               np.maximum(col - w, 0) + 0 * w], 1) \
+            .astype(np.int32), False
+    return np.concatenate([np.minimum(col + w // 2, S),
+                           np.minimum(col + w, S),
+                           np.zeros((B * Hm, 1, S), int),
+                           np.maximum(col - w, 0)], 1).astype(np.int32), False
+
+
+# (name, B, H, Sq, Sk, D, causal, masks): varlen with ragged non-uniform
+# q/k lengths (totals not tile multiples), flashmask in each bound count,
+# per-head bounds (Hm = H)
+MASKED_CASES = [
+    ("varlen_causal", 1, 2, 100, 148, 64, True, ([40, 9, 51], [60, 25, 63])),
+    ("varlen", 2, 2, 200, 200, 128, False, ([70, 64, 66],)),
+    ("fm_doc", 2, 2, 200, 200, 64, True, ("doc", 1)),
+    ("fm_band", 1, 2, 136, 136, 128, True, ("band", 1)),
+    ("fm_nc2", 1, 2, 136, 136, 64, False, ("nc2", 1)),
+    ("fm_nc4", 1, 3, 160, 160, 256, False, ("nc4", 1)),
+    ("fm_heads", 2, 3, 130, 130, 64, True, ("band", 3)),
+]
+
+
+def _masked_case(case, device):
+    name, B, H, Sq, Sk, D, causal, spec = case
+    q, k, v, do = _flash_inputs(B * H, Sq, Sk, D, Sq + Sk + D, device)
+    if name.startswith("varlen"):
+        seg = tuple(torch.from_numpy(x).to(device)
+                    for x in _segments(B, *spec))
+        return q, k, v, do, dict(seg=seg, H=H), causal
+    fm, fm_causal = _fm_bounds(spec[0], B, spec[1], Sk, D)
+    return q, k, v, do, dict(fm=torch.from_numpy(fm).to(device),
+                             fm_causal=fm_causal, H=H), causal
+
+
+@pytest.mark.parametrize("case", MASKED_CASES, ids=lambda c: c[0])
+def test_masked_flash_kernels_match_plain_versions(card, case):
+    """The segment and flashmask modes of fwd (out, lse), dQ and dK/dV
+    against the plain versions, with `flash_error`'s limits: fp32 within
+    1e-4 of the largest value, bf16 a relative error of 1e-2, the lse
+    1e-4. Each call launches its mode's kernel once and the plain mode's
+    never, and each counts the tile pairs it visits as the plain
+    predicate `flash_visits_ref` does."""
+    q, k, v, do, kw, causal = _masked_case(case, card)
+    kind = "varlen_launches" if "seg" in kw else "flashmask_launches"
+    fns = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    for dt in (torch.float32, torch.bfloat16):
+        def close(got, want):
+            if dt == torch.float32:
+                _close(got, want, 1e-4)
+            else:
+                _close_rel(got, want, 1e-2)
+        n0 = [(getattr(f, kind), f.launches) for f in fns]
+        qq, kk, vv, dd = (t.to(dt) for t in (q, k, v, do))
+        out, lse = fa.flash_fwd(qq, kk, vv, scale, causal, **kw)
+        ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal, **kw)
+        close(out, ref_out)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
+        delta = fa.flash_delta(ref_out, dd)
+        args = (qq, kk, vv, dd, ref_lse, delta, scale, causal)
+        close(fa.flash_dq(*args, **kw), fa.flash_dq_ref(*args, **kw))
+        for got, want in zip(fa.flash_dkv(*args, **kw),
+                             fa.flash_dkv_ref(*args, **kw)):
+            close(got, want)
+        torch.cuda.synchronize()
+        assert [(getattr(f, kind), f.launches) for f in fns] == \
+            [(a + 1, b) for a, b in n0]
+        BH, Sq, D = q.shape
+        tile = 32 if dt == torch.float32 and D > 128 else 64
+        counts = torch.zeros(3, dtype=torch.int32, device=card)
+        fa.flash_fwd(qq, kk, vv, scale, causal, visits=counts[0:1], **kw)
+        fa.flash_dq(*args, visits=counts[1:2], **kw)
+        fa.flash_dkv(*args, visits=counts[2:3], **kw)
+        want = fa.flash_visits_ref(BH, Sq, k.shape[1], causal, tile=tile,
+                                   **kw)
+        assert counts.tolist() == [want] * 3
+
+
+def test_rows_that_see_no_key_give_zeros(card):
+    """A varlen query whose sequence has no key before it (causal, a
+    negative shifted position) and a flashmask row masked everywhere:
+    output and gradient rows are zeros and the lse about -1e30, as in
+    the plain versions."""
+    q, k, v, do = _flash_inputs(2, 64, 64, 64, 5, card)
+    seg = (torch.tensor([[0] * 64, [-3] * 8 + list(range(56))],
+                        dtype=torch.int32, device=card)[None],
+           torch.tensor([[0] * 64, list(range(64))], dtype=torch.int32,
+                        device=card)[None])
+    fm = torch.zeros(1, 1, 64, dtype=torch.int32, device=card)
+    fm[0, 0, 32:] = 64                  # rows 0-31 see nothing at all
+    for kw in (dict(seg=seg, H=2), dict(fm=fm, fm_causal=True, H=2)):
+        out, lse = fa.flash_fwd(q, k, v, 0.125, True, **kw)
+        ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, 0.125, True, **kw)
+        _close(out, ref_out, 1e-4)
+        dead = ref_lse < -1e29
+        assert dead.any() and torch.all(out[dead] == 0)
+        assert torch.all(lse[dead] < -1e29)
+        delta = fa.flash_delta(out, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, 0.125, True, **kw)
+        assert torch.all(dq[dead] == 0)
+
+
+def test_varlen_and_flashmask_autograd_run_the_kernels(card):
+    """flash_attn_unpadded, flash_attn_varlen_qkvpacked and
+    flashmask_attention (bounds and window_size) forward and backward on
+    the card: each launches its mode's fwd, dQ and dK/dV once, and
+    matches the CPU (the plain versions) within 1e-4."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.RandomState(3)
+    H, D = 2, 64
+    cu = torch.tensor([0, 37, 100, 130], dtype=torch.int32)
+    x = rng.randn(130, 3, H, D).astype(np.float32)
+    xb = rng.randn(2, 96, H, D).astype(np.float32)
+    bounds = torch.from_numpy(_fm_bounds("doc", 2, 1, 96, 1)[0]
+                              .reshape(2, 1, 1, 96).transpose(0, 1, 3, 2)
+                              .copy())
+    calls = {
+        "unpadded": lambda t: F.flash_attn_unpadded(
+            t[:, 0], t[:, 1], t[:, 2], cu.to(t.device), cu.to(t.device), 63,
+            63, 0.125, causal=True)[0],
+        "qkvpacked": lambda t: F.flash_attn_varlen_qkvpacked(
+            t, cu.to(t.device), cu.to(t.device), 63, 63, 0.125,
+            causal=False)[0],
+        "bounds": lambda t: F.flashmask_attention(
+            t, t * 0.5, t * 2.0, bounds.to(t.device), causal=True),
+        "window": lambda t: F.flashmask_attention(
+            t, t * 0.5, t * 2.0, window_size=(7, 11), causal=False),
+    }
+    for name, fn in calls.items():
+        data = x if name in ("unpadded", "qkvpacked") else xb
+        kind = "varlen_launches" if name in ("unpadded", "qkvpacked") \
+            else "flashmask_launches"
+        n0 = [getattr(f, kind) for f in (fa.flash_fwd, fa.flash_dq,
+                                         fa.flash_dkv)]
+        res = {}
+        for dev in ("cpu", card):
+            t = torch.from_numpy(data).to(dev).requires_grad_()
+            out = fn(t)
+            out.square().sum().backward()
+            res[str(dev)] = (out.detach().cpu(), t.grad.cpu())
+        assert [getattr(f, kind) for f in (fa.flash_fwd, fa.flash_dq,
+                                           fa.flash_dkv)] == \
+            [n + 1 for n in n0], name
+        for got, want in zip(res[str(card)], res["cpu"]):
+            _close(got, want, 1e-4)
+
+
+def test_document_isolation_is_bitwise(card):
+    """Changing one document's q/k/v leaves every other document's output
+    rows and gradient rows bitwise unchanged, through the varlen and the
+    flashmask (causal document mask) entries, bf16."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.RandomState(4)
+    lens = [70, 129, 64, 93]
+    S, H, D = sum(lens), 4, 128
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32, device=card)
+    ends = np.repeat(np.cumsum(lens), lens).astype(np.int32)
+    bounds = torch.from_numpy(ends).to(card).view(1, 1, S, 1)
+    base = torch.from_numpy(rng.randn(S, 3, H, D).astype(np.float32)) \
+        .to(card).bfloat16()
+    do = torch.from_numpy(rng.randn(S, H, D).astype(np.float32)) \
+        .to(card).bfloat16()
+    lo, hi = lens[0], lens[0] + lens[1]          # document 1 changes
+    other = torch.ones(S, dtype=torch.bool, device=card)
+    other[lo:hi] = False
+    entries = {
+        "varlen": lambda t: F.flash_attn_unpadded(
+            t[:, 0], t[:, 1], t[:, 2], cu, cu, 129, 129, 0.1,
+            causal=True)[0],
+        "flashmask": lambda t: F.flashmask_attention(
+            t[None, :, 0], t[None, :, 1], t[None, :, 2], bounds,
+            causal=True)[0]}
+    for name, fn in entries.items():
+        res = []
+        for change in (False, True):
+            x = base.clone()
+            if change:
+                x[lo:hi] = x[lo:hi] * -1.5 + 0.25
+            x.requires_grad_()
+            out = fn(x)
+            (out.float() * do.float()).sum().backward()
+            res.append((out.detach(), x.grad))
+        (o0, g0), (o1, g1) = res
+        assert torch.equal(o0[other], o1[other]), name
+        assert torch.equal(g0[other], g1[other]), name
+        assert not torch.equal(o0[~other], o1[~other]), name
+
+
+def test_masked_kernels_refuse_what_they_do_not_take(card):
+    q, k, v, do = _flash_inputs(4, 64, 64, 64, 0, card)
+    segq, segk = (torch.from_numpy(x).to(card) for x in _segments(2, [30, 34]))
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_fwd(q, k, v, 0.125, True, seg=(segq.long(), segk), H=2)
+    with pytest.raises(ValueError, match="divide"):
+        fa.flash_fwd(q, k, v, 0.125, True, seg=(segq, segk), H=3)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_fwd(q, k, v, 0.125, True, seg=(segq[:, :, :60], segk), H=2)
+    fm = torch.full((2, 1, 64), 64, dtype=torch.int32, device=card)
+    # the C entry's own refusals: C 1 without causal bounds, Sq != Sk
+    with pytest.raises(RuntimeError, match="refused"):
+        fa.flash_fwd(q, k, v, 0.125, False, fm=fm, fm_causal=False, H=2)
+    with pytest.raises(RuntimeError, match="refused"):
+        fa.flash_fwd(q, k[:, :32].contiguous(), v[:, :32].contiguous(),
+                     0.125, True, fm=fm[..., :32].contiguous(), H=2)
+    with pytest.raises(ValueError, match="visits"):
+        fa.flash_fwd(q, k, v, 0.125, True, fm=fm, H=2,
+                     visits=torch.zeros(1, device=card))
+    with pytest.raises(ValueError, match="Hm"):
+        fa.flash_fwd(q, k, v, 0.125, True, fm=fm[:1].expand(3, 1, 64)
+                     .contiguous(), H=2)
+    with pytest.raises(ValueError, match="do not combine"):
+        fa.flash_fwd(q, k, v, 0.125, True, seg=(segq, segk), fm=fm, H=2)
+    bad = torch.zeros(1, 64, 2, 64, device=card)
+    with pytest.raises(ValueError, match="heads dim"):
+        fa.flashmask_attention_bshd(bad, bad, bad, torch.zeros(
+            1, 3, 64, 1, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="bound columns"):
+        fa.flashmask_attention_bshd(bad, bad, bad, torch.zeros(
+            1, 1, 64, 4, dtype=torch.int32, device=card), causal=True)
+    from paddle_tpu_torch.nn import functional as F
+    with pytest.raises(NotImplementedError, match="dropout"):
+        F.flashmask_attention(bad, bad, bad, window_size=4, dropout=0.1)
+
+
+# ------------------------------------------------------- RMSNorm rows
+@pytest.mark.parametrize("R,H", [(64, 4096), (16, 4096), (7, 1100),
+                                 (3, 100)])
+def test_rms_norm_rows_kernel_matches_plain_version(card, R, H):
+    """bf16 within one bf16 ulp of each reference element (the fp32
+    pre-rounding values differ by summation order and rsqrtf), fp32
+    within 1e-5 relative; with and without the residual, fp32 and bf16
+    weights."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    rng = np.random.RandomState(R + H)
+    x, res = (torch.from_numpy(rng.randn(R, H).astype(np.float32) * 3)
+              .to(card) for _ in range(2))
+    w = torch.from_numpy(rng.randn(H).astype(np.float32)).to(card)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+        for wt in (torch.float32, dt):
+            for r in (None, res.to(dt)):
+                n0 = fn.rms_norm_rows.launches
+                got = fn.rms_norm_rows(x.to(dt), w.to(wt), r, eps=1e-6)
+                want = fn.rms_norm_rows_ref(x.to(dt), w.to(wt), r, eps=1e-6)
+                torch.cuda.synchronize()
+                assert fn.rms_norm_rows.launches == n0 + 1
+                assert got.dtype == dt and got.shape == (R, H)
+                d = (got.float() - want.float()).abs()
+                assert torch.all(d <= tol * want.float().abs() + 1e-6), \
+                    (dt, wt, r is None, d.max().item())
+
+
+def test_rms_norm_rows_refuses_what_it_does_not_take(card):
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    x = torch.randn(4, 256, device=card)
+    w = torch.randn(256, device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn.rms_norm_rows(x.clone().requires_grad_(), w)
+    with pytest.raises(ValueError, match="2-D"):
+        fn.rms_norm_rows(x[None], w)
+    with pytest.raises(ValueError, match="residual"):
+        fn.rms_norm_rows(x, w, x.bfloat16())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fn.rms_norm_rows(x.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn.rms_norm_rows(x.t().contiguous().t(), w)
+    with torch.no_grad():
+        fn.rms_norm_rows(x.clone().requires_grad_(), w)

@@ -144,12 +144,16 @@ def test_ctypes_signatures_match_the_cuda_sources():
     """Each wrapper's ctypes argtypes mirror its C prototype parameter
     for parameter: a mismatch would pass garbage to a kernel, and only
     the card could show it."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels import fused_optimizer as fo
     expect = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
               "float": ctypes.c_float, "longlong": ctypes.c_longlong}
     entries = [(fa.KERNEL_SOURCE, name, types)
                for name, types in fa.C_ARGTYPES.items()]
+    assert set(fa.C_ARGTYPES) == {"flash_attention_fwd", "flash_attention_dq",
+                                  "flash_attention_dkv"}
     entries.append((fo.KERNEL_SOURCE, "fused_adamw", fo.C_ARGTYPES))
+    entries.append((fn.KERNEL_SOURCE, "rms_norm_rows", fn.C_ARGTYPES))
     for source, name, types in entries:
         src = (build.CSRC / source).read_text()
         proto = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,

@@ -78,3 +78,17 @@ def test_walk_reaches_the_lora_modules():
             "paddle_tpu_torch.serving.lora.store",
             "paddle_tpu_torch.serving.lora.runtime",
             "paddle_tpu_torch.kernels.lora_matmul"} <= names
+
+
+def test_walk_reaches_the_packed_attention_and_norm_modules():
+    """The varlen/flashmask attention and RMSNorm-rows modules are among
+    those the probe imports (so none of them pulls in JAX)."""
+    import pkgutil
+
+    import paddle_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                   "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.kernels.flash_attention",
+            "paddle_tpu_torch.kernels.fused_norm",
+            "paddle_tpu_torch.nn.functional.flash_attention",
+            "paddle_tpu_torch.nn.functional.extra"} <= names
