@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Times another commit's kernels and main paths beside this tree's, in
+one call on one card.
+
+Run from the repository root on a machine with one CUDA card (an H100):
+
+    python3 chip_ab.py --parent DIR [--seed N] [--phases kernels,packed,...]
+
+DIR is a checkout of the commit to compare with, for example the parent
+commit unpacked with `git archive` into a directory .gitignore lists. In
+the order parent, this tree, this tree, parent, a child process imports
+one tree's `paddle_tpu_torch` and `chip_smoke` and runs the phases asked
+for (all by default):
+  kernels     — chip_smoke.time_ms (CUDA events, median of 30 launches,
+                L2 flushed before each) of the int8 matmul with bf16 x at
+                Llama-3-8B's gate/up and down, M 16 (the decode bucket)
+                and every prefill bucket 32-512; the flash forward, dQ and
+                dK/dV at the training shape (B*H 32, S 4096, D 128,
+                causal); the varlen and flashmask (document mask) forward,
+                dQ and dK/dV at packed_attention's full width;
+  packed      — chip_smoke.phase_packed_attention: ms per forward +
+                backward of each entry point;
+  train       — chip_smoke.phase_train: step ms and MFU;
+  serve_quant — chip_smoke.phase_serve, then phase_serve_quant: wall
+                seconds of the prefill-only and mixed steps, decode step
+                ms.
+Each child builds its tree's kernels into that tree's build directory; a
+library this tree has already built from the same source text and flags
+(the hash in its file name) is copied there first instead of rebuilt.
+Prints the card, one JSON line per run, then one with each number's runs
+per tree and the ratio of their means (this tree over the parent).
+Imports nothing of JAX. Exits 2 without a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("kernels", "packed", "train", "serve_quant")
+QMM_ROWS = (16, 32, 64, 128, 256, 512)
+
+
+def kernel_times(seed: int):
+    """{case: ms} of the kernels of the two trees' shared shapes."""
+    import math
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.models.llama import llama_3_8b
+
+    cfg = llama_3_8b()
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    res = {}
+    for M in QMM_ROWS:
+        for name, (K, N) in (("gate_up", (h, i)), ("down", (i, h))):
+            x, qw, scale = cs.qmm_inputs((M, K, N), seed)
+            xb = x.bfloat16()
+            res[f"qmm_{name}_m{M}"] = cs.time_ms(
+                lambda: qm.quant_matmul(xb, qw, scale), flush)
+            del x, qw, scale, xb
+    BH, S, _, D = cs.FLASH_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    args = (q, k, v, do, lse, fa.flash_delta(out, do), scale, True)
+    res["flash_fwd"] = cs.time_ms(lambda: fa.flash_fwd(q, k, v, scale, True),
+                                  flush)
+    res["flash_dq"] = cs.time_ms(lambda: fa.flash_dq(*args), flush)
+    res["flash_dkv"] = cs.time_ms(lambda: fa.flash_dkv(*args), flush)
+    del q, k, v, do, out, lse, args
+    lens = cs.pack_documents(seed)
+    q, k, v, do = (t.transpose(0, 1).contiguous()
+                   for t in cs.packed_inputs(seed, lens))
+    scale = 1.0 / math.sqrt(cs.PACK_DIM)
+    masks = cs.packed_masks(lens)
+    for variant, kw in (("varlen", masks["varlen"]),
+                        ("flashmask", masks["document"])):
+        kw = dict(kw, summary=fa.tile_summary(
+            kw.get("seg"), kw.get("fm"), kw.get("fm_causal", True)))
+        out, lse = fa.flash_fwd(q, k, v, scale, True, **kw)
+        args = (q, k, v, do, lse, fa.flash_delta(out, do), scale, True)
+        res[f"{variant}_fwd"] = cs.time_ms(
+            lambda: fa.flash_fwd(q, k, v, scale, True, **kw), flush)
+        res[f"{variant}_dq"] = cs.time_ms(
+            lambda: fa.flash_dq(*args, **kw), flush)
+        res[f"{variant}_dkv"] = cs.time_ms(
+            lambda: fa.flash_dkv(*args, **kw), flush)
+    return res
+
+
+def child(phases, seed: int) -> int:
+    """One run on the tree in the working directory: prints {phase:
+    {name: number}} as its last line."""
+    sys.path.insert(0, os.getcwd())    # this tree's package, not chip_ab's
+    import gc
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import build
+
+    lines = []
+    cs.emit = lines.append             # the phases' JSON lines, kept
+
+    def line(phase):
+        return next(x for x in reversed(lines) if x.get("phase") == phase)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    build.build(src.rsplit("/", 1)[1] for src in cs.SOURCES)
+    out = {}
+    if "kernels" in phases:
+        out["kernels"] = kernel_times(seed)
+        free()
+    if "packed" in phases:
+        cs.phase_packed_attention(seed)
+        out["packed"] = {name: e["ms_median"] for name, e in
+                         line("packed_attention")["entries"].items()}
+        free()
+    if "train" in phases:
+        cs.phase_train(seed)
+        t = line("train")
+        out["train"] = {"step_ms": t["step_ms"],
+                        "mfu": t["mfu_vs_989tflops"]}
+        free()
+    if "serve_quant" in phases:
+        served = cs.phase_serve(seed)[2]
+        free()
+        cs.phase_serve_quant(served, seed)
+        del served
+        q = line("serve_quant")
+        out["serve_quant"] = {k: q[k] for k in (
+            "prefill_steps_s", "mixed_steps_s", "decode_step_ms", "serve_s")}
+        free()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def seed_build(parent: Path) -> None:
+    """Copies this tree's built libraries into the parent's build
+    directory: a file name holds the hash of its source text and flags,
+    so the parent loads only the ones it would build identically."""
+    from paddle_tpu_torch.kernels import build
+    dst = parent / "build" / "paddle_tpu_torch"
+    dst.mkdir(parents=True, exist_ok=True)
+    for lib in build.BUILD_DIR.glob("*.so"):
+        if not (dst / lib.name).exists():
+            shutil.copy2(lib, dst / lib.name)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    if any(p not in PHASES for p in phases):
+        ap.error(f"phases are {PHASES}")
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA card is available", file=sys.stderr)
+        return 2
+    if args.child:
+        return child(phases, args.seed)
+    if args.parent is None or not (args.parent / "chip_smoke.py").exists():
+        ap.error("--parent must be a checkout holding chip_smoke.py")
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import build
+    build.build(src.rsplit("/", 1)[1] for src in cs.SOURCES)
+    parent = args.parent.resolve()
+    seed_build(parent)
+    print(cs.nvidia_smi_line(), flush=True)
+    runs = {"parent": [], "this": []}
+    for tag, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                      ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_ab.py"), "--child",
+             "--phases", ",".join(phases), "--seed", str(args.seed)],
+            cwd=root, capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(json.dumps({"run": tag, "exit": proc.returncode,
+                              "stderr": proc.stderr[-4000:]}), flush=True)
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": tag, **res}), flush=True)
+        runs[tag].append(res)
+    summary = {}
+    for phase, names in runs["this"][0].items():
+        for name in names:
+            p = [r[phase][name] for r in runs["parent"]]
+            t = [r[phase][name] for r in runs["this"]]
+            summary[f"{phase}.{name}"] = {
+                "parent": p, "this": t,
+                "ratio": statistics.mean(t) / statistics.mean(p)}
+    print(json.dumps({"ab_summary": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

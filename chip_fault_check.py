@@ -17,13 +17,23 @@ flash kernels' segment and flashmask modes, `chip_smoke.check_norm_kernel`
 for rms_norm_rows. The children run together and each is waited for.
 
 Faults:
-  * skip_tile  — the flash forward and dQ kernels skip the second key
-    tile of every query tile, the dK/dV kernel the second query tile of
-    every key tile: each affected row loses 64 of its up to 4096 terms;
-  * no_rescale — the flash forward drops the online-softmax rescale of
-    its running sum and accumulator (alpha = 1);
-  * qmm_drop_last_k_tile — the int8 matmul skips the last 32-deep K tile
-    of every output tile (K 4096 loses 1/128 of its terms);
+  * skip_tile  — the flash forwards (the wgmma kernel of
+    flash_fwd_sm90.cu, which the bf16 main path runs, and
+    flash_attention.cu's) and the dQ kernel skip the second key tile of
+    every query tile, the dK/dV kernel the second query tile of every key
+    tile: each affected row loses 64 (128 in the wgmma forward) of its up
+    to 4096 terms;
+  * no_rescale — the wgmma flash forward drops the online-softmax rescale
+    of its running sum and accumulator (alpha = 1);
+  * flash_sm90_other_v_stage — the wgmma flash forward's P V product
+    reads V from the other slot of its 2-stage ring (the previous or the
+    next key tile, in flight or stale);
+  * qmm_drop_last_k_tile — both int8 matmuls skip the last K tile of
+    every output tile (quant_matmul.cu 32-deep, the wgmma kernel 64-deep:
+    K 4096 loses 1/128 or 1/64 of its terms);
+  * qmm_sm90_next_stage — the wgmma int8 matmul's consumers read stage
+    (s + 1) % kStages of the ring instead of s (another K tile's x and
+    weights);
   * int8_no_v_scale — the int8 paged-decode kernel ignores the V scale
     (each V row taken as its raw int8 values);
   * lora_expand_row0_slot — the LoRA expand kernel reads row 0's slot for
@@ -44,9 +54,11 @@ Faults:
     so only the count of visited tile pairs against the plain predicate
     catches it.
 
-The unmodified copy must pass every check. A planted fault counts as
-caught when every output it corrupts fails its check at the main path's
-shapes in bf16, the main path's type (seg_global_causal: at the ragged
+Both ring faults keep the ring's protocol (every stage is still waited for
+and released), so they give wrong numbers, never a hang. The unmodified
+copy must pass every check. A planted fault counts as caught when every
+output it corrupts fails its check at the main path's shapes in bf16,
+the main path's type (seg_global_causal: at the ragged
 varlen case, the only one where the two causal masks differ;
 seg_visit_every_tile: the visited-tile counts of the varlen cases). Prints
 one JSON line per copy and
@@ -74,49 +86,76 @@ _MASKED_BALLOT = ("                  : 0);\n      }\n"
 _SEG_SKIP = "  return overlap && !(causal && one_seq && all_future);\n"
 _RMS_PASS1 = "    load_row<T, kRes, V>(f, xr, rr, c);\n#pragma unroll\n" \
              "    for (int i = 0; i < V; ++i) ss = fmaf(f[i], f[i], ss);\n"
-_ALPHA = "expf(m[r] - mn);"
+_SM90_MASKED = "    const bool masked_tile =\n"
+_SM90_COL_MASK = "            if (col >= Sk || (causal && col > row + off))\n"
+_SM90_ALPHA = "exp2f(m[h] - mn);"
+_SM90_V = "    const uint8_t* v = sV + s * C::kKVBytes;\n"
 _K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
+_SM90_PRODUCT = ("      for (int j = 0; j < kBatch; ++j)\n"
+                 "        wgmma_rs<BM>(acc, a + 4 * j, dx + 2 * (k0 + j));\n")
+_SM90_STAGE = "    const uint8_t* x = smem + s * C::kStageBytes;\n"
 _V_SCALE = "          vsc[u] = vs[row];\n"
 _EXPAND_SLOT = "  const int slot = ids[b];\n"
 _SHRINK_END = "  const int h1 = min(H, h0 + hchunk);\n"
-# name: (source, [(text, replacement, count)], check)
+# name: ([(source, [(text, replacement, count)]), ...], check)
 FAULTS = {
-    "skip_tile": ("flash_attention.cu",
-                  [(_FWD_DQ_LOOP, _FWD_DQ_LOOP
-                    + "      if (kt == 1) continue;\n", 2),
-                   (_DKV_LOOP, _DKV_LOOP
-                    + "      if (qt == blockIdx.x + 1) continue;\n", 1)],
+    "skip_tile": ([("flash_attention.cu",
+                    [(_FWD_DQ_LOOP, _FWD_DQ_LOOP
+                      + "      if (kt == 1) continue;\n", 2),
+                     (_DKV_LOOP, _DKV_LOOP
+                      + "      if (qt == blockIdx.x + 1) continue;\n", 1)]),
+                   # the wgmma forward still waits for and frees tile 1,
+                   # but masks all of it
+                   ("flash_fwd_sm90.cu",
+                    [(_SM90_MASKED, _SM90_MASKED + "        it == 1 ||\n", 1),
+                     (_SM90_COL_MASK, _SM90_COL_MASK.replace(
+                         "(col >= Sk", "(it == 1 || col >= Sk"), 1)])],
                   "flash"),
-    "no_rescale": ("flash_attention.cu", [(_ALPHA, "1.f;", 1)], "flash"),
+    "no_rescale": ([("flash_fwd_sm90.cu", [(_SM90_ALPHA, "1.f;", 1)])],
+                   "flash"),
+    "flash_sm90_other_v_stage": (
+        [("flash_fwd_sm90.cu",
+          [(_SM90_V, _SM90_V.replace("s * C", "(s ^ 1) * C"), 1)])],
+        "flash"),
     "qmm_drop_last_k_tile": (
-        "quant_matmul.cu",
-        [(_K_LOOP, "  for (int kt = kt0; kt < kt1 - (kt1 == kt_total); "
-          "++kt) {\n", 1)], "quant"),
-    "int8_no_v_scale": ("paged_attention.cu",
-                        [(_V_SCALE, "          vsc[u] = 1.f;\n", 1)],
+        [("quant_matmul.cu",
+          [(_K_LOOP, "  for (int kt = kt0; kt < kt1 - (kt1 == kt_total); "
+            "++kt) {\n", 1)]),
+         # the wgmma kernel still waits for and frees the last stage
+         ("quant_matmul_sm90.cu",
+          [(_SM90_PRODUCT, "      if (i + 1 < nk || kt0 + nk < kt_total)\n"
+            + _SM90_PRODUCT, 1)])], "quant"),
+    "qmm_sm90_next_stage": (
+        [("quant_matmul_sm90.cu",
+          [(_SM90_STAGE, _SM90_STAGE.replace(
+              "s * C", "(s + 1) % kStages * C"), 1)])], "quant"),
+    "int8_no_v_scale": ([("paged_attention.cu",
+                          [(_V_SCALE, "          vsc[u] = 1.f;\n", 1)])],
                         "quant"),
-    "lora_expand_row0_slot": ("lora_matmul.cu",
-                              [(_EXPAND_SLOT, "  const int slot = ids[0];\n",
-                                1)], "lora"),
+    "lora_expand_row0_slot": ([("lora_matmul.cu",
+                                [(_EXPAND_SLOT,
+                                  "  const int slot = ids[0];\n", 1)])],
+                              "lora"),
     "lora_shrink_drop_last_chunk": (
-        "lora_matmul.cu",
-        [(_SHRINK_END, "  const int h1 = c == chunks - 1 ? h0 "
-          ": min(H, h0 + hchunk);\n", 1)], "lora"),
-    "seg_global_causal": ("flash_attention.cu",
-                          [(_SEG_CAUSAL, "(causal && col > row + off)", 2),
-                           (_SEG_CAUSAL_DKV, "(causal && key > qi + off)",
-                            1)], "packed"),
+        [("lora_matmul.cu",
+          [(_SHRINK_END, "  const int h1 = c == chunks - 1 ? h0 "
+            ": min(H, h0 + hchunk);\n", 1)])], "lora"),
+    "seg_global_causal": ([("flash_attention.cu",
+                            [(_SEG_CAUSAL, "(causal && col > row + off)", 2),
+                             (_SEG_CAUSAL_DKV, "(causal && key > qi + off)",
+                              1)])], "packed"),
     "masked_break_at_gap": (
-        "flash_attention.cu",
-        [(_MASKED_LOOP, "    bool stop = false;\n" + _MASKED_LOOP, 2),
-         (_MASKED_BALLOT, _MASKED_BALLOT
-          + "      live = stop ? 0u : live & ~(live + 1u);\n"
-          "      stop = stop || live != 0xffffffffu;\n", 2)], "packed"),
-    "seg_visit_every_tile": ("flash_attention.cu",
-                             [(_SEG_SKIP, "  return true;\n", 1)], "packed"),
+        [("flash_attention.cu",
+          [(_MASKED_LOOP, "    bool stop = false;\n" + _MASKED_LOOP, 2),
+           (_MASKED_BALLOT, _MASKED_BALLOT
+            + "      live = stop ? 0u : live & ~(live + 1u);\n"
+            "      stop = stop || live != 0xffffffffu;\n", 2)])], "packed"),
+    "seg_visit_every_tile": ([("flash_attention.cu",
+                               [(_SEG_SKIP, "  return true;\n", 1)])],
+                             "packed"),
     "rms_residual_after_square": (
-        "fused_norm.cu",
-        [(_RMS_PASS1, _RMS_PASS1.replace("kRes", "false"), 1)], "norm"),
+        [("fused_norm.cu",
+          [(_RMS_PASS1, _RMS_PASS1.replace("kRes", "false"), 1)])], "norm"),
 }
 CHILD = """
 import json
@@ -139,15 +178,16 @@ print(json.dumps(out))
 """
 
 
-def plant(root: Path, source: str, edits) -> None:
-    path = root / CSRC / source
-    text = path.read_text()
-    for old, new, count in edits:
-        if text.count(old) != count:
-            raise RuntimeError(f"{source}: expected {count} x {old!r}, "
-                               f"found {text.count(old)}")
-        text = text.replace(old, new)
-    path.write_text(text)
+def plant(root: Path, plants) -> None:
+    for source, edits in plants:
+        path = root / CSRC / source
+        text = path.read_text()
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise RuntimeError(f"{source}: expected {count} x {old!r}, "
+                                   f"found {text.count(old)}")
+            text = text.replace(old, new)
+        path.write_text(text)
 
 
 def must_fail(name: str):
@@ -161,9 +201,14 @@ def must_fail(name: str):
                 for o in ("out", "lse", "dq", "dk", "dv")]
     if name == "no_rescale":
         return [("flash", o, flash_case) for o in ("out", "lse")]
+    if name == "flash_sm90_other_v_stage":
+        return [("flash", "out", flash_case)]    # the lse never reads V
     if name == "qmm_drop_last_k_tile":
         return [("quant", "quant_matmul", f"{s}_bfloat16")
                 for s in qmm_shapes()]
+    if name == "qmm_sm90_next_stage":
+        return [("quant", "quant_matmul", f"{s}_bfloat16")
+                for s, (M, K, N) in qmm_shapes().items() if M > 16]
     if name == "lora_shrink_drop_last_chunk":
         return [("lora", "lora_matmul", f"{c}_bfloat16")
                 for c in ("decode_r8", "decode_r16", "prefill_r16",
@@ -200,21 +245,19 @@ def main(argv=None) -> int:
         print("chip_fault_check: no CUDA card is available", file=sys.stderr)
         return 2
 
-    copies = {"clean": (None, [], ("flash", "quant", "lora", "packed",
-                                   "norm"))}
-    copies.update({name: (src, edits, (check,))
-                   for name, (src, edits, check) in FAULTS.items()})
+    copies = {"clean": ([], ("flash", "quant", "lora", "packed", "norm"))}
+    copies.update({name: (plants, (check,))
+                   for name, (plants, check) in FAULTS.items()})
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
         try:
-            for name, (src, edits, checks) in copies.items():
+            for name, (plants, checks) in copies.items():
                 root = Path(tmp) / name
                 shutil.copytree(ROOT / "paddle_tpu_torch",
                                 root / "paddle_tpu_torch",
                                 ignore=shutil.ignore_patterns("__pycache__"))
                 shutil.copy(ROOT / "chip_smoke.py", root)
-                if src is not None:
-                    plant(root, src, edits)
+                plant(root, plants)
                 procs[name] = subprocess.Popen(
                     [sys.executable, "-c",
                      CHILD.format(checks=list(checks), seed=args.seed)],

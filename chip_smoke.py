@@ -10,7 +10,8 @@ Phases, one JSON line each:
   1. device  — the card (`nvidia-smi` name and power limit), torch/CUDA.
   2. build   — compiles every CUDA kernel of the serving, training and
                packed-attention paths and rms_norm_rows from the
-               repository's sources (one nvcc per source, in parallel).
+               repository's sources (one nvcc per source, in parallel);
+               reports each source's ptxas registers and spills.
   3. serve   — builds Llama-3-8B (`llama_3_8b`, all 32 layers, bf16)
                from seeded random weights on the card and serves 16
                greedy requests (prompts of 128-1024 tokens, 32-64 new
@@ -39,8 +40,12 @@ Phases, one JSON line each:
                pages, as `paged_page_bytes` predicts), and the same 16
                requests are served on the same schedule. Checks as in
                phase 3, plus the int8 paged-decode kernel once per layer
-               per decode launch and the int8 matmul kernel 97 times per
-               launch (gate/up/down x 32 and the head). Reports the
+               per decode launch and the int8 matmul kernels 97 times per
+               launch (gate/up/down x 32 and the head): every prefill
+               chunk's MLP linears through the wgmma route
+               (quant_matmul_sm90.cu) at its bucket's rows, the head's
+               single row and the decode launches through the decode
+               route (quant_matmul.cu). Reports the
                weight bytes before and after, and where each request's
                greedy tokens first leave phase 3's (not gated: random
                weights give near-flat logits).
@@ -51,8 +56,9 @@ Phases, one JSON line each:
                2 warm-up steps (the second under torch.profiler, split by
                kernel kind) and 4 timed ones. Checks every loss is
                finite and the last below the first, and that each step
-               launched the flash forward, dQ and dK/dV kernels once per
-               layer and the AdamW kernel once per bucket. Reports step
+               launched the flash forward (every one the wgmma kernel of
+               flash_fwd_sm90.cu), dQ and dK/dV kernels once per layer and
+               the AdamW kernel once per bucket. Reports step
                ms, tokens/s, MFU (bench.py's FLOP reckoning over 989
                TFLOP/s) and peak memory.
   7. packed_attention — Llama-3-8B's attention widths (32 heads, the 8
@@ -87,7 +93,9 @@ Phases, one JSON line each:
                  summation order);
                * flash fwd / dQ / dK/dV: the training shape (B*H 32,
                  S 4096, D 128, causal; seeded) and a small ragged one
-                 (S not a tile multiple, D 64, Sq != Sk); bf16 outputs
+                 (S not a tile multiple, D 64, Sq != Sk) — the bf16
+                 forward on flash_fwd_sm90.cu, the rest on
+                 flash_attention.cu; bf16 outputs
                  within a relative error ||got - ref|| / ||ref|| of
                  1e-2, fp32 outputs within 1e-4 of the reference's
                  largest value, the fp32 lse within 1e-4 in both types
@@ -102,11 +110,14 @@ Phases, one JSON line each:
                  tolerances as for the full-width kernel
                  (`check_quant_kernels`);
                * int8 matmul: seeded x and `weight_quantize`d seeded
-                 weights at Llama-3-8B's decode GEMMs (M 16), gate/up at
-                 M 512 and a ragged shape, bf16 within a relative error
-                 of 1e-2 and fp32 within 1e-4 of max |ref|
-                 (chip_fault_check.py shows that planted faults in
-                 either quantized kernel fail these checks);
+                 weights at Llama-3-8B's decode GEMMs (M 16, the decode
+                 route), gate/up and down at M 512 (the wgmma route) and
+                 a ragged shape on each route, bf16 within a relative
+                 error of 1e-2 and fp32 within 1e-4 of max |ref|
+                 (chip_fault_check.py shows that planted faults in the
+                 quantized kernels fail these checks); timed in bf16 as
+                 two rows: the decode route at M 16 and the wgmma route
+                 at M 512 and at each prefill bucket serve_quant launched;
                * LoRA shrink + expand: layer 0's gate_proj input, row
                  slots and gathered stacks of a live serve_lora decode
                  launch (both rank buckets), a 512-row prefill chunk
@@ -159,7 +170,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 _CSRC = "paddle_tpu_torch/kernels/csrc/"
 KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/paged_attention.py:113"),
-           ("flash_attention_fwd", _CSRC + "flash_attention.cu",
+           ("flash_attention_fwd", _CSRC + "flash_fwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
            ("flash_attention_dq", _CSRC + "flash_attention.cu",
             "paddle_tpu/kernels/flash_attention.py:333"),
@@ -170,6 +181,8 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("paged_attention_decode_int8", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/paged_attention.py:152"),
            ("quant_matmul", _CSRC + "quant_matmul.cu",
+            "paddle_tpu/kernels/quant_matmul.py:162"),
+           ("quant_matmul_prefill", _CSRC + "quant_matmul_sm90.cu",
             "paddle_tpu/kernels/quant_matmul.py:162"),
            ("lora_shrink", _CSRC + "lora_matmul.cu",
             "paddle_tpu/kernels/lora_matmul.py:176"),
@@ -190,7 +203,23 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("rms_norm_rows", _CSRC + "fused_norm.cu",
             "paddle_tpu/kernels/fused_norm.py:36")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
+# flash_attention.cu also holds the forward's fp32, head_dim > 128 and
+# masked routes; the sources share csrc/hopper.cuh
 SOURCES = sorted({src for _, src, _ in KERNELS})
+# the design of each kernel of the two redesigned routes, for the kernels
+# line
+DESIGN = {
+    "flash_attention_fwd": "sm90: TMA ring of 128-key K/V tiles (2 stages, "
+                           "mbarriers), wgmma m64n128k16 SS for QK^T and RS "
+                           "for PV (P in registers), 2 consumer warpgroups "
+                           "of 64 rows + 1 producer",
+    "quant_matmul_prefill": "sm90: TMA ring of x and int8 W tiles (4 stages, "
+                            "mbarriers), wgmma RS on out^T = W^T x^T with "
+                            "W^T converted to bf16 in registers, 2 consumer "
+                            "warpgroups of 64 columns + 1 producer",
+    "quant_matmul": "mma.sync m16n8k16 decode tile (16 rows x 128 columns, "
+                    "K splits), quant_matmul.cu",
+}
 # the train phase: Llama-3-8B widths, depth cut to fit one card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 4, 3e-4
@@ -261,7 +290,7 @@ def kernel_kind(name: str) -> str:
         return "adamw"
     if "paged_decode" in n:
         return "paged_decode"
-    if "quant_matmul" in n or "reduce_splits" in n:
+    if any(k in n for k in ("quant_matmul", "qmm_sm90", "reduce_splits")):
         return "quant_matmul"
     if "lora_shrink" in n or "lora_expand" in n:
         return "lora"
@@ -464,16 +493,19 @@ def phase_serve_quant(served, seed: int):
     import torch
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_page_bytes)
-    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_route)
     from paddle_tpu_torch.serving import ServingEngine
 
     model = served["model"]
     cfg = model.cfg
     bytes_before = weight_bytes(model)
     t0 = time.perf_counter()
+    # the flight recorder keeps every step, so each prefill chunk's bucket
+    # can be read back
     eng = ServingEngine(model, wq="int8", kv_dtype="int8", page_size=16,
                         batch_buckets=[16], kv_pool_bytes=served["pool_bytes"],
-                        seed=seed)
+                        seed=seed, flight_recorder_steps=4096)
     torch.cuda.synchronize()
     convert_s = time.perf_counter() - t0
     bytes_after = weight_bytes(model)
@@ -491,19 +523,36 @@ def phase_serve_quant(served, seed: int):
     torch.cuda.reset_peak_memory_stats()
     full_width = paged_attention_decode.launches
     paged_attention_decode.int8_launches = 0     # the main path starts
-    quant_matmul.launches = 0
+    quant_matmul.launches = quant_matmul.prefill_launches = 0
     fields, capture, outs = serve_requests(eng, served["prompts"])
     launches = {"paged_attention_decode_int8":
                 paged_attention_decode.int8_launches,
-                "quant_matmul": quant_matmul.launches}  # the main path ended
+                "quant_matmul": (quant_matmul.launches
+                                 - quant_matmul.prefill_launches),
+                "quant_matmul_prefill": quant_matmul.prefill_launches}
+    # the main path ended. Every prefill chunk's MLP linears (gate, up,
+    # down in each layer) at its bucket's rows take the wgmma route
+    # wherever quant_matmul_route says so; the rest is the decode route
+    # (decode launches, and the head's single row at a chunk's end)
+    chunks = [int(prog.split(":")[1][1:]) for rec in eng.recorder.records()
+              for prog in rec["programs"] if prog.startswith("chunk:")]
+    if len(chunks) != fields["prefill_launches"]:
+        raise AssertionError(f"{len(chunks)} chunk records for "
+                             f"{fields['prefill_launches']} chunks")
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    mlp = ((h, i), (h, i), (i, h))
+    prefill = sum(quant_matmul_route(S, K, N, torch.bfloat16) == "sm90"
+                  for S in chunks for K, N in mlp) * cfg.num_hidden_layers
+    total = (fields["decode_launches"] + fields["prefill_launches"]) \
+        * mlp_and_head
     want = {"paged_attention_decode_int8":
             fields["decode_launches"] * cfg.num_hidden_layers,
-            "quant_matmul": (fields["decode_launches"]
-                             + fields["prefill_launches"]) * mlp_and_head}
+            "quant_matmul": total - prefill, "quant_matmul_prefill": prefill}
     if launches != want or not all(launches.values()) or \
             paged_attention_decode.launches != full_width:
         raise AssertionError(f"quantized-path launches {launches} != "
                              f"{want}, or a full-width decode launch")
+    buckets = {S: chunks.count(S) for S in sorted(set(chunks))}
     peak = torch.cuda.max_memory_allocated()
     eng.reset_prefix_cache()
     if eng.allocator.num_used != 0:
@@ -523,12 +572,13 @@ def phase_serve_quant(served, seed: int):
           "kv_pool_bytes": served["pool_bytes"],
           "num_pages": eng.num_pages, "kv_page_bytes": eng.kv_page_bytes,
           **fields, "kernel_launches": launches,
+          "prefill_chunks_by_bucket": buckets,
           "first_divergence_from_bf16": diverge,
           "identical_to_bf16": sum(d is None for d in diverge),
           "max_memory_allocated": peak,
           "serve_bf16_max_memory_allocated": served["peak"],
           "pages_used_after_reset": eng.allocator.num_used})
-    return launches, capture
+    return launches, capture, buckets
 
 
 def lora_registry(dims, seed: int):
@@ -961,14 +1011,17 @@ def _rel_err(got, want) -> float:
 
 def qmm_shapes():
     """(name: (M, K, N)) of the int8 matmul checks: Llama-3-8B's decode
-    GEMMs at the batch bucket (16 rows), gate/up at the prefill token
-    budget (512 rows), and a ragged shape."""
+    GEMMs at the batch bucket (16 rows, the decode route), gate/up and
+    down at the prefill token budget (512 rows, the wgmma route), and a
+    ragged shape on each route (the prefill one: M not a multiple of 64,
+    N not of the 128-column tile, split over K)."""
     from paddle_tpu_torch.models.llama import llama_3_8b
     cfg = llama_3_8b()
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     return {"gate_up_m16": (16, h, i), "down_m16": (16, i, h),
             "lm_head_m16": (16, h, v), "gate_up_m512": (512, h, i),
-            "ragged": (5, 200, 72)}
+            "down_m512": (512, i, h), "ragged": (5, 200, 72),
+            "ragged_prefill": (200, h, 1040)}
 
 
 def qmm_inputs(shape, seed: int):
@@ -1028,8 +1081,8 @@ def check_quant_kernels(seed: int, decode=None):
     import torch
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_attention_decode_ref)
-    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                       quant_matmul_ref)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_ref, quant_matmul_route)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1068,8 +1121,9 @@ def check_quant_kernels(seed: int, decode=None):
             else:
                 err = _max_err(got, want)
                 lim = 1e-4 * want.float().abs().max().item()
-            errs["quant_matmul"][case] = {"err": err, "limit": lim,
-                                          "max_abs": _max_err(got, want)}
+            errs["quant_matmul"][case] = {
+                "err": err, "limit": lim, "max_abs": _max_err(got, want),
+                "route": quant_matmul_route(*shape, dt)}
             if not (err <= lim and torch.isfinite(got).all()):
                 failures.append(("quant_matmul", case))
             del got, want, xx
@@ -1077,17 +1131,18 @@ def check_quant_kernels(seed: int, decode=None):
     return errs, failures, q
 
 
-def phase_quant_kernels(capture, launches, seed: int, card: str):
+def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
     """The int8 paged-decode kernel on layer 0 of a live serve_quant
-    decode batch and the int8 matmul at the main path's shapes, against
-    their plain versions, then timed beside them, a library call and the
-    bound."""
+    decode batch and the int8 matmul at the main path's shapes (the
+    decode route at M 16, the wgmma route at M 512 and at each prefill
+    bucket serve_quant launched, `buckets`), against their plain versions,
+    then timed beside them, a library call and the bound."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_attention_decode_ref)
-    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                       quant_matmul_ref)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_ref, quant_matmul_route)
     from paddle_tpu_torch.nn.quant import weight_dequantize
 
     errs, failures, q = check_quant_kernels(seed, capture)
@@ -1148,13 +1203,17 @@ def phase_quant_kernels(capture, launches, seed: int, card: str):
                            "q": "bfloat16", "kv": "int8 + fp32 scales"},
                  "bytes": nbytes, "flops": flops, "card": card})
 
-    # --- int8 matmul at the main path's shapes, bf16 x
-    per_shape = {}
-    for sname, (M, K, N) in qmm_shapes().items():
-        if sname == "ragged":
-            continue
+    # --- int8 matmul, bf16 x: the decode route at M 16 (the quant_matmul
+    # row) and the wgmma route (quant_matmul_prefill) at gate/up and down
+    # M 512 and at every bucket serve_quant's prefill chunks launched
+    def qmm_row(M, K, N):
         x, qw, scale = qmm_inputs((M, K, N), seed)
         xb = x.bfloat16()
+        got = quant_matmul(xb, qw, scale)
+        err = _rel_err(got, quant_matmul_ref(xb, qw, scale))
+        if not (err <= 1e-2 and torch.isfinite(got).all()):
+            raise AssertionError(f"int8 matmul {(M, K, N)}: relative error "
+                                 f"{err} > 1e-2 or not finite")
         ms = time_ms(lambda: quant_matmul(xb, qw, scale), flush_buf.zero_)
         pms = time_ms(lambda: quant_matmul_ref(xb, qw, scale),
                       flush_buf.zero_, reps=10, warmup=2)
@@ -1162,39 +1221,52 @@ def phase_quant_kernels(capture, launches, seed: int, card: str):
         # int8 path replaces (twice the weight bytes)
         wb = weight_dequantize(qw, scale, out_dtype="bfloat16")
         lms = time_ms(lambda: torch.matmul(xb, wb), flush_buf.zero_)
-        del wb
         nb = K * N + N * 4 + M * K * 2 + M * N * 2
         fl = 2 * M * K * N
         b_ms = nb / HBM_BYTES_PER_S * 1e3
         o_ms = fl / PEAK_FLOPS["bfloat16"] * 1e3
-        per_shape[sname] = {"M": M, "K": K, "N": N, "ms": ms, "plain_ms": pms,
-                            "library_ms": lms, "bound_ms": max(b_ms, o_ms),
-                            "bound_by": ("bytes" if b_ms >= o_ms
-                                         else "operations"),
-                            "bytes": nb, "flops": fl,
-                            "gb_per_s": nb / ms / 1e6,
-                            "rel_err_bf16": errs["quant_matmul"][
-                                f"{sname}_bfloat16"]["err"]}
-        del x, qw, scale, xb
-    head = per_shape["gate_up_m16"]
-    name, source, replaces = KERNEL["quant_matmul"]
-    rows.append({"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": errs["quant_matmul"][
-                     "gate_up_m16_bfloat16"]["max_abs"],
-                 "max_abs_err_fp32": errs["quant_matmul"][
-                     "gate_up_m16_float32"]["max_abs"],
-                 "rel_err": head["rel_err_bf16"],
-                 "ms": head["ms"], "kernel_ms": head["ms"],
-                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-                 "bound_by": head["bound_by"],
-                 "library_ms": head["library_ms"],
-                 "library": "torch.matmul on the bf16 dequantized weight",
-                 "shape": {"M": head["M"], "K": head["K"], "N": head["N"],
-                           "x": "bfloat16", "w": "int8 + fp32 scales",
-                           "row_is": "gate_up_m16"},
-                 "shapes": per_shape, "bytes": head["bytes"],
-                 "flops": head["flops"], "card": card})
+        return {"M": M, "K": K, "N": N,
+                "route": quant_matmul_route(M, K, N, torch.bfloat16),
+                "ms": ms, "plain_ms": pms, "library_ms": lms,
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "bytes": nb, "flops": fl, "gb_per_s": nb / ms / 1e6,
+                "tflops_per_s": fl / ms / 1e9, "rel_err_bf16": err}
+
+    shapes = qmm_shapes()
+    h, i = shapes["gate_up_m16"][1:]
+    decode = {n: qmm_row(*shapes[n])
+              for n in ("gate_up_m16", "down_m16", "lm_head_m16")}
+    prefill = {n: qmm_row(*shapes[n]) for n in ("gate_up_m512", "down_m512")}
+    for S in buckets:
+        for n, (K, N) in (("gate_up", (h, i)), ("down", (i, h))):
+            if f"{n}_m{S}" not in prefill and \
+                    quant_matmul_route(S, K, N, torch.bfloat16) == "sm90":
+                prefill[f"{n}_m{S}"] = qmm_row(S, K, N)
+    e = errs["quant_matmul"]
+    for name, per_shape, head in (("quant_matmul", decode, "gate_up_m16"),
+                                  ("quant_matmul_prefill", prefill,
+                                   "gate_up_m512")):
+        _, source, replaces = KERNEL[name]
+        top = per_shape[head]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "design": DESIGN[name],
+                     "launches": launches[name],
+                     "max_abs_err": e[f"{head}_bfloat16"]["max_abs"],
+                     "rel_err": top["rel_err_bf16"],
+                     "ms": top["ms"], "kernel_ms": top["ms"],
+                     "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+                     "bound_by": top["bound_by"],
+                     "library_ms": top["library_ms"],
+                     "library": "torch.matmul on the bf16 dequantized weight",
+                     "shape": {"M": top["M"], "K": top["K"], "N": top["N"],
+                               "x": "bfloat16", "w": "int8 + fp32 scales",
+                               "row_is": head},
+                     "shapes": per_shape, "bytes": top["bytes"],
+                     "flops": top["flops"], "card": card})
+    # fp32 x keeps quant_matmul.cu at every M: its check, on the decode row
+    rows[-2]["max_abs_err_fp32"] = e["gate_up_m16_float32"]["max_abs"]
+    rows[-1]["prefill_chunks_by_bucket"] = buckets
     return rows
 
 
@@ -1230,6 +1302,7 @@ def phase_train(seed: int):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():                # the main path starts
         fn.launches = 0
+    fa.flash_fwd.sm90_launches = 0
     losses, step_s, profiled = [], [], None
     for step in range(TRAIN_WARMUP + TRAIN_TIMED):
         prof_step = step == TRAIN_WARMUP - 1
@@ -1252,7 +1325,7 @@ def phase_train(seed: int):
         if step >= TRAIN_WARMUP:
             step_s.append(dt)
     launches = {k: fn.launches for k, fn in counters.items()}
-    # the main path ended
+    sm90 = fa.flash_fwd.sm90_launches           # the main path ended
     peak = torch.cuda.max_memory_allocated()
     steps = TRAIN_WARMUP + TRAIN_TIMED
     buckets = len(opt._fused_buckets)
@@ -1264,6 +1337,9 @@ def phase_train(seed: int):
             "fused_adamw": buckets * steps}
     if launches != want or buckets < 1:
         raise AssertionError(f"kernel launches {launches} != {want}")
+    if sm90 != launches["flash_attention_fwd"]:
+        raise AssertionError(f"{sm90} of {launches['flash_attention_fwd']} "
+                             f"forward launches took the wgmma kernel")
     step_med = statistics.median(step_s)
     flops, _, attn_flops = llama_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     emit({"phase": "train", "model": "llama_3_8b", "dtype": "bfloat16",
@@ -1279,7 +1355,8 @@ def phase_train(seed: int):
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_med,
           "flops_per_step": flops, "attention_flops_per_step": attn_flops,
           "mfu_vs_989tflops": flops / step_med / PEAK_FLOPS["bfloat16"],
-          "kernel_launches": launches, "profiled_step": profiled,
+          "kernel_launches": launches, "flash_fwd_sm90_launches": sm90,
+          "profiled_step": profiled,
           "max_memory_allocated": peak})
     rec = next(iter(opt._fused_buckets.values()))
     acc = opt._accumulators
@@ -1428,7 +1505,9 @@ def phase_flash_kernels(launches, seed: int, card: str):
                     ["max_abs"]} if kern == "fwd" else {})
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "design": DESIGN.get(name, "mma.sync, flash_attention.cu"),
+            "launches": launches[name],
             "max_abs_err": worst(kern, "bfloat16", "max_abs"),
             "rel_err": worst(kern, "bfloat16", "err"), **lse_err,
             "max_abs_err_fp32": worst(kern, "float32", "max_abs"),
@@ -2227,7 +2306,8 @@ def main(argv=None) -> int:
     lora_launches, lora_capture = phase_serve_lora(served, args.seed)
     gc.collect()                  # the LoRA engine and registry go
     torch.cuda.empty_cache()
-    quant_launches, quant_capture = phase_serve_quant(served, args.seed)
+    quant_launches, quant_capture, quant_buckets = phase_serve_quant(
+        served, args.seed)
     del served
     gc.collect()                  # the serving model and engine go
     torch.cuda.empty_cache()
@@ -2246,8 +2326,8 @@ def main(argv=None) -> int:
     del bucket
     gc.collect()
     torch.cuda.empty_cache()
-    kernels += phase_quant_kernels(quant_capture, quant_launches, args.seed,
-                                   card)
+    kernels += phase_quant_kernels(quant_capture, quant_launches,
+                                   quant_buckets, args.seed, card)
     del quant_capture
     gc.collect()
     torch.cuda.empty_cache()

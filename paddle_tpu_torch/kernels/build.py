@@ -2,16 +2,18 @@
 
 Each `csrc/*.cu` file has a plain C interface and is compiled on its own
 by `nvcc` into a shared library under `build/paddle_tpu_torch/` at the
-repository root, named by a hash of the source text and the flags, so a
-changed source rebuilds and an unchanged one loads at once. `build()`
-starts one `nvcc` per missing library, all at the same time, and waits
-for every one. Nothing is compiled when a module is imported.
+repository root, named by a hash of the source text, the `csrc/` headers
+it includes and the flags, so a changed source or header rebuilds and an
+unchanged one loads at once. `build()` starts one `nvcc` per missing
+library, all at the same time, and waits for every one. Nothing is
+compiled when a module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,8 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where `csrc/<source>` builds to: keyed by its text and flags."""
+    """Where `csrc/<source>` builds to: keyed by its text, the text of the
+    `csrc/` headers it includes (`#include "..."`) and the flags."""
     text = (CSRC / source).read_bytes()
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        text += (CSRC / header.decode()).read_bytes()
     key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{key[:16]}.so"
 

@@ -12,11 +12,15 @@ computed as a plain op outside the kernels, as in the reference.
 
 Each entry — `flash_fwd`, `flash_dq`, `flash_dkv` — launches its
 hand-written Hopper kernel from `csrc/flash_attention.cu` on a CUDA
-tensor (counted in `.launches`) or raises; on a CPU tensor it runs the
-plain PyTorch version beside it (`flash_fwd_ref`, `flash_dq_ref`,
-`flash_dkv_ref`: fp32 math, a masked score is NEG_INF and contributes
-exactly 0, the softmax sum clamped at 1e-30, so a row that sees no key
-gives zeros). `FlashAttention` is the autograd Function over them.
+tensor (counted in `.launches`) or raises. `flash_fwd_route` picks the
+forward's kernel before the launch from (dtype, head_dim, mode) alone:
+bf16 in the plain mode at head_dim <= 128 takes the wgmma kernel of
+`csrc/flash_fwd_sm90.cu` (also counted in `.sm90_launches`). On a CPU
+tensor each entry runs the plain PyTorch version beside it
+(`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`: fp32 math, a masked
+score is NEG_INF and contributes exactly 0, the softmax sum clamped at
+1e-30, so a row that sees no key gives zeros). `FlashAttention` is the
+autograd Function over them.
 
 The masked variants take the reference's extra inputs on the same
 entries: `seg=(segq, segk)`, per-token (segment id, position in its
@@ -55,10 +59,11 @@ __all__ = ["flash_attention_bshd", "flash_attention_varlen_bshd",
            "FlashAttentionVarlen", "FlashMask", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
            "flash_delta", "tile_summary", "flash_visits_ref",
-           "check_supported", "NEG_INF",
-           "KERNEL_SOURCE"]
+           "check_supported", "flash_fwd_route", "NEG_INF",
+           "KERNEL_SOURCE", "SM90_SOURCE"]
 
 KERNEL_SOURCE = "flash_attention.cu"
+SM90_SOURCE = "flash_fwd_sm90.cu"
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -207,14 +212,30 @@ C_ARGTYPES = {
     # q, k, v, dout, lse, delta, dk, dv
     "flash_attention_dkv": [_P] * 8 + _TAIL,
 }
+# csrc/flash_fwd_sm90.cu: q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
+# stream
+SM90_C_ARGTYPES = [_P] * 5 + [_I] * 4 + [_F, _I, _P]
 _MODE = {"plain": 0, "varlen": 1, "flashmask": 2}
 GROUP = 32      # rows of one tile-summary entry (csrc: kGroup)
 
 
+def flash_fwd_route(dtype, D, mode="plain") -> str:
+    """Which kernel a CUDA forward takes, decided before the launch: "sm90"
+    (`csrc/flash_fwd_sm90.cu`) for bf16 in the plain mode at head_dim <=
+    128, else "mma" (`csrc/flash_attention.cu`: fp32, head_dim > 128, the
+    varlen and flashmask modes)."""
+    if dtype == torch.bfloat16 and D <= 128 and mode == "plain":
+        return "sm90"
+    return "mma"
+
+
 def _entry(name):
-    fn = getattr(build.load(KERNEL_SOURCE), name)
+    source = SM90_SOURCE if name == "flash_attention_fwd_sm90" \
+        else KERNEL_SOURCE
+    fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = C_ARGTYPES[name]
+        fn.argtypes = (SM90_C_ARGTYPES if source == SM90_SOURCE
+                       else C_ARGTYPES[name])
         fn.restype = ctypes.c_int
     return fn
 
@@ -401,6 +422,20 @@ def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32)
+    mode = "plain" if seg is None and fm is None else "masked"
+    if flash_fwd_route(q.dtype, D, mode) == "sm90":
+        with torch.cuda.device(q.device):
+            err = _entry("flash_attention_fwd_sm90")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), BH, Sq, k.shape[1], D, float(sm_scale),
+                int(bool(causal)), _stream(q))
+        if err != 0:
+            raise RuntimeError(f"flash_attention_fwd_sm90 kernel launch "
+                               f"failed or refused its arguments: "
+                               f"cudaError {err}")
+        flash_fwd.launches += 1
+        flash_fwd.sm90_launches += 1
+        return out, lse
     _launch(flash_fwd, "flash_attention_fwd", q, k, (out, lse), (v,),
             sm_scale, causal, seg, fm, fm_causal, H, summary, visits)
     return out, lse
@@ -435,6 +470,7 @@ def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
 
 
 flash_fwd.launches = flash_fwd.varlen_launches = 0
+flash_fwd.sm90_launches = 0
 flash_dq.launches = flash_dq.varlen_launches = 0
 flash_dkv.launches = flash_dkv.varlen_launches = 0
 flash_fwd.flashmask_launches = flash_dq.flashmask_launches = 0

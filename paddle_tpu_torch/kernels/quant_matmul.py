@@ -4,12 +4,17 @@
 
 `quant_matmul(x2d, qw, scale)` computes x2d (M, K) @ dequant(qw (K, N)
 int8, scale (N,) fp32) -> (M, N) in x2d's dtype. On CUDA tensors it
-launches the hand-written Hopper kernel of `csrc/quant_matmul.cu` (it
-replaces the Pallas `_kernel`; the source note says what bounds it and
-how the design answers) for every shape, counted in `.launches`, or
-raises; on CPU tensors it runs `quant_matmul_ref`, the plain version with
-the kernel's numerics: fp32 accumulation of x.float() @ qw.float(), the
-per-column scale once at the flush, then the cast.
+launches a hand-written Hopper kernel (each replaces the Pallas
+`_kernel`; the source notes say what bounds it and how the design
+answers), counted in `.launches`, or raises. `quant_matmul_route` picks
+the kernel before the launch, from the shape, the dtype and the
+alignment alone: bf16 prefill rows (M > 16) that TMA can address take
+the wgmma kernel of `csrc/quant_matmul_sm90.cu` (also counted in
+`.prefill_launches`; `quant_prefill_plan` picks its tile rows and K
+splits), every other shape `csrc/quant_matmul.cu`. On CPU tensors it
+runs `quant_matmul_ref`, the plain version with the kernels' numerics:
+fp32 accumulation of x.float() @ qw.float(), the per-column scale once
+at the flush, then the cast.
 
 `dequant_matmul` is the reference's scale-first composition
 (`dequant_matmul_xla`): the weight is dequantized, then multiplied.
@@ -29,10 +34,12 @@ import torch
 from . import build
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "dequant_matmul",
-           "pick_quant_blocks", "quant_matmul_supported", "KERNEL_SOURCE",
-           "C_ARGTYPES"]
+           "pick_quant_blocks", "quant_matmul_supported",
+           "quant_matmul_route", "quant_prefill_plan", "KERNEL_SOURCE",
+           "SM90_SOURCE", "C_ARGTYPES", "SM90_C_ARGTYPES"]
 
 KERNEL_SOURCE = "quant_matmul.cu"
+SM90_SOURCE = "quant_matmul_sm90.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the reference's tiling rule (kernels/quant_matmul.py): divisor search
@@ -139,11 +146,55 @@ def _check_cuda_args(x2d, qw, scale):
         raise ValueError("dimensions must fit in int32")
 
 
+# decode rows (the batch bucket); more rows are a prefill chunk
+DECODE_ROWS = 16
+# csrc/quant_matmul_sm90.cu: output columns of a block, K depth of a stage
+SM90_BN, SM90_BK = 128, 64
+
+
+def quant_matmul_route(M, K, N, x_dtype, aligned=True) -> str:
+    """Which kernel a CUDA launch of (M, K) @ (K, N) takes, decided before
+    the launch: "decode" (M <= 16, `csrc/quant_matmul.cu`'s decode tile,
+    either dtype), "fp32" (fp32 x, its FMA kernel), "sm90" (bf16 x whose
+    operands TMA can address: K a multiple of 8, N of 16, both bases
+    16-byte aligned — `csrc/quant_matmul_sm90.cu`), else "mma"
+    (`csrc/quant_matmul.cu`'s mma.sync prefill tile)."""
+    if M <= DECODE_ROWS:
+        return "decode"
+    if x_dtype != torch.bfloat16:
+        return "fp32"
+    if K % 8 == 0 and N % 16 == 0 and aligned:
+        return "sm90"
+    return "mma"
+
+
+def quant_prefill_plan(M, K, N, num_sms):
+    """(bm, splits) of the sm90 route: the largest tile of bm rows (256,
+    128 or 64, no larger than M needs) whose blocks fill 3/4 of the SMs;
+    when even 64 rows leave the card short, K is split so the blocks come
+    closer to one wave, each split at least 8 K tiles (512) deep and none
+    empty."""
+    cap = 64 if M <= 64 else 128 if M <= 128 else 256
+    cols = -(-N // SM90_BN)
+    for bm in (256, 128, 64):
+        tiles = cols * -(-M // bm)
+        if bm <= cap and tiles * 4 >= num_sms * 3:
+            return bm, 1
+    kt = -(-K // SM90_BK)
+    splits = max(1, min(num_sms // tiles, kt // 8))
+    per = -(-kt // splits)
+    return 64, -(-kt // per)
+
+
 # the C entries of csrc/quant_matmul.cu:
 #   quant_matmul(x, q, scale, out, ws, M, K, N, splits, dtype, stream)
 #   quant_matmul_splits(M, K, N, num_sms)
 C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 C_SPLITS_ARGTYPES = [ctypes.c_int] * 4
+# csrc/quant_matmul_sm90.cu:
+#   quant_matmul_sm90(x, q, scale, out, ws, M, K, N, bm, splits, stream)
+SM90_C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
 
 
 def _kernel_lib():
@@ -156,10 +207,19 @@ def _kernel_lib():
     return lib
 
 
+def _sm90_entry():
+    fn = build.load(SM90_SOURCE).quant_matmul_sm90
+    if fn.argtypes is None:
+        fn.argtypes = SM90_C_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def quant_matmul(x2d, qw, scale):
     """x2d (M, K) bf16/fp32 @ dequant(qw (K, N) int8, scale (N,) fp32)
     -> (M, N) in x2d's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (counted in `.launches`) or raise."""
+    tensors launch the kernel `quant_matmul_route` names (counted in
+    `.launches`, the sm90 route also in `.prefill_launches`) or raise."""
     if x2d.device.type == "cpu":
         return quant_matmul_ref(x2d, qw, scale)
     if x2d.device.type != "cuda":
@@ -173,14 +233,30 @@ def quant_matmul(x2d, qw, scale):
         return out
     if K == 0:
         return out.zero_()
-    lib = _kernel_lib()
+    aligned = x2d.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+    route = quant_matmul_route(M, K, N, x2d.dtype, aligned)
     with torch.cuda.device(x2d.device):
         sms = torch.cuda.get_device_properties(x2d.device) \
             .multi_processor_count
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        if route == "sm90":
+            bm, splits = quant_prefill_plan(M, K, N, sms)
+            ws = (torch.empty((splits, M, N), dtype=torch.float32,
+                              device=x2d.device) if splits > 1 else None)
+            err = _sm90_entry()(x2d.data_ptr(), qw.data_ptr(),
+                                scale.data_ptr(), out.data_ptr(),
+                                ws.data_ptr() if ws is not None else None,
+                                M, K, N, bm, splits, stream)
+            if err != 0:
+                raise RuntimeError(f"quant_matmul_sm90 kernel launch "
+                                   f"failed: cudaError {err}")
+            quant_matmul.launches += 1
+            quant_matmul.prefill_launches += 1
+            return out
+        lib = _kernel_lib()
         splits = lib.quant_matmul_splits(M, K, N, sms)
         ws = (torch.empty((splits, M, N), dtype=torch.float32,
                           device=x2d.device) if splits > 1 else None)
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = lib.quant_matmul(x2d.data_ptr(), qw.data_ptr(),
                                scale.data_ptr(), out.data_ptr(),
                                ws.data_ptr() if ws is not None else None,
@@ -193,4 +269,4 @@ def quant_matmul(x2d, qw, scale):
     return out
 
 
-quant_matmul.launches = 0
+quant_matmul.launches = quant_matmul.prefill_launches = 0

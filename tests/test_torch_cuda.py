@@ -183,6 +183,86 @@ def test_quant_matmul_matches_plain_version(card, case):
             _close_rel(got, want, 1e-2)
 
 
+# (M, K, N) of the wgmma prefill route (csrc/quant_matmul_sm90.cu): each
+# prefill tile height and K split the plan picks, Llama-3-8B's gate and
+# down, and ragged edges — M not a multiple of 64, N a multiple of 16 but
+# not of the 128-column tile, K not a multiple of the 64-deep stage
+SM90_QMM_CASES = [(17, 4096, 1024), (64, 4096, 14336), (128, 14336, 4096),
+                  (200, 4096, 1040), (72, 1000, 4112), (512, 4096, 14336),
+                  (512, 14336, 4096)]
+
+
+@pytest.mark.parametrize("case", SM90_QMM_CASES, ids=str)
+def test_quant_matmul_prefill_route_matches_plain_version(card, case):
+    """bf16 prefill rows take the wgmma kernel (one more
+    `prefill_launches`) within ||got - ref|| / ||ref|| <= 1e-2; fp32 x at
+    the same shape stays on quant_matmul.cu within 1e-4 of max |ref|."""
+    M, K, N = case
+    assert qm.quant_matmul_route(M, K, N, torch.bfloat16) == "sm90"
+    rng = np.random.RandomState(M + K + N)
+    w = torch.from_numpy((rng.randn(K, N) * 0.02).astype(np.float32))
+    qw, s = (t.to(card) for t in weight_quantize(w))
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(card)
+    n0 = qm.quant_matmul.prefill_launches
+    got = qm.quant_matmul(x.bfloat16(), qw, s)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.prefill_launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    _close_rel(got, qm.quant_matmul_ref(x.bfloat16(), qw, s), 1e-2)
+    got = qm.quant_matmul(x, qw, s)
+    assert qm.quant_matmul.prefill_launches == n0 + 1
+    _close(got, qm.quant_matmul_ref(x, qw, s), 1e-4)
+
+
+def test_quant_matmul_decode_and_unaddressable_shapes_keep_their_kernel(card):
+    """M 16 (the decode bucket) and shapes TMA cannot address — N not a
+    multiple of 16, K not of 8, an unaligned x — keep quant_matmul.cu: no
+    prefill launch, same limits."""
+    rng = np.random.RandomState(3)
+    for M, K, N, shift in ((16, 4096, 14336, 0), (17, 96, 130, 0),
+                           (40, 100, 64, 0), (33, 256, 128, 1)):
+        w = torch.from_numpy((rng.randn(K, N) * 0.02).astype(np.float32))
+        qw, s = (t.to(card) for t in weight_quantize(w))
+        xb = torch.from_numpy(rng.randn(M * K + shift).astype(np.float32)) \
+            .to(card).bfloat16()
+        x = xb[shift:].view(M, K)
+        n0, p0 = qm.quant_matmul.launches, qm.quant_matmul.prefill_launches
+        got = qm.quant_matmul(x, qw, s)
+        torch.cuda.synchronize()
+        assert (qm.quant_matmul.launches, qm.quant_matmul.prefill_launches) \
+            == (n0 + 1, p0)
+        _close_rel(got, qm.quant_matmul_ref(x, qw, s), 1e-2)
+
+
+def test_bf16_quantized_engine_prefill_runs_the_wgmma_kernel(card):
+    """A tiny bf16 Llama served with wq="int8" on the card through one
+    64-token prefill bucket: every prefill chunk's MLP linears (3 per
+    layer) take the wgmma route, the head's single row and the decode
+    launches the decode route; every request completes."""
+    cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, max_position_embeddings=128,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=card, dtype=torch.bfloat16,
+                             generator=torch.Generator(card).manual_seed(4))
+    eng = ServingEngine(model, num_pages=64, page_size=8, token_budget=48,
+                        batch_buckets=[8], prefill_buckets=[64],
+                        pages_buckets=[8], wq="int8")
+    rng = np.random.RandomState(1)
+    prompts = [(rng.randint(0, 128, int(n)).tolist(), 6)
+               for n in rng.randint(3, 30, 6)]
+    qm.quant_matmul.launches = qm.quant_matmul.prefill_launches = 0
+    rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
+    eng.run()
+    c = eng.metrics.counters
+    assert c["prefill_chunks"] > 0
+    assert qm.quant_matmul.prefill_launches == c["prefill_chunks"] * 6
+    assert qm.quant_matmul.launches == \
+        (c["decode_launches"] + c["prefill_chunks"]) * 7
+    assert [len(eng.requests[r].output_ids) for r in rids] == [6] * 6
+    assert not c["requests_quarantined"]
+
+
 def test_quantized_kernels_refuse_mismatches(card):
     q, k8, v8, ks, vs, bt, sl = _int8_case(2, 64, 0, card)
     with pytest.raises(ValueError, match="both"):
@@ -442,6 +522,34 @@ def test_flash_kernels_match_plain_versions(card, case):
         torch.cuda.synchronize()
         assert (fa.flash_fwd.launches, fa.flash_dq.launches,
                 fa.flash_dkv.launches) == tuple(n + 1 for n in n0)
+
+
+# the forward's wgmma route (csrc/flash_fwd_sm90.cu) at every FLASH_CASE
+# plus a causal multi-tile case at D 64 and a non-causal one with Sq < Sk
+# and a ragged last key tile
+SM90_FLASH_CASES = FLASH_CASES + [(2, 1024, 1024, 64, True),
+                                  (2, 384, 512, 128, False)]
+
+
+@pytest.mark.parametrize("case", SM90_FLASH_CASES, ids=str)
+def test_flash_forward_route_matches_plain_version(card, case):
+    """bf16 forwards at head_dim <= 128 take the wgmma kernel (one more
+    `sm90_launches`), the rest flash_attention.cu; out within the bf16
+    relative 1e-2, the fp32 lse within 1e-4."""
+    BH, Sq, Sk, D, causal = case
+    q, k, v, _ = _flash_inputs(BH, Sq, Sk, D, sum(case[:4]) + 1, card)
+    qq, kk, vv = (t.bfloat16() for t in (q, k, v))
+    scale = 1.0 / np.sqrt(D)
+    sm90 = fa.flash_fwd_route(torch.bfloat16, D) == "sm90"
+    assert sm90 == (D <= 128)
+    n0, s0 = fa.flash_fwd.launches, fa.flash_fwd.sm90_launches
+    out, lse = fa.flash_fwd(qq, kk, vv, scale, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd.sm90_launches) == \
+        (n0 + 1, s0 + int(sm90))
+    ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal)
+    _close_rel(out, ref_out, 1e-2)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("B", [1, 2])
