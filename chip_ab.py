@@ -68,7 +68,7 @@ def kernel_times(seed: int):
             res[f"qmm_{name}_m{M}"] = cs.time_ms(
                 lambda: qm.quant_matmul(xb, qw, scale), flush)
             del x, qw, scale, xb
-    BH, S, _, D = cs.FLASH_SHAPES[0]
+    BH, S, _, D = cs.FLASH_SHAPES[0][:4]    # the parent's tuples may be 4 long
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for _ in range(4))

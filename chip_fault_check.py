@@ -14,20 +14,30 @@ for the flash kernels, `chip_smoke.check_quant_kernels` for the int8
 paged-decode and int8 matmul kernels, `chip_smoke.check_lora_kernels` for
 the LoRA shrink/expand pair, `chip_smoke.check_packed_kernels` for the
 flash kernels' segment and flashmask modes, `chip_smoke.check_norm_kernel`
-for rms_norm_rows. The children run together and each is waited for.
+for rms_norm_rows. The children build their sources together, then run
+their checks at most GPU_SLOTS at a time (the plain versions at the main
+path's shapes hold ~10 GB each); each is waited for.
 
 Faults:
-  * skip_tile  — the flash forwards (the wgmma kernel of
-    flash_fwd_sm90.cu, which the bf16 main path runs, and
-    flash_attention.cu's) and the dQ kernel skip the second key tile of
-    every query tile, the dK/dV kernel the second query tile of every key
-    tile: each affected row loses 64 (128 in the wgmma forward) of its up
+  * skip_tile  — the flash forwards and dQ kernels (the wgmma kernels of
+    flash_fwd_sm90.cu and flash_bwd_sm90.cu, which the bf16 main path
+    runs, and flash_attention.cu's) skip the second key tile of every
+    query tile, the dK/dV kernels the second query tile of every key
+    tile (the wgmma kernels still wait for and free it, but mask all of
+    it): each affected row loses 64 (128 in the wgmma forward) of its up
     to 4096 terms;
   * no_rescale — the wgmma flash forward drops the online-softmax rescale
     of its running sum and accumulator (alpha = 1);
   * flash_sm90_other_v_stage — the wgmma flash forward's P V product
     reads V from the other slot of its 2-stage ring (the previous or the
     next key tile, in flight or stale);
+  * flash_bwd_dq_other_v_stage — the wgmma dQ kernel's dP = dO V^T reads
+    V from stage (s + 1) % 3 of its ring (another key tile's V);
+  * flash_bwd_dkv_other_qdo_stage — the wgmma dK/dV kernel reads Q and
+    dO from stage (s + 1) % 3 of its ring for all four of its products
+    (another query tile's rows; lse and delta still its own);
+  * bwd_no_delta — the wgmma dQ and dK/dV kernels drop delta from dS
+    (dS = P dP scale): dV stays right, dQ and dK do not;
   * qmm_drop_last_k_tile — both int8 matmuls skip the last K tile of
     every output tile (quant_matmul.cu 32-deep, the wgmma kernel 64-deep:
     K 4096 loses 1/128 or 1/64 of its terms);
@@ -54,7 +64,7 @@ Faults:
     so only the count of visited tile pairs against the plain predicate
     catches it.
 
-Both ring faults keep the ring's protocol (every stage is still waited for
+The ring faults keep the ring's protocol (every stage is still waited for
 and released), so they give wrong numbers, never a hang. The unmodified
 copy must pass every check. A planted fault counts as caught when every
 output it corrupts fails its check at the main path's shapes in bf16,
@@ -90,6 +100,17 @@ _SM90_MASKED = "    const bool masked_tile =\n"
 _SM90_COL_MASK = "            if (col >= Sk || (causal && col > row + off))\n"
 _SM90_ALPHA = "exp2f(m[h] - mn);"
 _SM90_V = "    const uint8_t* v = sV + s * C::kKVBytes;\n"
+_BWD_MASKED = "    const bool masked_tile =\n"
+_BWD_DQ_COL = ("            if (col >= Sk || "
+               "(causal && col > row0 + 8 * h + off))")
+_BWD_DKV_COL = "            if (q >= Sq || (causal && key0 + 8 * h > q + off))"
+_BWD_DQ_V = "    const uint8_t* vt = m.ring1 + s * C::kSmallBytes;\n"
+_BWD_DKV_Q = "    const uint8_t* qt = m.ring0 + s * C::kSmallBytes;\n"
+_BWD_DKV_DO = "    const uint8_t* dot = m.ring1 + s * C::kSmallBytes;\n"
+_BWD_DQ_DS = (" " * 12 + "pack_bf16(sc[i] * (dp[i] - dlt[h]) * scale,\n"
+              + " " * 22 + "sc[i + 1] * (dp[i + 1] - dlt[h]) * scale);\n")
+_BWD_DKV_DS = "          d2[e] = p * (dp[i] - dlt[e]) * scale;\n"
+_OTHER_STAGE = "(s + 1) % kStages * C"
 _K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
 _SM90_PRODUCT = ("      for (int j = 0; j < kBatch; ++j)\n"
                  "        wgmma_rs<BM>(acc, a + 4 * j, dx + 2 * (k0 + j));\n")
@@ -104,18 +125,38 @@ FAULTS = {
                       + "      if (kt == 1) continue;\n", 2),
                      (_DKV_LOOP, _DKV_LOOP
                       + "      if (qt == blockIdx.x + 1) continue;\n", 1)]),
-                   # the wgmma forward still waits for and frees tile 1,
-                   # but masks all of it
+                   # the wgmma kernels still wait for and free tile 1, but
+                   # mask all of it
                    ("flash_fwd_sm90.cu",
                     [(_SM90_MASKED, _SM90_MASKED + "        it == 1 ||\n", 1),
                      (_SM90_COL_MASK, _SM90_COL_MASK.replace(
-                         "(col >= Sk", "(it == 1 || col >= Sk"), 1)])],
+                         "(col >= Sk", "(it == 1 || col >= Sk"), 1)]),
+                   ("flash_bwd_sm90.cu",
+                    [(_BWD_MASKED, _BWD_MASKED + "        it == 1 ||\n", 2),
+                     (_BWD_DQ_COL, _BWD_DQ_COL.replace(
+                         "(col >= Sk", "(it == 1 || col >= Sk"), 1),
+                     (_BWD_DKV_COL, _BWD_DKV_COL.replace(
+                         "(q >= Sq", "(it == 1 || q >= Sq"), 1)])],
                   "flash"),
     "no_rescale": ([("flash_fwd_sm90.cu", [(_SM90_ALPHA, "1.f;", 1)])],
                    "flash"),
     "flash_sm90_other_v_stage": (
         [("flash_fwd_sm90.cu",
           [(_SM90_V, _SM90_V.replace("s * C", "(s ^ 1) * C"), 1)])],
+        "flash"),
+    "flash_bwd_dq_other_v_stage": (
+        [("flash_bwd_sm90.cu",
+          [(_BWD_DQ_V, _BWD_DQ_V.replace("s * C", _OTHER_STAGE), 1)])],
+        "flash"),
+    "flash_bwd_dkv_other_qdo_stage": (
+        [("flash_bwd_sm90.cu",
+          [(_BWD_DKV_Q, _BWD_DKV_Q.replace("s * C", _OTHER_STAGE), 1),
+           (_BWD_DKV_DO, _BWD_DKV_DO.replace("s * C", _OTHER_STAGE), 1)])],
+        "flash"),
+    "bwd_no_delta": (
+        [("flash_bwd_sm90.cu",
+          [(_BWD_DQ_DS, _BWD_DQ_DS.replace(" - dlt[h]", ""), 1),
+           (_BWD_DKV_DS, _BWD_DKV_DS.replace(" - dlt[e]", ""), 1)])],
         "flash"),
     "qmm_drop_last_k_tile": (
         [("quant_matmul.cu",
@@ -157,9 +198,34 @@ FAULTS = {
         [("fused_norm.cu",
           [(_RMS_PASS1, _RMS_PASS1.replace("kRes", "false"), 1)])], "norm"),
 }
+# the sources each check launches, built before a copy takes the card
+CHECK_SOURCES = {
+    "flash": ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"),
+    "quant": ("paged_attention.cu", "quant_matmul.cu",
+              "quant_matmul_sm90.cu"),
+    "lora": ("lora_matmul.cu",), "packed": ("flash_attention.cu",),
+    "norm": ("fused_norm.cu",)}
+GPU_SLOTS = 4
 CHILD = """
+import fcntl
 import json
+import time
 import chip_smoke
+from paddle_tpu_torch.kernels import build
+build.build({sources!r})
+while True:                     # one of the GPU slots (released at exit)
+    slot = None
+    for i in range({slots}):
+        f = open({locks!r} + str(i), "w")
+        try:
+            fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            slot = f
+            break
+        except BlockingIOError:
+            f.close()
+    if slot is not None:
+        break
+    time.sleep(0.2)
 out = {{}}
 for check in {checks!r}:
     if check == "flash":
@@ -193,9 +259,9 @@ def plant(root: Path, plants) -> None:
 def must_fail(name: str):
     """The (check, output, case) triples a fault has to make fail: every
     output it corrupts at the main path's shapes in bf16."""
-    from chip_smoke import FLASH_SHAPES, NORM_SHAPES, qmm_shapes
-    bh, sq, sk, d = FLASH_SHAPES[0]
-    flash_case = f"bfloat16_S{sq}x{sk}_D{d}"
+    from chip_smoke import FLASH_SHAPES, NORM_SHAPES, flash_case, qmm_shapes
+    _, sq, sk, d, causal = FLASH_SHAPES[0]
+    flash_case = flash_case("bfloat16", sq, sk, d, causal)
     if name == "skip_tile":
         return [("flash", o, flash_case)
                 for o in ("out", "lse", "dq", "dk", "dv")]
@@ -203,6 +269,12 @@ def must_fail(name: str):
         return [("flash", o, flash_case) for o in ("out", "lse")]
     if name == "flash_sm90_other_v_stage":
         return [("flash", "out", flash_case)]    # the lse never reads V
+    if name == "flash_bwd_dq_other_v_stage":
+        return [("flash", "dq", flash_case)]
+    if name == "flash_bwd_dkv_other_qdo_stage":
+        return [("flash", o, flash_case) for o in ("dk", "dv")]
+    if name == "bwd_no_delta":
+        return [("flash", o, flash_case) for o in ("dq", "dk")]
     if name == "qmm_drop_last_k_tile":
         return [("quant", "quant_matmul", f"{s}_bfloat16")
                 for s in qmm_shapes()]
@@ -258,9 +330,13 @@ def main(argv=None) -> int:
                                 ignore=shutil.ignore_patterns("__pycache__"))
                 shutil.copy(ROOT / "chip_smoke.py", root)
                 plant(root, plants)
+                sources = sorted({s for c in checks
+                                  for s in CHECK_SOURCES[c]})
                 procs[name] = subprocess.Popen(
                     [sys.executable, "-c",
-                     CHILD.format(checks=list(checks), seed=args.seed)],
+                     CHILD.format(checks=list(checks), seed=args.seed,
+                                  sources=sources, slots=GPU_SLOTS,
+                                  locks=str(Path(tmp) / "gpu_slot"))],
                     cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                     text=True)
             results = {name: p.communicate() + (p.returncode,)

@@ -56,11 +56,11 @@ Phases, one JSON line each:
                2 warm-up steps (the second under torch.profiler, split by
                kernel kind) and 4 timed ones. Checks every loss is
                finite and the last below the first, and that each step
-               launched the flash forward (every one the wgmma kernel of
-               flash_fwd_sm90.cu), dQ and dK/dV kernels once per layer and
-               the AdamW kernel once per bucket. Reports step
-               ms, tokens/s, MFU (bench.py's FLOP reckoning over 989
-               TFLOP/s) and peak memory.
+               launched the flash forward, dQ and dK/dV kernels once per
+               layer, every one the wgmma kernel of flash_fwd_sm90.cu or
+               flash_bwd_sm90.cu, and the AdamW kernel once per bucket.
+               Reports step ms, tokens/s, MFU (bench.py's FLOP reckoning
+               over 989 TFLOP/s) and peak memory.
   7. packed_attention — Llama-3-8B's attention widths (32 heads, the 8
                KV heads repeated, head_dim 128, bf16) over one packed row
                of 8192 tokens, seeded documents of 128-2048 tokens (the
@@ -92,15 +92,17 @@ Phases, one JSON line each:
                  |x| <~ 2) and fp32 on the same data cast up (1e-4:
                  summation order);
                * flash fwd / dQ / dK/dV: the training shape (B*H 32,
-                 S 4096, D 128, causal; seeded) and a small ragged one
-                 (S not a tile multiple, D 64, Sq != Sk) — the bf16
-                 forward on flash_fwd_sm90.cu, the rest on
-                 flash_attention.cu; bf16 outputs
-                 within a relative error ||got - ref|| / ||ref|| of
-                 1e-2, fp32 outputs within 1e-4 of the reference's
+                 S 4096, D 128, causal; seeded) and small ragged ones
+                 (S not a tile multiple, D 64 and 40, Sq < Sk and
+                 Sq > Sk, causal and not, causal rows that see no key)
+                 — bf16 on the wgmma kernels (flash_fwd_sm90.cu,
+                 flash_bwd_sm90.cu), fp32 on flash_attention.cu; bf16
+                 outputs within a relative error ||got - ref|| / ||ref||
+                 of 1e-2, fp32 outputs within 1e-4 of the reference's
                  largest value, the fp32 lse within 1e-4 in both types
-                 (`flash_error`; chip_fault_check.py shows that a
-                 kernel with a planted fault fails these checks);
+                 (`flash_error`), the dQ rows of queries that see no key
+                 exactly zero (chip_fault_check.py shows that a kernel
+                 with a planted fault fails these checks);
                * fused AdamW: the train phase's own bucket (fp32 master,
                  bf16 moments, ~2.8e9 elements) with a seeded bf16
                  gradient, and fp32 state on a slice of it: bitwise;
@@ -172,9 +174,9 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/paged_attention.py:113"),
            ("flash_attention_fwd", _CSRC + "flash_fwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
-           ("flash_attention_dq", _CSRC + "flash_attention.cu",
+           ("flash_attention_dq", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:333"),
-           ("flash_attention_dkv", _CSRC + "flash_attention.cu",
+           ("flash_attention_dkv", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:386"),
            ("fused_adamw", _CSRC + "fused_adamw.cu",
             "paddle_tpu/kernels/fused_optimizer.py:180"),
@@ -203,16 +205,28 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("rms_norm_rows", _CSRC + "fused_norm.cu",
             "paddle_tpu/kernels/fused_norm.py:36")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
-# flash_attention.cu also holds the forward's fp32, head_dim > 128 and
-# masked routes; the sources share csrc/hopper.cuh
+# flash_attention.cu also holds the fp32, head_dim > 128 and masked routes
+# of all three flash kernels; the wgmma sources share csrc/hopper.cuh
 SOURCES = sorted({src for _, src, _ in KERNELS})
-# the design of each kernel of the two redesigned routes, for the kernels
-# line
+# the design of each kernel of the redesigned routes, for the kernels line
 DESIGN = {
     "flash_attention_fwd": "sm90: TMA ring of 128-key K/V tiles (2 stages, "
                            "mbarriers), wgmma m64n128k16 SS for QK^T and RS "
                            "for PV (P in registers), 2 consumer warpgroups "
                            "of 64 rows + 1 producer",
+    "flash_attention_dq": "sm90: 128 query rows a block, Q and dO once, a "
+                          "TMA ring of 64-key K/V tiles (3 stages, "
+                          "mbarriers), wgmma m64n64k16 SS for S and dP, dS "
+                          "in registers as the RS A operand of dQ += dS K (K "
+                          "MN-major), 2 consumer warpgroups of 64 rows + 1 "
+                          "producer",
+    "flash_attention_dkv": "sm90: 128 keys a block, K and V once, a TMA ring "
+                           "of 64-query Q/dO tiles with their lse/delta (3 "
+                           "stages, mbarriers), wgmma SS for S^T and dP^T, "
+                           "P^T and dS^T in registers as the RS A operands of "
+                           "dV += P^T dO and dK += dS^T Q, 2 consumer "
+                           "warpgroups of 64 keys, thread 0 issuing the "
+                           "loads",
     "quant_matmul_prefill": "sm90: TMA ring of x and int8 W tiles (4 stages, "
                             "mbarriers), wgmma RS on out^T = W^T x^T with "
                             "W^T converted to bf16 in registers, 2 consumer "
@@ -223,9 +237,13 @@ DESIGN = {
 # the train phase: Llama-3-8B widths, depth cut to fit one card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 4, 3e-4
-# flash kernel checks, causal (B*H, Sq, Sk, D): the training shape, and a
-# ragged one (S not a tile multiple, D below the instantiated width)
-FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128), (3, 72, 136, 64))
+# flash kernel checks (B*H, Sq, Sk, D, causal): the training shape, and
+# ragged ones: S not a tile multiple with D 64 and Sq < Sk; Sq > Sk, whose
+# first 70 query rows see no key under causal; non-causal Sq > Sk, and Sq
+# < Sk at D 40 (below the instantiated width)
+FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128, True), (3, 72, 136, 64, True),
+                (2, 200, 130, 128, True), (2, 136, 64, 128, False),
+                (2, 96, 200, 40, False))
 # the serve phase's bf16 pool; serve_quant gets the same bytes of int8
 # pages
 SERVE_PAGES = 2048
@@ -1302,7 +1320,9 @@ def phase_train(seed: int):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():                # the main path starts
         fn.launches = 0
-    fa.flash_fwd.sm90_launches = 0
+    flash = [k for k in counters if k.startswith("flash_")]
+    for k in flash:
+        counters[k].sm90_launches = 0
     losses, step_s, profiled = [], [], None
     for step in range(TRAIN_WARMUP + TRAIN_TIMED):
         prof_step = step == TRAIN_WARMUP - 1
@@ -1325,7 +1345,7 @@ def phase_train(seed: int):
         if step >= TRAIN_WARMUP:
             step_s.append(dt)
     launches = {k: fn.launches for k, fn in counters.items()}
-    sm90 = fa.flash_fwd.sm90_launches           # the main path ended
+    sm90 = {k: counters[k].sm90_launches for k in flash}  # the path ended
     peak = torch.cuda.max_memory_allocated()
     steps = TRAIN_WARMUP + TRAIN_TIMED
     buckets = len(opt._fused_buckets)
@@ -1337,9 +1357,9 @@ def phase_train(seed: int):
             "fused_adamw": buckets * steps}
     if launches != want or buckets < 1:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    if sm90 != launches["flash_attention_fwd"]:
-        raise AssertionError(f"{sm90} of {launches['flash_attention_fwd']} "
-                             f"forward launches took the wgmma kernel")
+    if any(sm90[k] != launches[k] for k in flash):
+        raise AssertionError(f"wgmma launches {sm90} of {launches}: a flash "
+                             f"launch of the train step took another route")
     step_med = statistics.median(step_s)
     flops, _, attn_flops = llama_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     emit({"phase": "train", "model": "llama_3_8b", "dtype": "bfloat16",
@@ -1355,7 +1375,7 @@ def phase_train(seed: int):
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_med,
           "flops_per_step": flops, "attention_flops_per_step": attn_flops,
           "mfu_vs_989tflops": flops / step_med / PEAK_FLOPS["bfloat16"],
-          "kernel_launches": launches, "flash_fwd_sm90_launches": sm90,
+          "kernel_launches": launches, "flash_sm90_launches": sm90,
           "profiled_step": profiled,
           "max_memory_allocated": peak})
     rec = next(iter(opt._fused_buckets.values()))
@@ -1390,13 +1410,19 @@ def flash_error(got, want, output: str, dtype: str):
                                             .item())
 
 
+def flash_case(dtype: str, sq: int, sk: int, d: int, causal: bool) -> str:
+    return f"{dtype}_S{sq}x{sk}_D{d}" + ("" if causal else "_nc")
+
+
 def check_flash_kernels(seed: int):
     """The three flash kernels against their plain versions on seeded
-    inputs at FLASH_SHAPES, causal, in bf16 and fp32. Returns (errors,
-    failures): errors[output][case] holds the measured error (see
-    `flash_error`) and the max abs error; failures lists (output, case)
-    of every check that missed its limit or gave a non-finite value.
-    Launches here are not counted as the main path's."""
+    inputs at FLASH_SHAPES in bf16 (the wgmma kernels) and fp32
+    (flash_attention.cu). Returns (errors, failures): errors[output][case]
+    holds the measured error (see `flash_error`) and the max abs error;
+    `dq_no_key_rows` the largest |dQ| over the query rows that see no key
+    (limit 0: exactly zero); failures lists (output, case) of every check
+    that missed its limit or gave a non-finite value. Launches here are
+    not counted as the main path's."""
     import math
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1405,18 +1431,18 @@ def check_flash_kernels(seed: int):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     errs, failures = {}, []
-    for bh, sq, sk, d in FLASH_SHAPES:
+    for bh, sq, sk, d, causal in FLASH_SHAPES:
         base = [torch.randn(bh, s_, d, generator=gen, device="cuda")
                 for s_ in (sq, sk, sk, sq)]
         scale = 1.0 / math.sqrt(d)
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).replace("torch.", "")
-            case = f"{name}_S{sq}x{sk}_D{d}"
+            case = flash_case(name, sq, sk, d, causal)
             q, k, v, do = (t.to(dt) for t in base)
-            out, lse = fa.flash_fwd(q, k, v, scale, True)
-            ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, scale, True)
+            out, lse = fa.flash_fwd(q, k, v, scale, causal)
+            ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, scale, causal)
             delta = fa.flash_delta(ref_out, do)
-            args = (q, k, v, do, ref_lse, delta, scale, True)
+            args = (q, k, v, do, ref_lse, delta, scale, causal)
             dq = fa.flash_dq(*args)
             dk, dv = fa.flash_dkv(*args)
             torch.cuda.synchronize()
@@ -1431,6 +1457,13 @@ def check_flash_kernels(seed: int):
                     "max_abs": _max_err(got, want)}
                 if not (err <= lim and torch.isfinite(got).all()):
                     failures.append((output, case))
+            dead = ref_lse < fa.NEG_INF / 2        # rows that see no key
+            if dead.any():
+                worst = dq[dead].float().abs().max().item()
+                errs.setdefault("dq_no_key_rows", {})[case] = {
+                    "err": worst, "limit": 0.0, "rows": int(dead.sum())}
+                if worst != 0.0:
+                    failures.append(("dq_no_key_rows", case))
             del q, k, v, do, out, lse, ref_out, ref_lse, delta, args
             del dq, dk, dv, pairs
     return errs, failures
@@ -1444,7 +1477,7 @@ def phase_flash_kernels(launches, seed: int, card: str):
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    BH, S, _, D = FLASH_SHAPES[0]                   # B 1 x H 32, causal
+    BH, S, _, D, _ = FLASH_SHAPES[0]                # B 1 x H 32, causal
     errs, failures = check_flash_kernels(seed)
     emit({"phase": "kernel_check", "kernel": "flash_attention",
           "errors": errs})
@@ -1493,7 +1526,7 @@ def phase_flash_kernels(launches, seed: int, card: str):
     outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
 
     def worst(kern, dtype, key):
-        return max(errs[o][f"{dtype}_S{S}x{S}_D{D}"][key]
+        return max(errs[o][flash_case(dtype, S, S, D, True)][key]
                    for o in outputs[kern])
     rows = []
     for kern, (name, source, replaces) in zip(("fwd", "dq", "dkv"),
@@ -1501,8 +1534,8 @@ def phase_flash_kernels(launches, seed: int, card: str):
         flops, nbytes = work[kern]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        lse_err = ({"lse_max_abs_err": errs["lse"][f"bfloat16_S{S}x{S}_D{D}"]
-                    ["max_abs"]} if kern == "fwd" else {})
+        lse_err = ({"lse_max_abs_err": errs["lse"][flash_case(
+            "bfloat16", S, S, D, True)]["max_abs"]} if kern == "fwd" else {})
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

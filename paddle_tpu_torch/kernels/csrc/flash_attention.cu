@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py:
 // `_fwd_kernel` (online-softmax attention; out and the fp32 logsumexp),
 // `_dq_kernel` and `_dkv_kernel` (the backward from the saved lse; delta =
-// rowsum(dO * O) arrives precomputed). Layout (B*H, S, D), contiguous;
+// rowsum(dO * O) arrives precomputed) — in fp32, at head_dim > 128 and in
+// the segment and flashmask modes. bf16 in the plain mode at head_dim <=
+// 128 runs the wgmma kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu,
+// and these entries refuse it. Layout (B*H, S, D), contiguous;
 // causal is bottom-right aligned: key j is visible to query i iff
 // j <= i + (Sk - Sq). A masked score is -1e30 and contributes exactly 0;
 // the softmax sum is clamped at 1e-30 at finalize, so a row that sees no
@@ -928,8 +931,12 @@ cudaError_t launch(int kind, const Args& a) {
 
 template <bool kBf16, int kMode>
 cudaError_t dispatch_d(int kind, const Args& a) {
-  if (a.D <= 64) return launch<kBf16, 64, kMode>(kind, a);
-  if (a.D <= 128) return launch<kBf16, 128, kMode>(kind, a);
+  if constexpr (kBf16 && kMode == kPlain) {  // the wgmma kernels' shapes
+    if (a.D <= 128) return cudaErrorInvalidValue;
+  } else {
+    if (a.D <= 64) return launch<kBf16, 64, kMode>(kind, a);
+    if (a.D <= 128) return launch<kBf16, 128, kMode>(kind, a);
+  }
   return launch<kBf16, 256, kMode>(kind, a);
 }
 
@@ -1003,7 +1010,8 @@ Args make_args(const void* segq, const void* segk, const void* qsum,
 // only for fm_cols 1 with fm_causal); H heads per batch row. `visits`,
 // if not null, gains the (q, k) tile pairs a masked mode visits. Pointers
 // a mode does not use may be null. Each returns a cudaError_t: 0 on a
-// successful launch, cudaErrorInvalidValue for arguments it refuses.
+// successful launch, cudaErrorInvalidValue for arguments it refuses (bf16
+// in the plain mode at D <= 128 among them: the wgmma kernels' shapes).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     const void* segq, const void* segk, const void* qsum, const void* ksum,

@@ -1,21 +1,21 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (quant_matmul_sm90.cu, flash_fwd_sm90.cu). Device helpers only, and the
-// host-side tensor-map encoder; no kernel lives here.
+// (quant_matmul_sm90.cu, flash_fwd_sm90.cu, flash_bwd_sm90.cu). Device
+// helpers only, and the host-side tensor-map encoder; no kernel lives here.
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     wait on a phase parity;
-//   * TMA: 2-D and 3-D tile loads (cp.async.bulk.tensor) that complete on
-//     an mbarrier, from a CUtensorMap passed as a __grid_constant__ kernel
-//     parameter; the maps are encoded on the host with
+//   * TMA: 1-D, 2-D and 3-D tile loads (cp.async.bulk.tensor) that complete
+//     on an mbarrier, from a CUtensorMap passed as a __grid_constant__
+//     kernel parameter; the maps are encoded on the host with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint*, so
 //     the libraries link only the CUDA runtime (no -lcuda);
 //   * wgmma: the matrix descriptor of a 128-byte-swizzled tile (the layout
 //     TMA writes with CU_TENSOR_MAP_SWIZZLE_128B), the address of a byte in
 //     that layout, fence / commit / wait, and mma_async for bf16 -> fp32 at
-//     the widths the kernels use: SS (A and B from shared memory) at N 128,
-//     RS (A from registers) at N 64, 128 and 256;
+//     the widths the kernels use: SS (A and B from shared memory) at N 64
+//     and 128, RS (A from registers) at N 64, 128 and 256;
 //   * setmaxnreg for the producer and consumer warpgroups.
-// Neither kernel writes shared memory that wgmma then reads through the
+// No kernel writes shared memory that wgmma then reads through the
 // generic proxy (TMA writes every operand tile; the int8 weights are
 // converted in registers), so no fence.proxy.async is needed.
 #pragma once
@@ -82,6 +82,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // ----------------------------------------------------------------- TMA
 // the box at coordinates (c0 innermost, c1[, c2]) -> dst, completing
 // its bytes on `bar`; elements outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -213,6 +222,45 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
           "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
           "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
           "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(da), "l"(db), "r"(0), "n"(kTransB));
+}
+
+template <int kTransB, bool kAcc>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (kAcc)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+          "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+          "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+          "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+          "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+          "=f"(d[30]), "=f"(d[31])
         : "l"(da), "l"(db), "r"(0), "n"(kTransB));
 }
 
@@ -358,17 +406,20 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A tiled map of a row-major tensor of `rank` dims (dims innermost first,
-// strides in bytes of dims 1..rank-1), boxes of `box`, 128-byte swizzle,
-// zeros outside the tensor. False when the driver refuses it.
+// strides in bytes of dims 1..rank-1), boxes of `box`, zeros outside the
+// tensor; the 128-byte swizzle unless `swizzle` says otherwise (a box of
+// fp32 vectors that no wgmma reads is loaded as it is stored). False when
+// cuTensorMapEncodeTiled refuses it.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                      const void* base, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -12,10 +12,11 @@ computed as a plain op outside the kernels, as in the reference.
 
 Each entry — `flash_fwd`, `flash_dq`, `flash_dkv` — launches its
 hand-written Hopper kernel from `csrc/flash_attention.cu` on a CUDA
-tensor (counted in `.launches`) or raises. `flash_fwd_route` picks the
-forward's kernel before the launch from (dtype, head_dim, mode) alone:
-bf16 in the plain mode at head_dim <= 128 takes the wgmma kernel of
-`csrc/flash_fwd_sm90.cu` (also counted in `.sm90_launches`). On a CPU
+tensor (counted in `.launches`) or raises. `flash_route` picks the
+kernels of all three before the launch from (dtype, head_dim, mode)
+alone: bf16 in the plain mode at head_dim <= 128 takes the wgmma
+kernels — the forward of `csrc/flash_fwd_sm90.cu`, dQ and dK/dV of
+`csrc/flash_bwd_sm90.cu` (also counted in `.sm90_launches`). On a CPU
 tensor each entry runs the plain PyTorch version beside it
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`: fp32 math, a masked
 score is NEG_INF and contributes exactly 0, the softmax sum clamped at
@@ -59,11 +60,12 @@ __all__ = ["flash_attention_bshd", "flash_attention_varlen_bshd",
            "FlashAttentionVarlen", "FlashMask", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
            "flash_delta", "tile_summary", "flash_visits_ref",
-           "check_supported", "flash_fwd_route", "NEG_INF",
-           "KERNEL_SOURCE", "SM90_SOURCE"]
+           "check_supported", "flash_route",
+           "NEG_INF", "KERNEL_SOURCE", "SM90_SOURCE", "SM90_BWD_SOURCE"]
 
 KERNEL_SOURCE = "flash_attention.cu"
 SM90_SOURCE = "flash_fwd_sm90.cu"
+SM90_BWD_SOURCE = "flash_bwd_sm90.cu"
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -212,16 +214,23 @@ C_ARGTYPES = {
     # q, k, v, dout, lse, delta, dk, dv
     "flash_attention_dkv": [_P] * 8 + _TAIL,
 }
-# csrc/flash_fwd_sm90.cu: q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,
-# stream
-SM90_C_ARGTYPES = [_P] * 5 + [_I] * 4 + [_F, _I, _P]
+# the wgmma entries: their tensors (fwd: q, k, v, out, lse; dq: q, k, v,
+# dout, lse, delta, dq; dkv: the same with dk, dv), then BH, Sq, Sk, D,
+# scale, causal, stream
+_SM90_TAIL = [_I] * 4 + [_F, _I, _P]
+SM90_C_ARGTYPES = {
+    "flash_attention_fwd_sm90": (SM90_SOURCE, [_P] * 5 + _SM90_TAIL),
+    "flash_attention_dq_sm90": (SM90_BWD_SOURCE, [_P] * 7 + _SM90_TAIL),
+    "flash_attention_dkv_sm90": (SM90_BWD_SOURCE, [_P] * 8 + _SM90_TAIL),
+}
 _MODE = {"plain": 0, "varlen": 1, "flashmask": 2}
 GROUP = 32      # rows of one tile-summary entry (csrc: kGroup)
 
 
-def flash_fwd_route(dtype, D, mode="plain") -> str:
-    """Which kernel a CUDA forward takes, decided before the launch: "sm90"
-    (`csrc/flash_fwd_sm90.cu`) for bf16 in the plain mode at head_dim <=
+def flash_route(dtype, D, mode="plain") -> str:
+    """Which kernels a CUDA forward, dQ and dK/dV take, decided before the
+    launch: "sm90" (the forward of `csrc/flash_fwd_sm90.cu`, dQ and dK/dV
+    of `csrc/flash_bwd_sm90.cu`) for bf16 in the plain mode at head_dim <=
     128, else "mma" (`csrc/flash_attention.cu`: fp32, head_dim > 128, the
     varlen and flashmask modes)."""
     if dtype == torch.bfloat16 and D <= 128 and mode == "plain":
@@ -230,12 +239,11 @@ def flash_fwd_route(dtype, D, mode="plain") -> str:
 
 
 def _entry(name):
-    source = SM90_SOURCE if name == "flash_attention_fwd_sm90" \
-        else KERNEL_SOURCE
+    source, argtypes = SM90_C_ARGTYPES.get(
+        name, (KERNEL_SOURCE, C_ARGTYPES.get(name)))
     fn = getattr(build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = (SM90_C_ARGTYPES if source == SM90_SOURCE
-                       else C_ARGTYPES[name])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -379,6 +387,23 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch_sm90(fn, name, tensors, sm_scale, causal):
+    """One launch of the wgmma entry `name` on its tensors (q, k first),
+    counted in `fn.launches` and `fn.sm90_launches`; raises if the kernel
+    refused its arguments or failed to launch."""
+    q, k = tensors[:2]
+    BH, Sq, D = q.shape
+    with torch.cuda.device(q.device):
+        err = _entry(name)(*(t.data_ptr() for t in tensors), BH, Sq,
+                           k.shape[1], D, float(sm_scale),
+                           int(bool(causal)), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed or refused its "
+                           f"arguments: cudaError {err}")
+    fn.launches += 1
+    fn.sm90_launches += 1
+
+
 def _launch(fn, name, q, k, outs, ins, sm_scale, causal, seg, fm,
             fm_causal, H, summary, visits):
     """One launch of `name` in the mode its masks ask for; counts it on
@@ -411,6 +436,11 @@ def _launch(fn, name, q, k, outs, ins, sm_scale, causal, seg, fm,
     setattr(fn, kind, getattr(fn, kind) + 1)
 
 
+def _mode(seg, fm):
+    return "varlen" if seg is not None else \
+        "flashmask" if fm is not None else "plain"
+
+
 def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
               H=1, summary=None, visits=None):
     """Forward: (out (BH, Sq, D), lse (BH, Sq) fp32). `summary` and
@@ -422,19 +452,9 @@ def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32)
-    mode = "plain" if seg is None and fm is None else "masked"
-    if flash_fwd_route(q.dtype, D, mode) == "sm90":
-        with torch.cuda.device(q.device):
-            err = _entry("flash_attention_fwd_sm90")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), BH, Sq, k.shape[1], D, float(sm_scale),
-                int(bool(causal)), _stream(q))
-        if err != 0:
-            raise RuntimeError(f"flash_attention_fwd_sm90 kernel launch "
-                               f"failed or refused its arguments: "
-                               f"cudaError {err}")
-        flash_fwd.launches += 1
-        flash_fwd.sm90_launches += 1
+    if flash_route(q.dtype, D, _mode(seg, fm)) == "sm90":
+        _launch_sm90(flash_fwd, "flash_attention_fwd_sm90",
+                     (q, k, v, out, lse), sm_scale, causal)
         return out, lse
     _launch(flash_fwd, "flash_attention_fwd", q, k, (out, lse), (v,),
             sm_scale, causal, seg, fm, fm_causal, H, summary, visits)
@@ -449,6 +469,10 @@ def flash_dq(q, k, v, dout, lse, delta, sm_scale, causal, seg=None, fm=None,
                             fm, fm_causal, H)
     _check_cuda_args(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
+    if flash_route(q.dtype, q.shape[2], _mode(seg, fm)) == "sm90":
+        _launch_sm90(flash_dq, "flash_attention_dq_sm90",
+                     (q, k, v, dout, lse, delta, dq), sm_scale, causal)
+        return dq
     _launch(flash_dq, "flash_attention_dq", q, k, (dq,),
             (v, dout, lse, delta), sm_scale, causal, seg, fm, fm_causal, H,
             summary, visits)
@@ -463,6 +487,10 @@ def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
                              seg, fm, fm_causal, H)
     _check_cuda_args(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if flash_route(q.dtype, q.shape[2], _mode(seg, fm)) == "sm90":
+        _launch_sm90(flash_dkv, "flash_attention_dkv_sm90",
+                     (q, k, v, dout, lse, delta, dk, dv), sm_scale, causal)
+        return dk, dv
     _launch(flash_dkv, "flash_attention_dkv", q, k, (dk, dv),
             (v, dout, lse, delta), sm_scale, causal, seg, fm, fm_causal, H,
             summary, visits)
@@ -470,7 +498,8 @@ def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
 
 
 flash_fwd.launches = flash_fwd.varlen_launches = 0
-flash_fwd.sm90_launches = 0
+flash_fwd.sm90_launches = flash_dq.sm90_launches = 0
+flash_dkv.sm90_launches = 0
 flash_dq.launches = flash_dq.varlen_launches = 0
 flash_dkv.launches = flash_dkv.varlen_launches = 0
 flash_fwd.flashmask_launches = flash_dq.flashmask_launches = 0

@@ -540,7 +540,7 @@ def test_flash_forward_route_matches_plain_version(card, case):
     q, k, v, _ = _flash_inputs(BH, Sq, Sk, D, sum(case[:4]) + 1, card)
     qq, kk, vv = (t.bfloat16() for t in (q, k, v))
     scale = 1.0 / np.sqrt(D)
-    sm90 = fa.flash_fwd_route(torch.bfloat16, D) == "sm90"
+    sm90 = fa.flash_route(torch.bfloat16, D) == "sm90"
     assert sm90 == (D <= 128)
     n0, s0 = fa.flash_fwd.launches, fa.flash_fwd.sm90_launches
     out, lse = fa.flash_fwd(qq, kk, vv, scale, causal)
@@ -550,6 +550,131 @@ def test_flash_forward_route_matches_plain_version(card, case):
     ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal)
     _close_rel(out, ref_out, 1e-2)
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+# the wgmma dQ and dK/dV (csrc/flash_bwd_sm90.cu) at the training shape
+# and ragged ones: every FLASH_CASE the route takes (D <= 128), a causal
+# Sq > Sk whose first 70 rows see no key, a causal multi-tile case at D 64
+# and a non-causal Sq < Sk with a ragged last key tile
+SM90_BWD_CASES = [c for c in FLASH_CASES if c[3] <= 128] + [
+    (32, 4096, 4096, 128, True), (2, 200, 130, 128, True),
+    (2, 1024, 1024, 64, True), (2, 384, 520, 128, False)]
+
+
+@pytest.mark.parametrize("case", SM90_BWD_CASES, ids=str)
+def test_flash_bwd_route_matches_plain_version(card, case):
+    """bf16 dQ and dK/dV at head_dim <= 128 take the wgmma kernels (one
+    more `sm90_launches` each) and agree with the plain versions within
+    the bf16 relative 1e-2; the dQ rows of queries that see no key are
+    exactly zero."""
+    BH, Sq, Sk, D, causal = case
+    q, k, v, do = (t.bfloat16() for t in
+                   _flash_inputs(BH, Sq, Sk, D, sum(case[:4]) + 2, card))
+    scale = 1.0 / np.sqrt(D)
+    assert fa.flash_route(torch.bfloat16, D) == "sm90"
+    out, lse = fa.flash_fwd_ref(q, k, v, scale, causal)
+    args = (q, k, v, do, lse, fa.flash_delta(out, do), scale, causal)
+    n0 = [(f.launches, f.sm90_launches) for f in (fa.flash_dq, fa.flash_dkv)]
+    dq = fa.flash_dq(*args)
+    dk, dv = fa.flash_dkv(*args)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.sm90_launches)
+            for f in (fa.flash_dq, fa.flash_dkv)] == \
+        [(a + 1, b + 1) for a, b in n0]
+    _close_rel(dq, fa.flash_dq_ref(*args), 1e-2)
+    for got, want in zip((dk, dv), fa.flash_dkv_ref(*args)):
+        assert got.dtype == torch.bfloat16
+        _close_rel(got, want, 1e-2)
+    dead = lse < fa.NEG_INF / 2
+    assert bool(dead.any()) == (causal and Sq > Sk)
+    assert torch.all(dq[dead] == 0)
+
+
+def test_flash_bwd_sm90_is_deterministic(card):
+    """No atomics: two launches of each wgmma backward kernel on the same
+    inputs give bitwise equal gradients."""
+    q, k, v, do = (t.bfloat16() for t in
+                   _flash_inputs(8, 1024, 1024, 128, 21, card))
+    out, lse = fa.flash_fwd(q, k, v, 0.088, True)
+    args = (q, k, v, do, lse, fa.flash_delta(out, do), 0.088, True)
+    first = (fa.flash_dq(*args), *fa.flash_dkv(*args))
+    again = (fa.flash_dq(*args), *fa.flash_dkv(*args))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_sm90_refuses_with_no_fallback(card, monkeypatch):
+    """The wgmma entries refuse what they do not take (cudaErrorInvalidValue
+    = 1): head_dim > 128 or not a multiple of 8, B*H > 65535, an unaligned
+    base; flash_attention.cu's refuse bf16 in the plain mode at head_dim
+    <= 128, which the wgmma kernels own. A refusal on the route raises in
+    the wrapper, counts nothing and never reaches flash_attention.cu or
+    the plain version."""
+    q, k, v, do = (t.bfloat16() for t in _flash_inputs(2, 64, 64, 64, 3,
+                                                       card))
+    lse = torch.zeros(2, 64, device=card)
+    delta = torch.zeros(2, 64, device=card)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stream = torch.cuda.current_stream().cuda_stream
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    for name, outs in (("flash_attention_dq_sm90", [dq.data_ptr()]),
+                       ("flash_attention_dkv_sm90",
+                        [dk.data_ptr(), dv.data_ptr()])):
+        entry = fa._entry(name)
+        for bad in ((2, 64, 64, 136), (2, 64, 64, 60), (70000, 64, 64, 64)):
+            assert entry(*ins, *outs, *bad, 0.125, 1, stream) == 1
+        assert entry(ins[0] + 8, *ins[1:], *outs, 2, 64, 64, 64, 0.125, 1,
+                     stream) == 1
+        # flash_attention.cu refuses the shapes the wgmma kernels own
+        old = fa._entry(name.replace("_sm90", ""))
+        tail = [None] * 7 + [2, 64, 64, 64, 1, 1, 0, 0.125, 1, 1, 0, 1,
+                             stream]
+        assert old(*ins, *outs, *tail) == 1
+    torch.cuda.synchronize()
+
+    def refusing(name):
+        if not name.endswith("_sm90"):
+            raise AssertionError(f"fell back to {name}")
+        return lambda *a: 1
+    monkeypatch.setattr(fa, "_entry", refusing)
+    args = (q, k, v, do, lse, delta, 0.125, True)
+    n0 = [(f.launches, f.sm90_launches) for f in (fa.flash_dq, fa.flash_dkv)]
+    with pytest.raises(RuntimeError, match="flash_attention_dq_sm90"):
+        fa.flash_dq(*args)
+    with pytest.raises(RuntimeError, match="flash_attention_dkv_sm90"):
+        fa.flash_dkv(*args)
+    assert n0 == [(f.launches, f.sm90_launches)
+                  for f in (fa.flash_dq, fa.flash_dkv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_counts_sm90_backward(card, dtype):
+    """FlashAttention's backward launches dQ and dK/dV once each: on the
+    wgmma kernels in bf16 (`sm90_launches`), on flash_attention.cu in
+    fp32; gradients against the CPU plain versions (bf16 relative 1e-2,
+    fp32 1e-4 of the largest value)."""
+    B, S, H, D = 2, 192, 4, 128
+    rng = np.random.RandomState(9)
+    base = [rng.randn(B, S, H, D).astype(np.float32) for _ in range(3)]
+    q, k, v = (torch.from_numpy(x).to(card, dtype).requires_grad_()
+               for x in base)
+    n0 = [(f.launches, f.sm90_launches) for f in (fa.flash_dq, fa.flash_dkv)]
+    out = fa.flash_attention_bshd(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    sm90 = int(dtype == torch.bfloat16)
+    assert [(f.launches, f.sm90_launches)
+            for f in (fa.flash_dq, fa.flash_dkv)] == \
+        [(a + 1, b + sm90) for a, b in n0]
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    ref = fa.flash_attention_bshd(qc, kc, vc, causal=True)
+    ref.float().square().sum().backward()
+    for g, r in zip((q.grad, k.grad, v.grad), (qc.grad, kc.grad, vc.grad)):
+        if sm90:
+            _close_rel(g.cpu(), r, 1e-2)
+        else:
+            _close(g.cpu(), r, 1e-4)
 
 
 @pytest.mark.parametrize("B", [1, 2])

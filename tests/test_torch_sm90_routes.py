@@ -1,8 +1,9 @@
-"""The port's choice of kernel for the int8 matmul and the flash forward,
+"""The port's choice of kernel for the int8 matmul and the flash kernels,
 on the CPU: which (M, K, N, dtype, alignment) take the wgmma prefill
 kernel (csrc/quant_matmul_sm90.cu) and with which tile rows and K
 splits, which (dtype, head_dim, mode) take the wgmma forward
-(csrc/flash_fwd_sm90.cu), and that CPU tensors still run the plain
+(csrc/flash_fwd_sm90.cu) and the wgmma dQ and dK/dV
+(csrc/flash_bwd_sm90.cu), and that CPU tensors still run the plain
 versions bitwise. The kernels themselves run only on the card:
 tests/test_torch_cuda.py holds them against the plain versions there.
 """
@@ -75,10 +76,53 @@ def test_quant_prefill_plan_never_leaves_a_split_empty():
     (BF16, 128, "plain", "sm90"), (BF16, 64, "plain", "sm90"),
     (BF16, 40, "plain", "sm90"), (BF16, 136, "plain", "mma"),
     (BF16, 256, "plain", "mma"), (FP32, 128, "plain", "mma"),
-    (BF16, 128, "masked", "mma"),
+    (BF16, 128, "masked", "mma"), (FP32, 64, "plain", "mma"),
+    (FP32, 256, "plain", "mma"), (BF16, 64, "varlen", "mma"),
+    (BF16, 128, "varlen", "mma"), (BF16, 256, "varlen", "mma"),
+    (BF16, 64, "flashmask", "mma"), (BF16, 128, "flashmask", "mma"),
+    (BF16, 256, "flashmask", "mma"), (FP32, 128, "varlen", "mma"),
+    (FP32, 128, "flashmask", "mma"), (BF16, 8, "plain", "sm90"),
+    (BF16, 120, "plain", "sm90"), (BF16, 129, "plain", "mma"),
+    (torch.float16, 64, "plain", "mma"),
 ])
 def test_flash_fwd_route(dtype, D, mode, route):
-    assert fa.flash_fwd_route(dtype, D, mode) == route
+    """The forward, dQ and dK/dV take the wgmma kernels on one rule: bf16,
+    plain mode (causal or none), head_dim <= 128."""
+    assert fa.flash_route(dtype, D, mode) == route
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,D,causal", [
+    (2, 72, 136, 64, True), (1, 130, 64, 128, True), (2, 80, 80, 40, False)])
+def test_cpu_tensors_take_the_plain_backward_bitwise(BH, Sq, Sk, D, causal):
+    """Shapes the card sends to the wgmma dQ and dK/dV (bf16, plain mode,
+    head_dim <= 128, ragged lengths, causal or not) run flash_dq_ref /
+    flash_dkv_ref on CPU tensors, bitwise, and count no launch."""
+    rng = np.random.RandomState(BH + Sq + Sk + D)
+    counters = (fa.flash_dq, fa.flash_dkv)
+    counts = [(f.launches, f.sm90_launches) for f in counters]
+    assert fa.flash_route(BF16, D) == "sm90"
+    q, do = (torch.from_numpy(rng.randn(BH, Sq, D).astype(np.float32))
+             .bfloat16() for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(BH, Sk, D).astype(np.float32))
+            .bfloat16() for _ in range(2))
+    out, lse = fa.flash_fwd(q, k, v, 0.125, causal)
+    args = (q, k, v, do, lse, fa.flash_delta(out, do), 0.125, causal)
+    assert torch.equal(fa.flash_dq(*args), fa.flash_dq_ref(*args))
+    for got, want in zip(fa.flash_dkv(*args), fa.flash_dkv_ref(*args)):
+        assert got.dtype == BF16 and torch.equal(got, want)
+    assert counts == [(f.launches, f.sm90_launches) for f in counters]
+
+
+def _c_kinds(source, name):
+    """The ctypes kinds of `name`'s prototype in csrc/`source`."""
+    expect = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+              "float": ctypes.c_float}
+    src = (build.CSRC / source).read_text()
+    proto = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
+                      re.S).group(1)
+    assert '#include "hopper.cuh"' in src
+    return [expect[p.strip().replace("const ", "").rsplit(" ", 1)[0]
+                   .replace(" ", "")] for p in proto.split(",")]
 
 
 def test_cpu_tensors_take_the_plain_versions_bitwise():
@@ -95,7 +139,7 @@ def test_cpu_tensors_take_the_plain_versions_bitwise():
     assert qm.quant_matmul_route(64, 256, 128, BF16) == "sm90"
     assert torch.equal(qm.quant_matmul(x, qw, s),
                        qm.quant_matmul_ref(x, qw, s))
-    assert fa.flash_fwd_route(q.dtype, 64) == "sm90"
+    assert fa.flash_route(q.dtype, 64) == "sm90"
     for got, want in zip(fa.flash_fwd(q, k, v, 0.125, True),
                          fa.flash_fwd_ref(q, k, v, 0.125, True)):
         assert torch.equal(got, want)
@@ -108,19 +152,26 @@ def test_sm90_ctypes_signatures_match_the_cuda_sources():
     """The new C entries' ctypes argtypes mirror their prototypes: a
     mismatch would pass garbage to a kernel, and only the card could
     show it."""
-    expect = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-              "float": ctypes.c_float}
     for source, name, types in (
             (qm.SM90_SOURCE, "quant_matmul_sm90", qm.SM90_C_ARGTYPES),
-            (fa.SM90_SOURCE, "flash_attention_fwd_sm90",
-             fa.SM90_C_ARGTYPES)):
-        src = (build.CSRC / source).read_text()
-        proto = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src,
-                          re.S).group(1)
-        kinds = [expect[p.strip().replace("const ", "").rsplit(" ", 1)[0]
-                        .replace(" ", "")] for p in proto.split(",")]
-        assert kinds == types, name
-        assert '#include "hopper.cuh"' in src
+            (*fa.SM90_C_ARGTYPES["flash_attention_fwd_sm90"][:1],
+             "flash_attention_fwd_sm90",
+             fa.SM90_C_ARGTYPES["flash_attention_fwd_sm90"][1])):
+        assert _c_kinds(source, name) == types, name
+
+
+@pytest.mark.parametrize("name", ["flash_attention_dq_sm90",
+                                  "flash_attention_dkv_sm90"])
+def test_flash_bwd_ctypes_signatures_match_the_cuda_source(name):
+    """dQ and dK/dV's argtypes mirror their prototypes in
+    csrc/flash_bwd_sm90.cu: the tensors (q, k, v, dout, lse, delta, then
+    dq or dk, dv), BH, Sq, Sk, D, scale, causal, stream."""
+    source, types = fa.SM90_C_ARGTYPES[name]
+    assert source == fa.SM90_BWD_SOURCE
+    assert _c_kinds(source, name) == types
+    tensors = 7 if name.endswith("dq_sm90") else 8
+    assert types == [ctypes.c_void_p] * tensors + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def test_library_key_covers_the_included_header(tmp_path, monkeypatch):
