@@ -17,7 +17,13 @@ for (all by default):
                 and every prefill bucket 32-512; the flash forward, dQ and
                 dK/dV at the training shape (B*H 32, S 4096, D 128,
                 causal); the varlen and flashmask (document mask) forward,
-                dQ and dK/dV at packed_attention's full width;
+                dQ and dK/dV at packed_attention's full width; the paged
+                decode through the public paged_attention_decode, bf16
+                and int8 KV with bf16 queries, at the serve shape (B 16,
+                H 32, KVH 8, D 128, page 16) and the long-context shapes
+                (one request at 32768 tokens over 2048 pages, four at
+                8192), on batches built by this tree's
+                chip_smoke.paged_batch in both trees;
   packed      — chip_smoke.phase_packed_attention: ms per forward +
                 backward of each entry point;
   train       — chip_smoke.phase_train: step ms and MFU;
@@ -34,6 +40,7 @@ Imports nothing of JAX. Exits 2 without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import shutil
@@ -45,6 +52,39 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("kernels", "packed", "train", "serve_quant")
 QMM_ROWS = (16, 32, 64, 128, 256, 512)
+
+
+def _this_smoke():
+    """This tree's chip_smoke module, whichever tree the child imports:
+    its batch builders use only entry points both trees have."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_this", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def paged_kernel_times(seed: int, flush):
+    """{case: ms} of the paged decode at the serve and long-context
+    shapes, bf16 and int8 KV, bf16 queries."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    here = _this_smoke()
+    shapes = {"serve": (16, 72, here.serve_lens(seed))}
+    shapes.update({name: (B, P, [n] * B)
+                   for name, (B, P, n) in here.PAGED_LONG.items()})
+    res = {}
+    for name, (B, P, lens) in shapes.items():
+        for kv in ("bfloat16", "int8"):
+            batch = here.paged_batch(seed + 40, B, 8, 4, 128, 16, P, lens, kv)
+            q = batch["q"].bfloat16()
+            args = (q, batch["k"], batch["v"], batch["bt"], batch["sl"])
+            sc = batch["scales"]
+            extra = dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+            res[f"paged_{kv}_{name}"] = cs.time_ms(
+                lambda: pa.paged_attention_decode(*args, **extra), flush)
+            del batch, args, extra
+    return res
 
 
 def kernel_times(seed: int):
@@ -80,6 +120,7 @@ def kernel_times(seed: int):
     res["flash_dq"] = cs.time_ms(lambda: fa.flash_dq(*args), flush)
     res["flash_dkv"] = cs.time_ms(lambda: fa.flash_dkv(*args), flush)
     del q, k, v, do, out, lse, args
+    res.update(paged_kernel_times(seed, flush))
     lens = cs.pack_documents(seed)
     q, k, v, do = (t.transpose(0, 1).contiguous()
                    for t in cs.packed_inputs(seed, lens))

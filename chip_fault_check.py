@@ -14,7 +14,8 @@ for the flash kernels, `chip_smoke.check_quant_kernels` for the int8
 paged-decode and int8 matmul kernels, `chip_smoke.check_lora_kernels` for
 the LoRA shrink/expand pair, `chip_smoke.check_packed_kernels` for the
 flash kernels' segment and flashmask modes, `chip_smoke.check_norm_kernel`
-for rms_norm_rows. The children build their sources together, then run
+for rms_norm_rows, `chip_smoke.check_paged_kernels` for the split-KV
+paged-decode kernel (both variants, on seeded batches). The children build their sources together, then run
 their checks at most GPU_SLOTS at a time (the plain versions at the main
 path's shapes hold ~10 GB each); each is waited for.
 
@@ -45,7 +46,13 @@ Faults:
     (s + 1) % kStages of the ring instead of s (another K tile's x and
     weights);
   * int8_no_v_scale — the int8 paged-decode kernel ignores the V scale
-    (each V row taken as its raw int8 values);
+    (each V row taken as its raw int8 values), on both of its paths;
+  * paged_merge_drops_last_split — the paged-decode merge skips the last
+    live split's partial (its accumulator and its sum): every row with
+    more than one live split loses its last tokens;
+  * paged_ring_other_stage — the paged-decode consumers (both paths)
+    read stage (s + 1) % kStages of the ring (another stage's K, V and
+    scales) while still waiting for stage s;
   * lora_expand_row0_slot — the LoRA expand kernel reads row 0's slot for
     every row (each row's own partial sums, another adapter's B);
   * lora_shrink_drop_last_chunk — the LoRA shrink kernel drops the last
@@ -115,7 +122,11 @@ _K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
 _SM90_PRODUCT = ("      for (int j = 0; j < kBatch; ++j)\n"
                  "        wgmma_rs<BM>(acc, a + 4 * j, dx + 2 * (k0 + j));\n")
 _SM90_STAGE = "    const uint8_t* x = smem + s * C::kStageBytes;\n"
-_V_SCALE = "          vsc[u] = vs[row];\n"
+_V_SCALE = "p * st_vs[lane]"
+_V_SCALE_MMA = "p[k] * st_vs[tok]"
+_PAGED_MERGE = ("    for (int r = 0; r < live; ++r) {\n"
+                "      const float4 x = __ldcg(")
+_PAGED_STAGE = "    const uint8_t* st = smem + s * C::kStageBytes;\n"
 _EXPAND_SLOT = "  const int slot = ids[b];\n"
 _SHRINK_END = "  const int h1 = min(H, h0 + hchunk);\n"
 # name: ([(source, [(text, replacement, count)]), ...], check)
@@ -171,8 +182,16 @@ FAULTS = {
           [(_SM90_STAGE, _SM90_STAGE.replace(
               "s * C", "(s + 1) % kStages * C"), 1)])], "quant"),
     "int8_no_v_scale": ([("paged_attention.cu",
-                          [(_V_SCALE, "          vsc[u] = 1.f;\n", 1)])],
+                          [(_V_SCALE, "p", 1), (_V_SCALE_MMA, "p[k]", 1)])],
                         "quant"),
+    "paged_merge_drops_last_split": (
+        [("paged_attention.cu",
+          [(_PAGED_MERGE, _PAGED_MERGE.replace("r < live", "r < live - 1"),
+            1)])], "paged"),
+    "paged_ring_other_stage": (
+        [("paged_attention.cu",
+          [(_PAGED_STAGE, _PAGED_STAGE.replace(
+              "s * C", "(s + 1) % C::kStages * C"), 2)])], "paged"),
     "lora_expand_row0_slot": ([("lora_matmul.cu",
                                 [(_EXPAND_SLOT,
                                   "  const int slot = ids[0];\n", 1)])],
@@ -204,7 +223,7 @@ CHECK_SOURCES = {
     "quant": ("paged_attention.cu", "quant_matmul.cu",
               "quant_matmul_sm90.cu"),
     "lora": ("lora_matmul.cu",), "packed": ("flash_attention.cu",),
-    "norm": ("fused_norm.cu",)}
+    "norm": ("fused_norm.cu",), "paged": ("paged_attention.cu",)}
 GPU_SLOTS = 4
 CHILD = """
 import fcntl
@@ -234,6 +253,8 @@ for check in {checks!r}:
         errs, failures, _ = chip_smoke.check_lora_kernels({seed})
     elif check == "packed":
         errs, failures = chip_smoke.check_packed_kernels({seed})
+    elif check == "paged":
+        errs, failures = chip_smoke.check_paged_kernels({seed})
     elif check == "norm":
         errs, failures = chip_smoke.check_norm_kernel({seed})
         errs = {{"rms_norm_rows": errs}}
@@ -300,6 +321,13 @@ def must_fail(name: str):
     if name == "rms_residual_after_square":
         return [("norm", "rms_norm_rows", f"{r}x{h}_bfloat16_residual")
                 for r, h in NORM_SHAPES]
+    if name in ("paged_merge_drops_last_split", "paged_ring_other_stage"):
+        # the main path's type at the serve and long-context shapes, where
+        # rows span several splits and every split several stages
+        return [("paged", k, f"{c}_bfloat16")
+                for k in ("paged_attention_decode",
+                          "paged_attention_decode_int8")
+                for c in ("serve", "b1_32768", "b4_8192")]
     if name == "lora_expand_row0_slot":
         # a prefill chunk's rows share one slot, and the synthetic rank-8
         # bucket holds one adapter: there row 0's slot is every row's
@@ -317,7 +345,8 @@ def main(argv=None) -> int:
         print("chip_fault_check: no CUDA card is available", file=sys.stderr)
         return 2
 
-    copies = {"clean": ([], ("flash", "quant", "lora", "packed", "norm"))}
+    copies = {"clean": ([], ("flash", "quant", "lora", "packed", "norm",
+                             "paged"))}
     copies.update({name: (plants, (check,))
                    for name, (plants, check) in FAULTS.items()})
     with tempfile.TemporaryDirectory() as tmp:

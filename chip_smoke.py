@@ -85,12 +85,22 @@ Phases, one JSON line each:
                launches, L2 flushed before each) beside its plain
                version, a PyTorch library call computing the same
                function, and its bound:
-               * paged decode: layer 0's caches, block tables and
-                 seq_lens captured from a live decode batch of phase 3
-                 (plus a seq_len-0 pad row and a length ending mid-page),
-                 bf16 (tolerance 2e-2: output rounding, about 1 ulp at
-                 |x| <~ 2) and fp32 on the same data cast up (1e-4:
-                 summation order);
+               * paged decode: seeded batches (`check_paged_kernels`) —
+                 the serve shape, one request at 32768 tokens over the
+                 widest table (2048 pages) and four at 8192, a batch of
+                 split edges (one token, a length ending mid-page, on a
+                 split boundary, one past it, the full table, rows whose
+                 trailing splits are empty), G 1, 2, 8, D 64, 192, 256,
+                 pages 8-32 — bf16 (tolerance 2e-2: output rounding,
+                 about 1 ulp at |x| <~ 2), fp32 on the same data (1e-4:
+                 summation order) and int8 caches with both query types,
+                 pad rows exactly 0, a second launch bitwise equal;
+                 then layer 0's caches, block tables and seq_lens
+                 captured from a live decode batch of phase 3 (plus a
+                 seq_len-0 pad row and a length ending mid-page), bf16
+                 and fp32; timed at the live batch and at the two
+                 long-context shapes (`long_context`, no main path runs
+                 them);
                * flash fwd / dQ / dK/dV: the training shape (B*H 32,
                  S 4096, D 128, causal; seeded) and small ragged ones
                  (S not a tile multiple, D 64 and 40, Sq < Sk and
@@ -110,7 +120,8 @@ Phases, one JSON line each:
                  batch (int8 caches and scales, plus a pad row and a
                  length ending mid-page) with bf16 and fp32 queries,
                  tolerances as for the full-width kernel
-                 (`check_quant_kernels`);
+                 (`check_quant_kernels`); timed there and at the
+                 long-context shapes;
                * int8 matmul: seeded x and `weight_quantize`d seeded
                  weights at Llama-3-8B's decode GEMMs (M 16, the decode
                  route), gate/up and down at M 512 (the wgmma route) and
@@ -210,6 +221,16 @@ KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the design of each kernel of the redesigned routes, for the kernels line
 DESIGN = {
+    "paged_attention_decode": "split-KV balanced on the card: grid (KVH, "
+                              "chunks + B), every block splitting the batch "
+                              "from seq_lens; a producer warp keeping a ring "
+                              "of 64-token stages full by 1-D bulk copies "
+                              "(mbarriers); 4 consumer warps, each an online "
+                              "softmax over 16 tokens a stage, S = Q K^T and "
+                              "O^T = V^T P^T on mma.sync m16n8k16 (P as bf16 "
+                              "hi + lo); the last block of each (row, KV "
+                              "head) merging the splits in order (ticket "
+                              "counter)",
     "flash_attention_fwd": "sm90: TMA ring of 128-key K/V tiles (2 stages, "
                            "mbarriers), wgmma m64n128k16 SS for QK^T and RS "
                            "for PV (P in registers), 2 consumer warpgroups "
@@ -947,17 +968,221 @@ def capture_batch(eng, reqs):
             "heads": eng.num_heads}
 
 
-def phase_kernels(capture, launches, seed: int, card: str):
+def paged_batch(seed: int, B: int, KVH: int, G: int, D: int, page: int,
+                P: int, lens, kv: str = "bfloat16"):
+    """A seeded paged decode batch on the card: one page per live slot of
+    each row, page ids shuffled (page 0 stays the pad page every unused
+    slot points at), K/V drawn in bf16 and held as `kv` ("bfloat16",
+    "float32" — the same values — or "int8", quantized by `quantize_kv`
+    with its fp32 scale pages), and fp32 queries (callers cast them)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.paged_attention import quantize_kv
+    rng = np.random.RandomState(seed)
+    sl = np.asarray(lens, np.int32)
+    need = -(-sl // page)
+    pages = int(need.sum()) + 1
+    perm = rng.permutation(pages - 1) + 1
+    bt = np.zeros((B, P), np.int32)
+    n = 0
+    for b in range(B):
+        bt[b, :need[b]] = perm[n:n + need[b]]
+        n += need[b]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, KVH * G, D, generator=gen, device="cuda")
+    k, v = (torch.randn(pages, KVH, page, D, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    scales = None
+    if kv == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = [ks, vs]
+    elif kv == "float32":
+        k, v = k.float(), v.float()
+    return {"q": q, "k": k, "v": v, "scales": scales,
+            "bt": torch.from_numpy(bt).cuda(),
+            "sl": torch.from_numpy(sl).cuda(), "heads": KVH * G}
+
+
+def serve_lens(seed: int, B: int = 16, page: int = 16, P: int = 72):
+    """Lengths like the serve phase's decode batch: 128 to P pages,
+    one ending mid-page, the last row a seq_len-0 pad row."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    sl = rng.randint(128, P * page + 1, size=B)
+    sl[0] -= 1 if sl[0] % page == 0 else 0
+    sl[-1] = 0
+    return sl.tolist()
+
+
+# long-context decode shapes (row 1c): one request over the widest block
+# table, and four at Llama-3's context; Llama-3-8B's attention widths
+PAGED_LONG = {"b1_32768": (1, 2048, 32768), "b4_8192": (4, 512, 8192)}
+
+
+def paged_cases(seed: int):
+    """{case: (batch builder kwargs, kv types)} of check_paged_kernels. The
+    serve shape (B 16, H 32, KVH 8, D 128, page 16, 72-page table); the
+    long-context shapes; at the serve widths a batch of edges over a
+    64-page table whose rows split at the least split (8 pages: the
+    batch is short) — one token, a seq_len-0 pad row, a length ending
+    mid-page, rows ending on the first and second split boundary, one
+    token past the first (two splits of 5 and 4 pages), the full table
+    (8 splits); then other group sizes, head widths and pages (G 1, 2, 8;
+    D 64, 192, 256; pages 8, 16, 32), each with a pad row. Every launch
+    has blocks past the batch's splits (the grid's spare rows)."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunks, m = pa.paged_decode_plan(8, 16, sms)   # m: the least split
+    edges = [1, 0, 3 * 16 + 5, m * 16, 2 * m * 16, m * 16 + 1, 64 * 16, 9]
+    rows = pa.paged_decode_splits(edges, 16, 64, chunks, m)
+    assert [sp for _, sp, _ in rows] == [1, 1, 1, 1, 2, 2, 8, 1], rows
+    both = ("bfloat16", "float32", "int8")
+    serve = dict(B=16, KVH=8, G=4, D=128, page=16, P=72)
+    cases = {"serve": (dict(serve, lens=serve_lens(seed)), both)}
+    for name, (B, P, n) in PAGED_LONG.items():
+        cases[name] = (dict(serve, B=B, P=P, lens=[n] * B),
+                       ("bfloat16", "int8"))
+    cases["edges"] = (dict(serve, B=8, P=64, lens=edges), both)
+    for G, D, page in ((1, 64, 8), (2, 256, 32), (8, 64, 16), (8, 256, 16),
+                       (2, 192, 16)):
+        P = 512 // page
+        cases[f"g{G}_d{D}_p{page}"] = (dict(B=5, KVH=2, G=G, D=D, page=page,
+                                            P=P, lens=[P * page, 0, 77,
+                                                       P * page - 3, 8]),
+                                       both)
+    return cases
+
+
+def check_paged_kernels(seed: int):
+    """The paged-decode kernel, both variants, on `paged_cases`: bf16 q
+    within 2e-2 of the plain version's max abs error (output rounding,
+    about 1 ulp at |x| <~ 2) and within 1e-2 relative error ||got - ref||
+    / ||ref|| (outputs over 32768 random tokens are ~0.005, below any
+    absolute limit that allows the rounding; a kernel that drops a split
+    moves them by ~10%), fp32 within 1e-4 (summation order); int8 caches
+    with bf16 and fp32 queries at the same limits; seq_len-0 rows exactly
+    0; a second launch bitwise equal to the first; the merge's ticket
+    counters back at 0. Returns (errors, failures): errors[kernel][case]
+    = {"err", "limit", "rel", "repeat_bitwise"}; failures lists the
+    (kernel, case) that missed. Launches here are not counted as the main
+    path's."""
+    import torch
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    errs = {"paged_attention_decode": {}, "paged_attention_decode_int8": {}}
+    failures = []
+    for i, (name, (kw, kvs)) in enumerate(paged_cases(seed).items()):
+        for kv in kvs:
+            batch = paged_batch(seed + 10 + i, kv=kv, **kw)
+            k, v, bt, sl = batch["k"], batch["v"], batch["bt"], batch["sl"]
+            extra = {}
+            if kv == "int8":
+                extra = dict(k_scale=batch["scales"][0],
+                             v_scale=batch["scales"][1])
+            qdts = ((torch.bfloat16, torch.float32) if kv == "int8"
+                    else (getattr(torch, kv),))
+            kernel = ("paged_attention_decode_int8" if kv == "int8"
+                      else "paged_attention_decode")
+            for dt in qdts:
+                q = batch["q"].to(dt)
+                got = pa.paged_attention_decode(q, k, v, bt, sl, **extra)
+                again = pa.paged_attention_decode(q, k, v, bt, sl, **extra)
+                torch.cuda.synchronize()
+                want = pa.paged_attention_decode_ref(q, k, v, bt, sl,
+                                                     **extra)
+                tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+                err, rel = _max_err(got, want), _rel_err(got, want)
+                case = f"{name}_{str(dt).replace('torch.', '')}"
+                same = bool(torch.equal(got, again))
+                errs[kernel][case] = {"err": err, "limit": tol, "rel": rel,
+                                      "repeat_bitwise": same}
+                pad = (sl == 0).nonzero()[:, 0]
+                if not (err <= tol and torch.isfinite(got).all() and same
+                        and (dt != torch.bfloat16 or rel <= 1e-2)
+                        and torch.all(got[pad] == 0)):
+                    failures.append((kernel, case))
+                del got, again, want
+            del batch, k, v
+    scratch = pa._SCRATCH.get(torch.device("cuda", 0))
+    if scratch is not None and scratch[2].any():
+        failures.append(("paged_attention_decode", "tickets_reset"))
+    return errs, failures
+
+
+def paged_times(batch, flush, q):
+    """The paged-decode kernel on `batch` (int8 when it has scales) with
+    queries `q`: kernel, plain-version and library times, and the bound.
+    The library yardstick is SDPA with GQA over the same KV gathered
+    beforehand (and dequantized to bf16 for int8; neither timed), never
+    called by the port."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_attention_decode, paged_attention_decode_ref)
+    k, v, bt, sl, sc = (batch["k"], batch["v"], batch["bt"], batch["sl"],
+                        batch["scales"])
+    extra = dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+    B, H, D = q.shape
+    _, KVH, page, _ = k.shape
+    args = (q, k, v, bt, sl)
+    ms = time_ms(lambda: paged_attention_decode(*args, **extra), flush)
+    plain_ms = time_ms(lambda: paged_attention_decode_ref(*args, **extra),
+                       flush, reps=10, warmup=2)
+    idx = bt.long()
+
+    def dense(c, s):
+        g = (c[idx].float() * s[idx][..., None]).bfloat16() if sc else c[idx]
+        return g.permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)
+    kd, vd = dense(k, sc and sc[0]), dense(v, sc and sc[1])
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < sl[:, None])[:, None, None, :]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True), flush)
+    del kd, vd, mask
+    live = int(sl.sum())
+    row = D * k.element_size() + (4 if sc else 0)   # a K or V row (+ scale)
+    nbytes = (2 * live * KVH * row                  # live K + V, read once
+              + 2 * B * H * D * q.element_size()    # q in, out
+              + bt.numel() * 4 + sl.numel() * 4)
+    flops = 4 * live * H * D                        # QK^T and PV
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops, "gb_per_s": nbytes / ms / 1e6,
+            "shape": {"B": B, "H": H, "KVH": KVH, "D": D, "page": page,
+                      "max_pages": bt.shape[1], "live_tokens": live}}
+
+
+def paged_long_times(seed: int, kv: str, flush):
+    """Row 1c: paged_times at the PAGED_LONG shapes, bf16 queries."""
+    import torch
+    out = {}
+    for i, (name, (B, P, n)) in enumerate(PAGED_LONG.items()):
+        batch = paged_batch(seed + 40 + i, B, 8, 4, 128, 16, P, [n] * B, kv)
+        out[name] = paged_times(batch, flush, batch["q"].bfloat16())
+        del batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels(capture, launches, seed: int, card: str):
+    import torch
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_attention_decode_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
+    errs_paged, failures = check_paged_kernels(seed)
+    emit({"phase": "kernel_check", "kernel": "paged_attention_decode",
+          "cases": errs_paged})
+    if failures:
+        raise AssertionError(f"paged decode disagrees with its plain "
+                             f"version: {failures}")
     k, v, bt, sl = capture["k"], capture["v"], capture["bt"], capture["sl"]
     B, H = bt.shape[0], capture["heads"]
-    _, KVH, page, D = k.shape
+    D = k.shape[-1]
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     q = torch.randn(B, H, D, generator=gen, device="cuda",
                     dtype=torch.float32).to(torch.bfloat16)
@@ -979,47 +1204,25 @@ def phase_kernels(capture, launches, seed: int, card: str):
           "batch": B, "seq_lens": sl.tolist(), "max_abs_err": errs,
           "tolerance": {"bfloat16": 2e-2, "float32": 1e-4}})
 
-    # timing at the main path's dtype (bf16)
+    # timing at the main path's dtype (bf16), then the long-context rows
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    args = (q, k, v, bt, sl)
-    kernel_ms = time_ms(lambda: paged_attention_decode(*args),
-                        flush_buf.zero_)
-    plain_ms = time_ms(lambda: paged_attention_decode_ref(*args),
-                       flush_buf.zero_)
-    # library yardstick: SDPA with GQA over the same KV pre-gathered
-    # contiguous (the gather is not timed); never called by the port
-    idx = bt.long()
-    kd = k[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)
-    vd = v[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)
-    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
-            < sl[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask, enable_gqa=True), flush_buf.zero_)
-
-    live = int(sl.sum())
-    elem = q.element_size()
-    nbytes = (2 * live * KVH * D * elem          # live K + V, read once
-              + 2 * B * H * D * elem             # q in, out
-              + bt.numel() * 4 + sl.numel() * 4)
-    flops = 4 * live * (H // KVH) * KVH * D      # QK^T and PV
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t = paged_times(capture, flush_buf.zero_, q)
+    long_ctx = paged_long_times(seed, "bfloat16", flush_buf.zero_)
     name, source, replaces = KERNELS[0]
     return [{"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": launches[name],
+             "replaces": replaces, "design": DESIGN[name],
+             "launches": launches[name],
              "max_abs_err": errs["bfloat16"],
              "max_abs_err_fp32": errs["float32"],
-             "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-             "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-             "library_ms": library_ms,
+             "ms": t["ms"], "kernel_ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
              "library": "torch.nn.functional.scaled_dot_product_attention"
                         "(enable_gqa=True), KV pre-gathered",
-             "shape": {"B": B, "H": H, "KVH": KVH, "D": D, "page": page,
-                       "max_pages": bt.shape[1], "live_tokens": live,
-                       "dtype": "bfloat16"},
-             "bytes": nbytes, "flops": flops, "card": card}]
+             "shape": dict(t["shape"], dtype="bfloat16"),
+             "bytes": t["bytes"], "flops": t["flops"],
+             "gb_per_s": t["gb_per_s"],
+             "long_context": long_ctx, "card": card}]
 
 
 def _rel_err(got, want) -> float:
@@ -1055,40 +1258,10 @@ def qmm_inputs(shape, seed: int):
     return x, qw, scale
 
 
-def synthetic_int8_decode(seed: int):
-    """An int8 paged decode batch at the serve phase's shape (B 16,
-    H 32, KVH 8, D 128, page 16), seeded: bf16-drawn K/V quantized by
-    `quantize_kv`, shuffled pages, lengths 128-1088 with one ending
-    mid-page and a seq_len-0 pad row."""
-    import numpy as np
-    import torch
-    from paddle_tpu_torch.kernels.paged_attention import quantize_kv
-    B, KVH, D, page, P = 16, 8, 128, 16, 72
-    rng = np.random.RandomState(seed + 5)
-    sl = rng.randint(128, P * page + 1, size=B).astype(np.int32)
-    sl[0] -= 1 if sl[0] % page == 0 else 0
-    sl[-1] = 0
-    pages = int(np.sum(-(-sl // page))) + 1
-    perm = rng.permutation(pages - 1) + 1
-    bt = np.zeros((B, P), np.int32)
-    n = 0
-    for b in range(B):
-        k = -(-int(sl[b]) // page)
-        bt[b, :k] = perm[n:n + k]
-        n += k
-    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
-    k8, ks = quantize_kv(torch.randn(pages, KVH, page, D, generator=gen,
-                                     device="cuda").bfloat16())
-    v8, vs = quantize_kv(torch.randn(pages, KVH, page, D, generator=gen,
-                                     device="cuda").bfloat16())
-    return {"k": k8, "v": v8, "scales": [ks, vs],
-            "bt": torch.from_numpy(bt).cuda(),
-            "sl": torch.from_numpy(sl).cuda(), "heads": 32}
-
-
 def check_quant_kernels(seed: int, decode=None):
     """The int8 paged-decode kernel (on `decode`, a captured int8 batch,
-    or a synthetic one) with bf16 and fp32 queries — max abs error within
+    or a seeded one at the serve phase's shape: `paged_batch` over
+    `serve_lens`) with bf16 and fp32 queries — max abs error within
     2e-2 / 1e-4 of the plain version, as for the full-width kernel, the
     pad row exact zeros — and the int8 matmul at `qmm_shapes` in bf16
     (||got - ref|| / ||ref|| <= 1e-2, the output's rounding) and fp32
@@ -1105,7 +1278,8 @@ def check_quant_kernels(seed: int, decode=None):
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
     if decode is None:
-        decode = synthetic_int8_decode(seed)
+        decode = paged_batch(seed + 5, 16, 8, 4, 128, 16, 72,
+                             serve_lens(seed + 5), "int8")
     k8, v8, bt, sl = decode["k"], decode["v"], decode["bt"], decode["sl"]
     ks, vs = decode["scales"]
     B, H, D = bt.shape[0], decode["heads"], k8.shape[-1]
@@ -1156,16 +1330,12 @@ def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
     bucket serve_quant launched, `buckets`), against their plain versions,
     then timed beside them, a library call and the bound."""
     import torch
-    import torch.nn.functional as F
-    from paddle_tpu_torch.kernels.paged_attention import (
-        paged_attention_decode, paged_attention_decode_ref)
     from paddle_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_ref, quant_matmul_route)
     from paddle_tpu_torch.nn.quant import weight_dequantize
 
     errs, failures, q = check_quant_kernels(seed, capture)
-    k8, v8, bt, sl = capture["k"], capture["v"], capture["bt"], capture["sl"]
-    ks, vs = capture["scales"]
+    bt, sl = capture["bt"], capture["sl"]
     emit({"phase": "kernel_check", "kernel": "quantized", "batch": bt.shape[0],
           "seq_lens": sl.tolist(), "errors": errs})
     if failures:
@@ -1174,52 +1344,29 @@ def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
 
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = []
-    # --- int8 paged decode, bf16 queries (the main path's)
-    B, H, D = q.shape
-    _, KVH, page, _ = k8.shape
-    args = (q, k8, v8, bt, sl)
-    kernel_ms = time_ms(lambda: paged_attention_decode(
-        *args, k_scale=ks, v_scale=vs), flush_buf.zero_)
-    plain_ms = time_ms(lambda: paged_attention_decode_ref(
-        *args, k_scale=ks, v_scale=vs), flush_buf.zero_)
-    # library yardstick: SDPA with GQA over the same KV gathered and
-    # dequantized to bf16 beforehand (not timed); never called by the port
-    idx = bt.long()
-
-    def dense(c, sc):
-        g = (c[idx].float() * sc[idx][..., None]).bfloat16()
-        return g.permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)
-    kd, vd = dense(k8, ks), dense(v8, vs)
-    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
-            < sl[:, None])[:, None, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True),
-        flush_buf.zero_)
-    del kd, vd
-    live = int(sl.sum())
-    nbytes = (2 * live * KVH * (D + 4)           # int8 K + V and scales
-              + 2 * B * H * D * q.element_size()  # q in, out
-              + bt.numel() * 4 + sl.numel() * 4)
-    flops = 4 * live * H * D
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    # --- int8 paged decode, bf16 queries (the main path's), then the
+    # long-context rows
+    t = paged_times(capture, flush_buf.zero_, q)
+    long_ctx = paged_long_times(seed, "int8", flush_buf.zero_)
     name, source, replaces = KERNEL["paged_attention_decode_int8"]
     e = errs[name]
     rows.append({"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces,
+                 "design": DESIGN["paged_attention_decode"],
+                 "launches": launches[name],
                  "max_abs_err": e["bfloat16"]["err"],
                  "max_abs_err_fp32": e["float32"]["err"],
-                 "ms": kernel_ms, "kernel_ms": kernel_ms,
-                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                 "library_ms": library_ms,
+                 "ms": t["ms"], "kernel_ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "library": "torch.nn.functional.scaled_dot_product_attention"
                             "(enable_gqa=True), KV pre-gathered and "
                             "dequantized to bf16",
-                 "shape": {"B": B, "H": H, "KVH": KVH, "D": D, "page": page,
-                           "max_pages": bt.shape[1], "live_tokens": live,
-                           "q": "bfloat16", "kv": "int8 + fp32 scales"},
-                 "bytes": nbytes, "flops": flops, "card": card})
+                 "shape": dict(t["shape"], q="bfloat16",
+                               kv="int8 + fp32 scales"),
+                 "bytes": t["bytes"], "flops": t["flops"],
+                 "gb_per_s": t["gb_per_s"], "long_context": long_ctx,
+                 "card": card})
 
     # --- int8 matmul, bf16 x: the decode route at M 16 (the quant_matmul
     # row) and the wgmma route (quant_matmul_prefill) at gate/up and down

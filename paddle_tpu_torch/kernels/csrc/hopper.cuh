@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (quant_matmul_sm90.cu, flash_fwd_sm90.cu, flash_bwd_sm90.cu). Device
-// helpers only, and the host-side tensor-map encoder; no kernel lives here.
+// (quant_matmul_sm90.cu, flash_fwd_sm90.cu, flash_bwd_sm90.cu) and the
+// paged-decode kernel (paged_attention.cu). Device helpers only, and the
+// host-side tensor-map encoder; no kernel lives here.
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     wait on a phase parity;
 //   * TMA: 1-D, 2-D and 3-D tile loads (cp.async.bulk.tensor) that complete
 //     on an mbarrier, from a CUtensorMap passed as a __grid_constant__
-//     kernel parameter; the maps are encoded on the host with
+//     kernel parameter, and 1-D bulk copies of contiguous bytes without a
+//     map (cp.async.bulk); the maps are encoded on the host with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint*, so
 //     the libraries link only the CUDA runtime (no -lcuda);
 //   * wgmma: the matrix descriptor of a 128-byte-swizzled tile (the layout
@@ -109,6 +111,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 1-D bulk copy without a tensor map: `bytes` (a multiple of 16) from
+// global `src` to shared `dst`, both 16-byte aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

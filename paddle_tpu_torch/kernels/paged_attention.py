@@ -9,10 +9,14 @@ unused block-table slots point at (reads of it are masked by seq_lens).
 `paged_attention_decode` is the one kernel of the serving path. On a
 CUDA tensor it launches the hand-written Hopper kernel
 `csrc/paged_attention.cu` (it replaces the Pallas `_decode_kernel`; the
-source note there says what bounds it and how the design answers) or
-raises; on a CPU tensor it runs `paged_attention_decode_ref`, the plain
-PyTorch version beside it. The cache writes are index writes, as they
-were XLA scatters in the reference.
+source note there says what bounds it and how the design answers: split
+KV over pages, balanced over the batch on the card (`paged_decode_splits`
+is the same rule in Python) within the grid `paged_decode_plan` sizes,
+fed by a ring of bulk copies, the splits merged by the last block in one
+launch) or raises; on a CPU tensor it runs
+`paged_attention_decode_ref`, the plain PyTorch version beside it. The
+cache writes are index writes, as they were XLA scatters in the
+reference.
 
 int8 KV (the reference's `kv_dtype="int8"`): value pages are int8 with
 fp32 per-(page, head, slot) scales in (num_pages, KVH, page_size) scale
@@ -33,14 +37,21 @@ from . import build
 __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
            "paged_cache_write", "paged_cache_write_range",
            "alloc_paged_cache", "check_supported_paged", "paged_page_bytes",
-           "quantize_kv", "KV_QMAX", "KV_SCALE_DTYPE",
-           "KERNEL_SOURCE", "CUDA_GROUP_SIZES", "CUDA_MAX_TABLE_PAGES"]
+           "quantize_kv", "KV_QMAX", "KV_SCALE_DTYPE", "paged_decode_plan",
+           "paged_decode_splits", "KERNEL_SOURCE", "CUDA_GROUP_SIZES",
+           "CUDA_MAX_TABLE_PAGES", "SPLIT_BLOCKS_PER_SM", "SPLIT_MIN_TOKENS",
+           "SPLIT_MAX"]
 
 KERNEL_SOURCE = "paged_attention.cu"
 # query heads per KV head the CUDA kernel is instantiated for, and the
 # widest block table it stages in shared memory
 CUDA_GROUP_SIZES = (1, 2, 4, 8)
 CUDA_MAX_TABLE_PAGES = 2048
+# the split-KV plan: blocks per SM it aims at (those the kernel keeps
+# resident at Llama-3-8B's widths), the fewest tokens a split holds (two
+# ring stages) unless its row is shorter, and the most splits of a row
+# (the kernel's merge stages that many)
+SPLIT_BLOCKS_PER_SM, SPLIT_MIN_TOKENS, SPLIT_MAX = 3, 128, 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # int8 KV: symmetric, qmax 127 (the weight quantizer's convention), fp32
 # per-(token, head) scales
@@ -75,6 +86,41 @@ def paged_page_bytes(num_kv_heads, page_size, head_dim, kv_dtype=None):
     else:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
     return 2 * num_kv_heads * page_size * (head_dim * width + scale_b)
+
+
+def paged_decode_plan(KVH, page, num_sms):
+    """(chunks, min_chunk) of a CUDA launch: about `chunks` splits per KV
+    head, so the grid's (KVH, chunks + B) blocks fill the card once at
+    SPLIT_BLOCKS_PER_SM blocks an SM, of about `min_chunk` pages or more.
+    Shapes only: the kernel splits the rows itself from seq_lens on the
+    card (`paged_decode_splits`)."""
+    return (max(1, SPLIT_BLOCKS_PER_SM * num_sms // KVH),
+            -(-SPLIT_MIN_TOKENS // page))
+
+
+def paged_decode_splits(seq_lens, page, P, chunks, min_chunk):
+    """The split every block of the CUDA kernel computes from seq_lens:
+    [(first block, splits, pages per split)] per row. Row r holds n_r
+    pages (its length cut to the P-page table); with T their sum a split
+    takes about Q = max(ceil(T / c), min_chunk, ceil(max n_r / SPLIT_MAX))
+    pages, c = chunks - B when that is at least half of chunks, else
+    ceil(chunks / 2); row r takes ceil(n_r / p_r) splits of p_r =
+    ceil(n_r / ceil(n_r / Q)) pages (none empty; Q / 2 to Q when there
+    are several), an empty row one split (which writes its zeros); rows
+    in order."""
+    n = [-(-min(max(int(x), 0), P * page) // page) for x in seq_lens]
+    B = len(n)
+    c = chunks - B if chunks - B >= (chunks + 1) // 2 else (chunks + 1) // 2
+    Q = max(-(-sum(n) // c), min_chunk, -(-max(n, default=0) // SPLIT_MAX))
+    rows, first = [], 0
+    for nr in n:
+        pr, sp = 1, 1
+        if nr:
+            pr = -(-nr // -(-nr // Q))
+            sp = -(-nr // pr)
+        rows.append((first, sp, pr))
+        first += sp
+    return rows
 
 
 def _dtype_name(dtype) -> str:
@@ -186,6 +232,10 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens,
         raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
                          f"seq_lens {tuple(seq_lens.shape)} do not match "
                          f"batch {B}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if block_tables.shape[1] > CUDA_MAX_TABLE_PAGES:
         raise ValueError(f"block table width {block_tables.shape[1]} > "
                          f"{CUDA_MAX_TABLE_PAGES} pages")
@@ -195,10 +245,32 @@ def _check_cuda_args(q, k_cache, v_cache, block_tables, seq_lens,
 
 
 # the C entry of csrc/paged_attention.cu: q, k_cache, v_cache, k_scale,
-# v_scale, block_tables, seq_lens, out, B, H, KVH, D, page, max_pages,
-# scale, dtype, stream -> cudaError_t (null scales: full-width caches)
-C_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+# v_scale, block_tables, seq_lens, out, ws, tickets, B, H, KVH, D, page,
+# max_pages, chunks, min_chunk, scale, dtype, stream -> cudaError_t (null
+# scales: full-width caches)
+C_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# per device: the SM count, and the kernel's scratch — the fp32
+# workspace of the splits' partials (a launch reads back all it writes,
+# so launches in one stream's order share it) and the merge's ticket
+# counters (zeroed once; each launch leaves the ones it used at 0). Not
+# for concurrent launches on several streams.
+_SCRATCH = {}
+
+
+def _scratch(device, B, H, KVH, D, page):
+    """(chunks, min_chunk, ws, tickets) of a launch on `device`."""
+    sms, ws, tickets = _SCRATCH.get(device, (None, None, None))
+    if sms is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks, min_chunk = paged_decode_plan(KVH, page, sms)
+    n_ws = (chunks + B) * H * (D + 2)
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < B * KVH:
+        tickets = torch.zeros(B * KVH, dtype=torch.int32, device=device)
+    _SCRATCH[device] = (sms, ws, tickets)
+    return chunks, min_chunk, ws, tickets
 
 
 def _kernel_lib():
@@ -248,14 +320,17 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
         return out
     fn = _kernel_lib()
     _, KVH, page, _ = k_cache.shape
+    P = block_tables.shape[1]
     with torch.cuda.device(q.device):
+        chunks, min_chunk, ws, tickets = _scratch(q.device, B, H, KVH, D,
+                                                  page)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  k_scale.data_ptr() if quantized else None,
                  v_scale.data_ptr() if quantized else None,
                  block_tables.data_ptr(), seq_lens.data_ptr(),
-                 out.data_ptr(), B, H, KVH, D, page,
-                 block_tables.shape[1], float(sm_scale),
+                 out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+                 B, H, KVH, D, page, P, chunks, min_chunk, float(sm_scale),
                  _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_decode kernel launch failed: "

@@ -85,6 +85,11 @@ def test_kernel_refuses_what_it_does_not_take(card):
         pa.paged_attention_decode(q, kc.bfloat16(), vc.bfloat16(), bt, sl)
     with pytest.raises(ValueError, match="on"):
         pa.paged_attention_decode(q, kc, vc, bt.cpu(), sl)
+    # a cache that does not start on 16 bytes: no bulk copy can read it
+    odd = torch.empty(kc.numel() + 1, device=card)[1:].view(kc.shape)
+    odd.copy_(kc)
+    with pytest.raises(ValueError, match="aligned"):
+        pa.paged_attention_decode(q, odd, vc, bt, sl)
 
 
 def test_engine_on_card_matches_cpu_and_runs_the_kernel(card):
@@ -152,6 +157,60 @@ def test_int8_kernel_matches_plain_version(card, G, D):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol, (dt, err)
         assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("G,D,page,int8", [
+    (4, 128, 16, False), (4, 128, 16, True), (1, 64, 8, False),
+    (8, 256, 32, True), (2, 192, 16, False), (8, 64, 8, True)])
+def test_split_kernel_edges_are_exact_and_deterministic(card, G, D, page,
+                                                         int8):
+    """Lengths at the edges of the kernel's split over a 64-page table,
+    the batch short enough that rows split at the least split of m pages:
+    one token, a seq_len-0 pad row, a length ending mid-page, on the first
+    and second split boundary, one token past the first, the full table,
+    a short row. bf16 within 2e-2 and fp32 within 1e-4 of the plain
+    version, the pad row exact zeros, a second launch bitwise equal, the
+    merge's ticket counters back at 0."""
+    B, KVH, P = 8, 2, 64
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    chunks, m = pa.paged_decode_plan(KVH, page, sms)
+    lens = [1, 0, 3 * page + 5, m * page, 2 * m * page, m * page + 1,
+            P * page, 9]
+    rows = pa.paged_decode_splits(lens, page, P, chunks, m)
+    assert [pr for _, sp, pr in rows if sp > 1] == [m, (m + 2) // 2, m]
+    q, kc, vc, bt, sl = (torch.from_numpy(a).to(card) for a in _paged_case(
+        B=B, KVH=KVH, G=G, D=D, page=page, max_pages=P, seq_lens=lens,
+        seed=G * D + page))
+    extra = {}
+    if int8:
+        (kc, ks), (vc, vs) = pa.quantize_kv(kc), pa.quantize_kv(vc)
+        extra = dict(k_scale=ks, v_scale=vs)
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        k, v = (kc, vc) if int8 else (kc.to(dt), vc.to(dt))
+        got = pa.paged_attention_decode(q.to(dt), k, v, bt, sl, **extra)
+        again = pa.paged_attention_decode(q.to(dt), k, v, bt, sl, **extra)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_decode_ref(q.to(dt), k, v, bt, sl, **extra)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (dt, err)
+        assert torch.equal(got, again)
+        assert torch.all(got[1] == 0)
+    assert not pa._SCRATCH[q.device][2].any()
+
+
+def test_long_context_splits_match_plain_version(card):
+    """One request at 32768 tokens over the widest table (2048 pages),
+    Llama-3-8B's widths: every split live, merged by one block."""
+    lens = [32768 - 3]
+    q, kc, vc, bt, sl = (torch.from_numpy(a).to(card) for a in _paged_case(
+        B=1, KVH=8, G=4, D=128, page=16, max_pages=2048, seq_lens=lens,
+        seed=3))
+    q, kc, vc = q.bfloat16(), kc.bfloat16(), vc.bfloat16()
+    got = pa.paged_attention_decode(q, kc, vc, bt, sl)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_decode_ref(q, kc, vc, bt, sl)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(got, pa.paged_attention_decode(q, kc, vc, bt, sl))
 
 
 # (M, K, N): decode rows at Llama-3-8B's gate and down (the latter split

@@ -9,6 +9,7 @@ dead-position contracts. The CUDA kernel itself runs only on the card:
 tests/test_torch_cuda.py holds it against this plain version there.
 """
 import ctypes
+import math
 import re
 
 import jax.numpy as jnp
@@ -147,6 +148,155 @@ def test_page_bytes_and_alloc_match_reference():
     k, v = pa.alloc_paged_cache(2, 5, 8, 64, dtype=torch.float32,
                                 device="cpu")
     assert k.shape == (5, 2, 8, 64) and not k.any() and not v.any()
+
+
+# ------------------------------------------------- split-KV plan and merge
+def _serve_lens(seed, B=16, page=16, P=72):
+    """Lengths like the serve phase's decode batch (chip_smoke.serve_lens):
+    128 to P pages, the last row a seq_len-0 pad row."""
+    sl = np.random.RandomState(seed).randint(128, P * page + 1, size=B)
+    sl[-1] = 0
+    return sl.tolist()
+
+
+@pytest.mark.parametrize("name,lens,P,want", [
+    # the serve batch: 16 rows of 128-1152 tokens in a 72-page table, a
+    # pad row; 43 splits of at most 19 pages, 1 to 4 a row
+    ("serve", _serve_lens(0), 72, (43, 4, 1, 19)),
+    # one request over the widest table: 48 splits of 43 pages
+    ("b1_32768", [32768], 2048, (48, 48, 48, 43)),
+    # four at Llama-3's 8192-token context
+    ("b4_8192", [8192] * 4, 512, (48, 12, 12, 43)),
+    # a wide batch of short rows: one split each
+    ("b64_128", [128] * 64, 8, (64, 1, 1, 8)),
+])
+def test_paged_decode_plan_table(name, lens, P, want):
+    """At the H100's 132 SMs and Llama-3-8B's 8 KV heads: the grid's
+    chunks and the least split, then the batch's splits per KV head, the
+    most and fewest a row takes and the largest split in pages."""
+    chunks, min_chunk = pa.paged_decode_plan(8, 16, 132)
+    assert (chunks, min_chunk) == (49, 8)
+    rows = pa.paged_decode_splits(lens, 16, P, chunks, min_chunk)
+    total = sum(sp for _, sp, _ in rows)
+    live = [(sp, pr) for (_, sp, pr), n in zip(rows, lens) if n]
+    got = (total, max(sp for sp, _ in live), min(sp for sp, _ in live),
+           max(pr for _, pr in live))
+    assert got == want
+    assert total <= chunks + len(lens)
+
+
+def test_paged_decode_splits_cover_each_row_with_none_empty():
+    """Over seeded batches, the longest row a table allows included: each
+    row's splits cover its pages exactly, none empty (the last may be
+    shorter), at most SPLIT_MAX of them, each at least half of min_chunk
+    pages when the row has more than one (a row of n >= Q pages splits
+    into ceil(n / Q) of ceil(n / ceil(n / Q)) >= Q / 2 pages, Q >=
+    min_chunk); the rows' splits follow one another
+    and fit the grid's chunks + B rows; an empty row takes one split."""
+    rng = np.random.RandomState(0)
+    for _ in range(1000):
+        B, KVH = int(rng.randint(1, 65)), int(rng.choice([1, 2, 4, 8]))
+        page = 8 * int(rng.randint(1, 17))
+        P = int(rng.randint(1, pa.CUDA_MAX_TABLE_PAGES + 1))
+        sms = int(rng.choice([1, 16, 78, 114, 132]))
+        lens = rng.randint(0, P * page + 1, size=B)
+        lens[rng.randint(B)] = P * page            # the longest possible
+        if B > 1:
+            lens[rng.randint(B)] = 0
+        chunks, min_chunk = pa.paged_decode_plan(KVH, page, sms)
+        rows = pa.paged_decode_splits(lens, page, P, chunks, min_chunk)
+        first = 0
+        for (at, sp, pr), n_tok in zip(rows, lens):
+            n = -(-int(n_tok) // page)
+            assert at == first
+            first += sp
+            assert 1 <= sp <= pa.SPLIT_MAX
+            if n == 0:
+                assert sp == 1
+                continue
+            assert pr * (sp - 1) < n <= pr * sp
+            assert sp == 1 or 2 * pr >= min_chunk
+        assert first <= chunks + B
+
+
+def _split_merge_model(q, kc, vc, bt, sl, rows, scale, tile=64):
+    """The CUDA kernel's split-KV arithmetic (bf16 queries' path) in plain
+    PyTorch, fp32, in its order: per (row, KV head) the row's splits
+    (`rows`, from paged_decode_splits), each split's stages of `tile`
+    tokens shared by 4 warps of 16 tokens, each warp an online softmax in
+    the log2 domain; the warps merged with weights 2^(m - max), one split
+    normalised alone, several merged in split order the same way; an
+    empty row gives zeros."""
+    B, H, D = q.shape
+    _, KVH, page, _ = kc.shape
+    G, P = H // KVH, bt.shape[1]
+    out = torch.zeros(B, H, D)
+
+    def merge(parts):
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        a, lsum = torch.zeros(G, D), torch.zeros(G)
+        for m, l, acc in parts:
+            w = torch.exp2(m - mx)
+            a = a + acc * w[:, None]
+            lsum = lsum + l * w
+        return mx, lsum, a
+
+    for b, (_, sp, pr) in enumerate(rows):
+        n = min(max(int(sl[b]), 0), P * page)
+        n_pages = -(-n // page)
+        if n_pages == 0:
+            continue
+        pos = torch.arange(P * page)
+        slots = bt[b].long()[pos // page] * page + pos % page
+        for h in range(KVH):
+            kk = kc[:, h].reshape(-1, D)[slots]
+            vv = vc[:, h].reshape(-1, D)[slots]
+            qs = q[b, h * G:(h + 1) * G]
+            splits = []
+            for z in range(sp):
+                t0 = z * pr * page
+                t1 = min(n, (z * pr + min(pr, n_pages - z * pr)) * page)
+                warps = []
+                for w in range(4):
+                    m = torch.full((G,), -1e30)
+                    l = torch.zeros(G)
+                    acc = torch.zeros(G, D)
+                    for a in range(t0 + 16 * w, t1, tile):
+                        e = min(a + 16, t1)
+                        sc = (qs @ kk[a:e].T) * (scale * math.log2(math.e))
+                        m_new = torch.maximum(m, sc.amax(dim=1))
+                        p = torch.exp2(sc - m_new[:, None])
+                        alpha = torch.exp2(m - m_new)
+                        l = l * alpha + p.sum(dim=1)
+                        acc = acc * alpha[:, None] + p @ vv[a:e]
+                        m = m_new
+                    warps.append((m, l, acc))
+                splits.append(merge(warps))
+            _, l, acc = merge(splits)
+            out[b, h * G:(h + 1) * G] = acc / l.clamp_min(1e-30)[:, None]
+    return out
+
+
+def test_split_merge_model_matches_reference_kernel():
+    """The kernel's split-and-merge, modelled in PyTorch, against the
+    reference's Pallas kernel (interpret mode), fp32 atol 1e-5, on a
+    batch whose rows split at 8 pages (the least split at page 16): one
+    token, a seq_len-0 pad row, a row ending on a split boundary, one
+    ending mid-page one page past it (two splits of 5 and 4 pages), and
+    the full table (two splits)."""
+    chunks, min_chunk = pa.paged_decode_plan(2, 16, 132)
+    lens = [1, 0, 8 * 16, 8 * 16 + 5, 16 * 16]
+    rows = pa.paged_decode_splits(lens, 16, 16, chunks, min_chunk)
+    assert [(sp, pr) for _, sp, pr in rows] == [(1, 1), (1, 1), (1, 8),
+                                                (2, 5), (2, 8)]
+    args = _paged_case(B=5, KVH=2, G=2, D=64, page=16, max_pages=16,
+                       seq_lens=lens, seed=7)
+    want = np.asarray(ref_pa.paged_attention_decode(
+        *(jnp.asarray(a) for a in args)))
+    q, kc, vc, bt, sl = (torch.from_numpy(a) for a in args)
+    got = _split_merge_model(q, kc, vc, bt, sl, rows, 1.0 / math.sqrt(64))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert np.all(got.numpy()[1] == 0.0)
 
 
 def test_ctypes_signature_matches_the_cuda_source():
