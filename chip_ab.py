@@ -24,12 +24,22 @@ for (all by default):
                 (one request at 32768 tokens over 2048 pages, four at
                 8192), on batches built by this tree's
                 chip_smoke.paged_batch in both trees;
+  lora        — chip_smoke.time_ms of one LoRA projection hook,
+                `apply_lora("gate_proj", x, y)` under `lora_scope` of a
+                `build_context` over chip_smoke.lora_registry's adapters
+                (gate_proj at Llama-3-8B's widths, rank buckets 8 and 16),
+                under torch.inference_mode as the engine runs it: 16
+                decode rows tagged round-robin a1, a2, a3, base, and one
+                512-token prefill chunk of a2, bf16 x and y;
   packed      — chip_smoke.phase_packed_attention: ms per forward +
                 backward of each entry point;
   train       — chip_smoke.phase_train: step ms and MFU;
   serve_quant — chip_smoke.phase_serve, then phase_serve_quant: wall
                 seconds of the prefill-only and mixed steps, decode step
-                ms.
+                ms;
+  serve_lora  — chip_smoke.phase_serve, then phase_serve_lora: decode
+                step ms and tokens/s, and the profiled decode-only step's
+                device ms, launches and LoRA kernels' ms and launches.
 Each child builds its tree's kernels into that tree's build directory; a
 library this tree has already built from the same source text and flags
 (the hash in its file name) is copied there first instead of rebuilt.
@@ -50,7 +60,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "packed", "train", "serve_quant")
+PHASES = ("kernels", "lora", "packed", "train", "serve_quant", "serve_lora")
 QMM_ROWS = (16, 32, 64, 128, 256, 512)
 
 
@@ -141,6 +151,40 @@ def kernel_times(seed: int):
     return res
 
 
+def lora_times(seed: int):
+    """{case: ms} of the LoRA projection hook through entry points both
+    trees have (build_context, lora_scope, apply_lora)."""
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.models.llama import llama_3_8b
+    from paddle_tpu_torch.serving.lora import llama_lora_dims
+    from paddle_tpu_torch.serving.lora.runtime import (apply_lora,
+                                                       build_context,
+                                                       lora_scope)
+    dims = llama_lora_dims(llama_3_8b(), targets=("gate_proj",))
+    H, N = dims["gate_proj"]
+    reg = cs.lora_registry(dims, seed)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    decode = [reg.slot_of(t) if t else 0 for t in cs.LORA_TAGS] * 4
+    res = {}
+    for name, slots, t in (("lora_decode", decode, 1),
+                           ("lora_prefill", [reg.slot_of("a2")], 512)):
+        rows = torch.tensor(slots, dtype=torch.int32, device="cuda")
+        x = torch.randn(len(slots), t, H, generator=gen,
+                        device="cuda").bfloat16()
+        y = torch.randn(len(slots), t, N, generator=gen,
+                        device="cuda").bfloat16()
+        with torch.inference_mode():
+            ctx = build_context(reg.layout, reg.flat_args(), rows)
+            with lora_scope(ctx):
+                res[name] = cs.time_ms(
+                    lambda: apply_lora("gate_proj", x, y), flush)
+        del ctx, x, y
+    return res
+
+
 def child(phases, seed: int) -> int:
     """One run on the tree in the working directory: prints {phase:
     {name: number}} as its last line."""
@@ -164,6 +208,9 @@ def child(phases, seed: int) -> int:
     if "kernels" in phases:
         out["kernels"] = kernel_times(seed)
         free()
+    if "lora" in phases:
+        out["lora"] = lora_times(seed)
+        free()
     if "packed" in phases:
         cs.phase_packed_attention(seed)
         out["packed"] = {name: e["ms_median"] for name, e in
@@ -183,6 +230,23 @@ def child(phases, seed: int) -> int:
         q = line("serve_quant")
         out["serve_quant"] = {k: q[k] for k in (
             "prefill_steps_s", "mixed_steps_s", "decode_step_ms", "serve_s")}
+        free()
+    if "serve_lora" in phases:
+        served = cs.phase_serve(seed)[2]
+        free()
+        cs.phase_serve_lora(served, seed)
+        del served
+        q = line("serve_lora")
+        prof = q["profiled_step"] or {}
+        lora = prof.get("by_kind", {}).get("lora", {})
+        out["serve_lora"] = {
+            "decode_step_ms": q["decode_step_ms"],
+            "decode_tokens_per_s": q["decode_tokens_per_s"],
+            "serve_s": q["serve_s"],
+            "profiled_device_ms": prof.get("device_ms"),
+            "profiled_launches": prof.get("kernel_launches"),
+            "profiled_lora_ms": lora.get("ms", 0.0),
+            "profiled_lora_launches": lora.get("launches", 0)}
         free()
     print(json.dumps(out), flush=True)
     return 0

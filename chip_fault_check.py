@@ -12,7 +12,7 @@ touched), and in a child process on that copy builds the kernels and
 runs the checks the smoke run applies: `chip_smoke.check_flash_kernels`
 for the flash kernels, `chip_smoke.check_quant_kernels` for the int8
 paged-decode and int8 matmul kernels, `chip_smoke.check_lora_kernels` for
-the LoRA shrink/expand pair, `chip_smoke.check_packed_kernels` for the
+the LoRA kernel, `chip_smoke.check_packed_kernels` for the
 flash kernels' segment and flashmask modes, `chip_smoke.check_norm_kernel`
 for rms_norm_rows, `chip_smoke.check_paged_kernels` for the split-KV
 paged-decode kernel (both variants, on seeded batches). The children build their sources together, then run
@@ -53,10 +53,15 @@ Faults:
   * paged_ring_other_stage — the paged-decode consumers (both paths)
     read stage (s + 1) % kStages of the ring (another stage's K, V and
     scales) while still waiting for stage s;
-  * lora_expand_row0_slot — the LoRA expand kernel reads row 0's slot for
-    every row (each row's own partial sums, another adapter's B);
-  * lora_shrink_drop_last_chunk — the LoRA shrink kernel drops the last
-    H chunk of every row (H 4096 loses 512 of its terms);
+  * lora_drop_h_slice — the LoRA kernel's cluster reduction leaves out
+    the last CTA's H slice (H 4096 over 8 CTAs loses 512 of its terms);
+  * lora_row0_slot — the LoRA kernel's grouping gives every row row 0's
+    slot (one group: each row through another adapter's A and B);
+  * lora_drop_bucket1 — the LoRA kernel treats the rows of rank bucket 1
+    as null rows (their delta dropped, y + 0.0 written);
+  * lora_epilogue_unrounded — the LoRA kernel's bf16 epilogue adds the
+    fp32 delta to y without rounding it to bf16 first (y + d rounded
+    once, not y + bf16(d));
   * seg_global_causal — the segment mode applies the global causal mask
     (key j <= query i + Sk - Sq) instead of the per-sequence one (pos_k <=
     pos_q): equal for self-attention over whole documents, wrong once the
@@ -127,8 +132,10 @@ _V_SCALE_MMA = "p[k] * st_vs[tok]"
 _PAGED_MERGE = ("    for (int r = 0; r < live; ++r) {\n"
                 "      const float4 x = __ldcg(")
 _PAGED_STAGE = "    const uint8_t* st = smem + s * C::kStageBytes;\n"
-_EXPAND_SLOT = "  const int slot = ids[b];\n"
-_SHRINK_END = "  const int h1 = min(H, h0 + hchunk);\n"
+_LORA_CLUSTER_SUM = "        if (c < C) s += v[c];\n"
+_LORA_KEY = "key_of(p, p.slots[i])"
+_LORA_NULL = "  const bool live = key < p.nkeys - 1;\n"
+_LORA_EPILOGUE = "yv[c] + __bfloat162float(__float2bfloat16_rn(d[c])));"
 # name: ([(source, [(text, replacement, count)]), ...], check)
 FAULTS = {
     "skip_tile": ([("flash_attention.cu",
@@ -192,14 +199,21 @@ FAULTS = {
         [("paged_attention.cu",
           [(_PAGED_STAGE, _PAGED_STAGE.replace(
               "s * C", "(s + 1) % C::kStages * C"), 2)])], "paged"),
-    "lora_expand_row0_slot": ([("lora_matmul.cu",
-                                [(_EXPAND_SLOT,
-                                  "  const int slot = ids[0];\n", 1)])],
-                              "lora"),
-    "lora_shrink_drop_last_chunk": (
+    "lora_drop_h_slice": (
         [("lora_matmul.cu",
-          [(_SHRINK_END, "  const int h1 = c == chunks - 1 ? h0 "
-            ": min(H, h0 + hchunk);\n", 1)])], "lora"),
+          [(_LORA_CLUSTER_SUM, _LORA_CLUSTER_SUM.replace("c < C", "c + 1 < C"),
+            1)])], "lora"),
+    "lora_row0_slot": ([("lora_matmul.cu",
+                         [(_LORA_KEY, "key_of(p, p.slots[0])", 2)])], "lora"),
+    "lora_drop_bucket1": (
+        [("lora_matmul.cu",
+          [(_LORA_NULL, _LORA_NULL.replace(
+              "key < p.nkeys - 1",
+              "key < p.nkeys - 1 && !(p.nb > 1 && key >= p.bk[1].key0)"),
+            1)])], "lora"),
+    "lora_epilogue_unrounded": (
+        [("lora_matmul.cu",
+          [(_LORA_EPILOGUE, "yv[c] + d[c]);", 1)])], "lora"),
     "seg_global_causal": ([("flash_attention.cu",
                             [(_SEG_CAUSAL, "(causal && col > row + off)", 2),
                              (_SEG_CAUSAL_DKV, "(causal && key > qi + off)",
@@ -302,10 +316,18 @@ def must_fail(name: str):
     if name == "qmm_sm90_next_stage":
         return [("quant", "quant_matmul", f"{s}_bfloat16")
                 for s, (M, K, N) in qmm_shapes().items() if M > 16]
-    if name == "lora_shrink_drop_last_chunk":
-        return [("lora", "lora_matmul", f"{c}_bfloat16")
-                for c in ("decode_r8", "decode_r16", "prefill_r16",
-                          "ragged_r5")]
+    if name in ("lora_drop_h_slice", "lora_drop_bucket1"):
+        return [("lora", "lora_apply", f"{c}_bfloat16")
+                for c in ("decode", "prefill", "rows512", "ragged")]
+    if name == "lora_row0_slot":
+        # the prefill chunk is one entry: its rows are row 0's already
+        return [("lora", "lora_apply", f"{c}_bfloat16")
+                for c in ("decode", "rows512", "ragged")]
+    if name == "lora_epilogue_unrounded":
+        # one rounding or two differ where y + d lies near a bf16 rounding
+        # boundary: hundreds of elements at the full-width cases
+        return [("lora", "lora_apply", f"{c}_bfloat16")
+                for c in ("decode", "prefill", "rows512")]
     if name == "seg_global_causal":
         # the full-width documents are self-attention over whole sequences,
         # where the two masks coincide; the ragged case's do not
@@ -328,11 +350,18 @@ def must_fail(name: str):
                 for k in ("paged_attention_decode",
                           "paged_attention_decode_int8")
                 for c in ("serve", "b1_32768", "b4_8192")]
-    if name == "lora_expand_row0_slot":
-        # a prefill chunk's rows share one slot, and the synthetic rank-8
-        # bucket holds one adapter: there row 0's slot is every row's
-        return [("lora", "lora_matmul", f"{c}_bfloat16")
-                for c in ("decode_r16", "ragged_r5")]
+    if name in ("lora_drop_h_slice", "lora_drop_bucket1"):
+        return [("lora", "lora_apply", f"{c}_bfloat16")
+                for c in ("decode", "prefill", "rows512", "ragged")]
+    if name == "lora_row0_slot":
+        # the prefill chunk is one entry: its rows are row 0's already
+        return [("lora", "lora_apply", f"{c}_bfloat16")
+                for c in ("decode", "rows512", "ragged")]
+    if name == "lora_epilogue_unrounded":
+        # one rounding or two differ where y + d lies near a bf16 rounding
+        # boundary: hundreds of elements at the full-width cases
+        return [("lora", "lora_apply", f"{c}_bfloat16")
+                for c in ("decode", "prefill", "rows512")]
     return [("quant", "paged_attention_decode_int8", "bfloat16")]
 
 

@@ -11,7 +11,8 @@ Phases, one JSON line each:
   2. build   — compiles every CUDA kernel of the serving, training and
                packed-attention paths and rms_norm_rows from the
                repository's sources (one nvcc per source, in parallel);
-               reports each source's ptxas registers and spills.
+               reports each source's ptxas registers and spills, naming
+               the functions that spill.
   3. serve   — builds Llama-3-8B (`llama_3_8b`, all 32 layers, bf16)
                from seeded random weights on the card and serves 16
                greedy requests (prompts of 128-1024 tokens, 32-64 new
@@ -26,9 +27,10 @@ Phases, one JSON line each:
                all 7 target modules) holding a1 (rank 8), a2 (rank 16)
                and a3 (rank 16, int8 payload), seeded; the same 16
                requests on the same schedule, tagged round-robin a1, a2,
-               a3, base. Checks as in phase 3, plus the LoRA shrink and
-               expand kernels once each per (module x layer x rank
-               bucket) per launch, decode launches that mix adapters
+               a3, base. Checks as in phase 3, plus the LoRA kernel
+               (lora_apply: every rank bucket and the y + delta
+               epilogue) once per (module x layer) per launch, decode
+               launches that mix adapters
                (adapter_mix p50 > 1), every adapter's refs back to 0 and
                the registry's invariants. Reports decode tokens/s and
                step walls beside phase 3's, and whether the base rows'
@@ -131,15 +133,23 @@ Phases, one JSON line each:
                  quantized kernels fail these checks); timed in bf16 as
                  two rows: the decode route at M 16 and the wgmma route
                  at M 512 and at each prefill bucket serve_quant launched;
-               * LoRA shrink + expand: layer 0's gate_proj input, row
-                 slots and gathered stacks of a live serve_lora decode
-                 launch (both rank buckets), a 512-row prefill chunk
-                 and a ragged shape (H 1100, N 72, R 5), bf16 and fp32
-                 x, within 1e-5 of max |ref| (fp32 products either way),
-                 null rows exact zeros, each row bitwise unchanged when
-                 the other rows' ids change (`check_lora_kernels`;
-                 chip_fault_check.py plants two faults); timed beside
-                 the plain version and the gathered bmm composition;
+               * LoRA (lora_apply): layer 0's gate_proj input and
+                 output, row slots and both rank buckets' gathered
+                 stacks of a live serve_lora decode launch, a 512-token
+                 prefill chunk of one request, its rows as 512 decode
+                 rows over every slot, and a ragged shape (H 1100, N 72,
+                 ranks 5 and 3), bf16 and fp32 x: the delta-only output
+                 within 1e-5 of max |ref| (fp32 products either way),
+                 the fused output (bf16 and fp32 y) bitwise y +
+                 delta.to(y.dtype) of the kernel's own delta, null rows
+                 exactly y + 0.0, each row bitwise unchanged when the
+                 other rows' slots change, a repeat launch bitwise
+                 equal (`check_lora_kernels`; chip_fault_check.py plants
+                 four faults); timed at the decode capture and the
+                 prefill chunk beside the plain version, the library
+                 composition (gathered bmm per bucket, the fp32 sum,
+                 the cast and the add) and the bound, and over cluster
+                 sizes x column clusters;
                * the flash kernels' segment and flashmask modes: the
                  packed row at full width as segments, as the causal
                  document mask and as the window (plain versions over
@@ -197,9 +207,7 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/quant_matmul.py:162"),
            ("quant_matmul_prefill", _CSRC + "quant_matmul_sm90.cu",
             "paddle_tpu/kernels/quant_matmul.py:162"),
-           ("lora_shrink", _CSRC + "lora_matmul.cu",
-            "paddle_tpu/kernels/lora_matmul.py:176"),
-           ("lora_expand", _CSRC + "lora_matmul.cu",
+           ("lora_apply", _CSRC + "lora_matmul.cu",
             "paddle_tpu/kernels/lora_matmul.py:176"),
            ("flash_attention_varlen_fwd", _CSRC + "flash_attention.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
@@ -254,6 +262,14 @@ DESIGN = {
                             "warpgroups of 64 columns + 1 producer",
     "quant_matmul": "mma.sync m16n8k16 decode tile (16 rows x 128 columns, "
                     "K splits), quant_matmul.cu",
+    "lora_apply": "one launch per projection: rows grouped by (bucket, "
+                  "slot) on the card into units of up to 64 rows; a "
+                  "thread-block cluster of C CTAs splits H (a ring of x "
+                  "and A by bulk copies, cp.async where unaligned; fp32 "
+                  "FMAs), the partials summed in CTA order over "
+                  "distributed shared memory, each CTA expanding its "
+                  "slice of N from B and y staged in shared memory "
+                  "where they fit, writing y + delta",
 }
 # the train phase: Llama-3-8B widths, depth cut to fit one card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
@@ -331,7 +347,7 @@ def kernel_kind(name: str) -> str:
         return "paged_decode"
     if any(k in n for k in ("quant_matmul", "qmm_sm90", "reduce_splits")):
         return "quant_matmul"
-    if "lora_shrink" in n or "lora_expand" in n:
+    if "lora_apply" in n:
         return "lora"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
@@ -632,25 +648,24 @@ def lora_registry(dims, seed: int):
     return reg
 
 
-def _lora_capture(ctx, x):
-    """A launch's gate_proj input (rows, H), its row slots, and per rank
-    bucket the local slot ids and the gathered (A, Bs) stacks."""
-    return {"x": x.reshape(x.shape[0], -1).clone(),
-            "slots": ctx.row_slots.clone(),
-            "buckets": {r: (ctx._local_ids(bi, 1).clone(),)
-                        + ctx.stacks[r]["gate_proj"]
-                        for bi, r in enumerate(ctx.layout.rank_buckets)}}
+def _lora_capture(ctx, x, y, module="gate_proj"):
+    """A launch's projection input (rows, H) and output (rows, N) (before
+    the LoRA kernel adds to it), its row slots and the module's rank
+    buckets (`LoRABuckets`: every bucket's stacks and first slot)."""
+    return {"x": x.reshape(-1, x.shape[-1]).clone(),
+            "y": y.reshape(-1, y.shape[-1]).clone(),
+            "slots": ctx.row_slots.clone(), "buckets": ctx.buckets(module)}
 
 
 def phase_serve_lora(served, seed: int):
     """Multi-LoRA serving on the serve phase's bf16 model (all 32 layers):
     a registry of the three adapters (all seven target modules), the same
     16 requests on the same schedule tagged round-robin a1, a2, a3, base.
-    Layer 0's gate_proj input of the decode launch with the most adapter
-    rows among those mixing all three adapters is captured for the
-    kernel check."""
+    Layer 0's gate_proj input and output of the decode launch with the
+    most adapter rows among those mixing all three adapters are captured
+    for the kernel check."""
     import torch
-    from paddle_tpu_torch.kernels.lora_matmul import lora_expand, lora_shrink
+    from paddle_tpu_torch.kernels.lora_matmul import lora_apply
     from paddle_tpu_torch.kernels.paged_attention import \
         paged_attention_decode
     from paddle_tpu_torch.serving import ServingEngine
@@ -668,9 +683,9 @@ def phase_serve_lora(served, seed: int):
             for i in range(len(served["prompts"]))]
 
     cap, best = {}, [0]
-    delta = runtime.LoRAContext.delta
+    apply = runtime.LoRAContext.apply
 
-    def recording(ctx, module, x):
+    def recording(ctx, module, x, y):
         # the first gate_proj call of a decode launch is layer 0's; keep
         # the launch with the most adapter rows that mixes all three
         # adapters (counted on the host: no device sync)
@@ -682,27 +697,24 @@ def phase_serve_lora(served, seed: int):
             if len(set(tagged)) == len(LORA_ADAPTERS) and \
                     len(tagged) > best[0]:
                 best[0] = len(tagged)
-                cap.update(_lora_capture(ctx, x))
-        return delta(ctx, module, x)
+                cap.update(_lora_capture(ctx, x, y))
+        return apply(ctx, module, x, y)
 
     torch.cuda.reset_peak_memory_stats()
-    runtime.LoRAContext.delta = recording
+    runtime.LoRAContext.apply = recording
     try:
         paged_attention_decode.launches = 0      # the main path starts
-        lora_shrink.launches = lora_expand.launches = 0
+        lora_apply.launches = 0
         fields, _, outs = serve_requests(eng, served["prompts"], tags)
         launches = {"paged_attention_decode": paged_attention_decode.launches,
-                    "lora_shrink": lora_shrink.launches,
-                    "lora_expand": lora_expand.launches}  # the path ended
+                    "lora_apply": lora_apply.launches}  # the path ended
     finally:
-        runtime.LoRAContext.delta = delta
-    per_launch = len(reg.layout.dims) * cfg.num_hidden_layers \
-        * len(LORA_BUCKETS)
+        runtime.LoRAContext.apply = apply
+    per_launch = len(reg.layout.dims) * cfg.num_hidden_layers
     launched = fields["decode_launches"] + fields["prefill_launches"]
     want = {"paged_attention_decode":
             fields["decode_launches"] * cfg.num_hidden_layers,
-            "lora_shrink": launched * per_launch,
-            "lora_expand": launched * per_launch}
+            "lora_apply": launched * per_launch}
     if launches != want or not all(launches.values()):
         raise AssertionError(f"serve_lora launches {launches} != {want}")
     peak = torch.cuda.max_memory_allocated()
@@ -731,7 +743,7 @@ def phase_serve_lora(served, seed: int):
           "targets": list(reg.layout.dims), "load_s": load_s,
           "pool_bytes": (reg.pool.numel() * 4 + reg.quant_pool.numel()),
           "tags": tags, **fields, "kernel_launches": launches,
-          "lora_pairs_per_launch": per_launch,
+          "lora_launches_per_engine_launch": per_launch,
           "adapter_mix_p50": snap["adapter_mix_p50"],
           "adapter_mix_p90": snap["adapter_mix_p90"],
           "adapter_refs_after_drain": refs,
@@ -750,7 +762,8 @@ def phase_serve_lora(served, seed: int):
 def synthetic_lora_decode(seed: int):
     """A serve_lora-like decode capture without an engine: the registry
     of phase serve_lora for gate_proj alone at Llama-3-8B's widths, 16
-    rows tagged round-robin a1, a2, a3, base, and a seeded bf16 input."""
+    rows tagged round-robin a1, a2, a3, base, a seeded bf16 input and
+    output."""
     import torch
     from paddle_tpu_torch.models.llama import llama_3_8b
     from paddle_tpu_torch.serving.lora import llama_lora_dims
@@ -761,188 +774,229 @@ def synthetic_lora_decode(seed: int):
     ctx = build_context(reg.layout, reg.flat_args(),
                         torch.tensor(slots, dtype=torch.int32, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
-    x = torch.randn(len(slots), 1, dims["gate_proj"][0], generator=gen,
-                    device="cuda").bfloat16()
-    return _lora_capture(ctx, x)
+    H, N = dims["gate_proj"]
+    x = torch.randn(len(slots), 1, H, generator=gen, device="cuda").bfloat16()
+    y = torch.randn(len(slots), 1, N, generator=gen, device="cuda").bfloat16()
+    return _lora_capture(ctx, x, y)
 
 
 def lora_cases(seed: int, decode):
-    """{case: (x fp32, ids, A, Bs)} of the LoRA checks: each rank bucket
-    of the decode capture, a prefill chunk of 512 rows (every row the
-    same slot, as one request's chunk) over the capture's rank-16 gate
-    stacks, and a ragged shape (H 1100 and N 72, not multiples of 32,
-    R 5, with a slot-0 row and an id naming no slot)."""
+    """{case: (x fp32, y, row slots, LoRABuckets)} of the LoRA checks: the
+    decode capture (both rank buckets); a prefill chunk of 512 tokens of
+    one request (one entry) at the capture's rank-16 adapter; its 512
+    rows as decode rows over every slot; and a ragged shape (H 1100 and N
+    72, not multiples of 8, ranks 5 and 3, with slot-0 rows and ids
+    naming no slot)."""
     import numpy as np
     import torch
-    cases = {f"decode_r{r}": (decode["x"].float(), ids, a, b)
-             for r, (ids, a, b) in sorted(decode["buckets"].items())}
-    ids16, a16, b16 = decode["buckets"][16]
-    live = ids16[ids16 > 0]
-    slot = int(live[0]) if live.numel() else 1
+    from paddle_tpu_torch.kernels.lora_matmul import LoRABuckets
+    bk = decode["buckets"]
+    cases = {"decode": (decode["x"].float(), decode["y"], decode["slots"],
+                        bk)}
+    first16 = bk.firsts[bk.ranks.index(16)]
+    slots = [int(s) for s in decode["slots"].tolist()
+             if first16 < s < first16 + bk.slots[bk.ranks.index(16)]]
+    slot = slots[0] if slots else first16 + 1
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
-    cases["prefill_r16"] = (
-        torch.randn(512, a16.shape[1], generator=gen, device="cuda"),
-        torch.full((512,), slot, dtype=torch.int32, device="cuda"),
-        a16, b16)
+    x = torch.randn(512, bk.H, generator=gen, device="cuda")
+    y = torch.randn(512, bk.N, generator=gen, device="cuda").bfloat16()
+    cases["prefill"] = (x, y, torch.tensor([slot], dtype=torch.int32,
+                                           device="cuda"), bk)
+    top = bk.firsts[-1] + bk.slots[-1]
+    cases["rows512"] = (x, y, torch.arange(-1, 511, dtype=torch.int32,
+                                           device="cuda") % (top + 1), bk)
     rng = np.random.RandomState(seed + 9)
-    S, H, R, N, rows = 3, 1100, 5, 72, 37
-    a = rng.randn(S, H, R).astype(np.float32) * 0.02
-    b = rng.randn(S, R, N).astype(np.float32) * 0.02
-    a[0] = b[0] = 0.0
-    ids = rng.randint(1, S, rows).astype(np.int32)
-    ids[:4] = [1, 2, 0, S]
-    cases["ragged_r5"] = (
+    S, H, N, rows = 3, 1100, 72, 37
+    stacks = []
+    for bi, R in enumerate((5, 3)):
+        a = rng.randn(S, H, R).astype(np.float32) * 0.02
+        b = rng.randn(S, R, N).astype(np.float32) * 0.02
+        a[0] = b[0] = 0.0
+        stacks.append((torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+                       bi * S))
+    ids = rng.randint(1, 2 * S, rows).astype(np.int32)
+    ids[:5] = [1, 4, 0, 3, 2 * S]
+    cases["ragged"] = (
         torch.from_numpy(rng.randn(rows, H).astype(np.float32)).cuda(),
-        torch.from_numpy(ids).cuda(), torch.from_numpy(a).cuda(),
-        torch.from_numpy(b).cuda())
+        torch.from_numpy(rng.randn(rows, N).astype(np.float32)).cuda()
+        .bfloat16(), torch.from_numpy(ids).cuda(), LoRABuckets(stacks))
     return cases
 
 
-def check_lora_kernels(seed: int, decode=None):
-    """The LoRA pair (lora_shrink then lora_expand, through `lora_matmul`)
-    on `lora_cases` (over `decode`, a captured serve_lora launch, or a
-    synthetic one) with bf16 and fp32 x against `lora_matmul_ref`: max
-    abs error within 1e-5 of max |ref| (the products are fp32 either way;
-    only the summation order differs), rows of slot 0 or of no slot exact
-    zeros, and each row's delta bitwise unchanged when every other row's
-    id changes. Returns (errors, failures, cases): errors["lora_matmul"]
-    [case] = {"err", "limit", ...}; failures lists the ("lora_matmul",
-    case) that missed. Launches here are not counted as the main
-    path's."""
+def _lora_null_rows(slots, rows, bk):
+    """Rows whose slot is a bucket's slot 0 or in no bucket."""
     import torch
-    from paddle_tpu_torch.kernels.lora_matmul import (lora_matmul,
-                                                      lora_matmul_ref)
+    live = torch.zeros_like(slots, dtype=torch.bool)
+    for first, S in zip(bk.firsts, bk.slots):
+        live |= (slots > first) & (slots < first + S)
+    return (~live).repeat_interleave(rows // slots.shape[0])
+
+
+def check_lora_kernels(seed: int, decode=None):
+    """The LoRA kernel (`lora_apply`) on `lora_cases` (over `decode`, a
+    captured serve_lora launch, or a synthetic one) with bf16 and fp32 x
+    against its plain version `lora_apply_ref`: the delta-only output
+    within 1e-5 of max |ref| (the products are fp32 either way; only the
+    summation order differs); the fused output, with y in bf16 and in
+    fp32, bitwise y + delta.to(y.dtype) of the kernel's own delta; null
+    rows (slot 0 of a bucket, or no bucket) exactly y + 0.0 and delta 0;
+    each row's delta and output bitwise unchanged when every other row's
+    slot changes; a repeat launch bitwise equal. Returns (errors,
+    failures, cases): errors["lora_apply"][case] = {"err", "limit",
+    ...}; failures lists the ("lora_apply", case) that missed. Launches
+    here are not counted as the main path's."""
+    import torch
+    from paddle_tpu_torch.kernels.lora_matmul import (lora_apply,
+                                                      lora_apply_ref)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     if decode is None:
         decode = synthetic_lora_decode(seed)
     cases = lora_cases(seed, decode)
     errs, failures = {}, []
-    for name, (x, ids, a, b) in cases.items():
-        S = a.shape[0]
-        null = (ids <= 0) | (ids >= S)
+    for name, (x, y, slots, bk) in cases.items():
+        null = _lora_null_rows(slots, x.shape[0], bk)
         for dt in (torch.bfloat16, torch.float32):
             xx = x.to(dt)
-            got = lora_matmul(xx, ids, a, b)
+            got = lora_apply(xx, None, slots, bk)
             torch.cuda.synchronize()
-            want = lora_matmul_ref(xx, ids, a, b)
+            want = lora_apply_ref(xx, None, slots, bk)
             case = f"{name}_{str(dt).replace('torch.', '')}"
             err = _max_err(got, want)
             lim = 1e-5 * want.abs().max().item()
-            # every other row's id changed; a real row keeps its bits
-            r0 = int((~null).nonzero()[0, 0])
-            ids2 = torch.where(torch.arange(len(ids), device=ids.device)
-                               == r0, ids, (ids + 1) % S)
-            again = lora_matmul(xx, ids2, a, b)
-            indep = bool(torch.equal(got[r0], again[r0]))
-            errs[case] = {"err": err, "limit": lim,
-                          "null_rows_zero": bool(torch.all(got[null] == 0)),
-                          "row_independent": indep}
-            if not (err <= lim and torch.isfinite(got).all()
-                    and errs[case]["null_rows_zero"] and indep):
-                failures.append(("lora_matmul", case))
-    return {"lora_matmul": errs}, failures, cases
+            fused = {}
+            for ydt in (torch.bfloat16, torch.float32):
+                yy = y.to(ydt)
+                out = lora_apply(xx, yy, slots, bk)
+                fused[ydt] = (torch.equal(out, yy + got.to(ydt)),
+                              torch.equal(out[null], yy[null] + 0.0))
+            yb = y.to(torch.bfloat16)
+            out = lora_apply(xx, yb, slots, bk)
+            repeat = torch.equal(lora_apply(xx, yb, slots, bk), out) and \
+                torch.equal(lora_apply(xx, None, slots, bk), got)
+            indep = True
+            if slots.shape[0] > 1:
+                # every other row's slot changed; row r0 keeps its bits
+                top = bk.firsts[-1] + bk.slots[-1]
+                r0 = int((~null).nonzero()[0, 0])
+                ar = torch.arange(slots.shape[0], device=slots.device)
+                slots2 = torch.where(ar == r0, slots, (slots + 1) % (top + 1))
+                indep = torch.equal(lora_apply(xx, None, slots2, bk)[r0],
+                                    got[r0]) and \
+                    torch.equal(lora_apply(xx, yb, slots2, bk)[r0], out[r0])
+            errs[case] = {
+                "err": err, "limit": lim,
+                "fused_bitwise_bf16_y": fused[torch.bfloat16][0],
+                "fused_bitwise_fp32_y": fused[torch.float32][0],
+                "null_rows_y_plus_zero": fused[torch.bfloat16][1]
+                and fused[torch.float32][1],
+                "null_rows_delta_zero": bool(torch.all(got[null] == 0)),
+                "row_independent": indep, "repeat_bitwise": repeat}
+            ok = all(v for k, v in errs[case].items()
+                     if k not in ("err", "limit"))
+            if not (err <= lim and torch.isfinite(got).all() and ok):
+                failures.append(("lora_apply", case))
+    return {"lora_apply": errs}, failures, cases
+
+
+def _lora_library(x, y, slots, bk):
+    """The library composition, never called by the port: per rank bucket
+    the gathered slot stacks (A[ids], Bs[ids]) through two torch.bmm, the
+    buckets summed in fp32, cast to y's dtype and added. Returns the
+    closure timed (index tensors built beforehand)."""
+    import torch
+    t = x.shape[0] // slots.shape[0]
+    g = slots.repeat_interleave(t).long()
+    idx = [torch.where((g >= f) & (g < f + S), g - f, 0)
+           for f, S in zip(bk.firsts, bk.slots)]
+
+    def run():
+        xf = x.float()[:, None]
+        total = None
+        for (a, b, _), i in zip(bk.stacks, idx):
+            d = torch.bmm(torch.bmm(xf, a[i]), b[i])[:, 0]
+            total = d if total is None else total + d
+        return y + total.to(y.dtype)
+    return run
+
+
+def lora_work(x, slots, bk, y_bytes: int):
+    """(bytes each read once / written once, fp32 FMA flops) of one
+    lora_apply: x of the live rows, A and B of every slot used, y read
+    and out written; the products of the live rows."""
+    rows, H = x.shape
+    t = rows // slots.shape[0]
+    nbytes = 2 * rows * bk.N * y_bytes
+    flops = 0
+    for (a, _, first), S, R in zip(bk.stacks, bk.slots, bk.ranks):
+        in_b = (slots > first) & (slots < first + S)
+        live = int(in_b.sum()) * t
+        used = len(set(slots[in_b].tolist()))
+        nbytes += live * H * x.element_size() + used * R * (H + bk.N) * 4
+        flops += 2 * live * R * (H + bk.N)
+    return nbytes, flops
 
 
 def phase_lora_kernels(decode, launches, seed: int, card: str):
-    """The LoRA kernels on the serve_lora capture (and a prefill chunk and
-    a ragged shape) against their plain versions, then each timed at the
-    main path's decode shape beside the plain version, the gathered bmm
-    composition and the bound; the prefill chunk's times ride along."""
+    """The LoRA kernel on the serve_lora capture (and the prefill chunk,
+    its rows as decode rows, and a ragged shape) against its plain
+    version, then timed at the main path's decode capture and at the
+    prefill chunk beside the plain version, the library composition and
+    the bound."""
     import torch
-    from paddle_tpu_torch.kernels.lora_matmul import (
-        lora_chunks, lora_expand, lora_expand_ref, lora_matmul_ref,
-        lora_shrink, lora_shrink_ref)
+    from paddle_tpu_torch.kernels.lora_matmul import (lora_apply,
+                                                      lora_apply_plan,
+                                                      lora_apply_ref)
 
     errs, failures, cases = check_lora_kernels(seed, decode)
     emit({"phase": "kernel_check", "kernel": "lora", "errors": errs,
           "decode_row_slots": decode["slots"].tolist()})
     if failures:
-        raise AssertionError(f"LoRA kernels disagree with their plain "
-                             f"versions: {failures}")
+        raise AssertionError(f"the LoRA kernel disagrees with its plain "
+                             f"version: {failures}")
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     fl = flush_buf.zero_
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_case = {}
-    for name in ("decode_r16", "prefill_r16"):
-        x, ids, a, b = cases[name]
-        xb = x.bfloat16()
+    for name in ("decode", "prefill"):
+        x, y, slots, bk = cases[name]
+        xb, yb = x.bfloat16(), y.bfloat16()
         rows, H = xb.shape
-        S, _, R = a.shape
-        N = b.shape[2]
-        part = lora_shrink(xb, ids, a)
-        idx = ids.long()
-        # library yardstick, never called by the port: the gathered
-        # composition, A[ids] and Bs[ids] then two batched GEMMs
-        xa = torch.bmm(xb.float()[:, None], a[idx])
-        ms = {"shrink": time_ms(lambda: lora_shrink(xb, ids, a), fl),
-              "expand": time_ms(lambda: lora_expand(part, ids, b), fl)}
-        plain = {"shrink": time_ms(lambda: lora_shrink_ref(xb, ids, a), fl,
-                                   reps=10, warmup=2),
-                 "expand": time_ms(lambda: lora_expand_ref(part, ids, b), fl,
-                                   reps=10, warmup=2)}
-        lib = {"shrink": time_ms(lambda: torch.bmm(xb.float()[:, None],
-                                                   a[idx]), fl),
-               "expand": time_ms(lambda: torch.bmm(xa, b[idx]), fl)}
-        pair_ms = time_ms(lambda: lora_expand(lora_shrink(xb, ids, a),
-                                              ids, b), fl)
-        pair_plain = time_ms(lambda: lora_matmul_ref(xb, ids, a, b), fl,
-                             reps=10, warmup=2)
-        pair_lib = time_ms(lambda: torch.bmm(
-            torch.bmm(xb.float()[:, None], a[idx]), b[idx]), fl)
-        del xa
-        valid = (ids > 0) & (ids < S)
-        live = int(valid.sum())
-        used = len(set(ids[valid].tolist()))
-        chunks = lora_chunks(H)
-        # (bytes each read once / written once, fp32 FMA flops); x is read
-        # only for the live rows, the dead rows get their zeros unread
-        work = {
-            "shrink": (live * H * 2 + used * H * R * 4
-                       + rows * chunks * R * 4, 2 * live * H * R),
-            "expand": (live * chunks * R * 4 + used * R * N * 4
-                       + rows * N * 4, 2 * live * R * N),
-            "pair": (live * H * 2 + used * (H * R + R * N) * 4
-                     + rows * N * 4, 2 * live * (H * R + R * N))}
-        bound = {}
-        for k, (nb, fl_ops) in work.items():
-            b_ms = nb / HBM_BYTES_PER_S * 1e3
-            o_ms = fl_ops / PEAK_FLOPS["float32"] * 1e3
-            bound[k] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms
-                        else "operations")
+        yw = yb.clone()                  # the main path writes into y
+        nbytes, flops = lora_work(xb, slots, bk, 2)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = flops / PEAK_FLOPS["float32"] * 1e3
         per_case[name] = {
-            "rows": rows, "H": H, "R": R, "N": N, "slots": S,
-            "live_rows": live, "used_slots": used,
-            "ms": {**ms, "pair": pair_ms},
-            "plain_ms": {**plain, "pair": pair_plain},
-            "library_ms": {**lib, "pair": pair_lib},
-            "bound_ms": {k: v[0] for k, v in bound.items()},
-            "bound_by": {k: v[1] for k, v in bound.items()},
-            "bytes": {k: v[0] for k, v in work.items()},
-            "flops": {k: v[1] for k, v in work.items()}}
-    head = per_case["decode_r16"]
-    e = errs["lora_matmul"]
-    rows_out = []
-    for kern in ("shrink", "expand"):
-        name, source, replaces = KERNEL[f"lora_{kern}"]
-        rows_out.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": e["decode_r16_bfloat16"]["err"],
-            "max_abs_err_fp32": e["decode_r16_float32"]["err"],
-            "err_of": "the pair lora_shrink + lora_expand vs "
-                      "lora_matmul_ref",
-            "ms": head["ms"][kern], "kernel_ms": head["ms"][kern],
-            "plain_ms": head["plain_ms"][kern],
-            "bound_ms": head["bound_ms"][kern],
-            "bound_by": head["bound_by"][kern],
-            "library_ms": head["library_ms"][kern],
-            "library": "torch.bmm over the gathered slot stacks "
-                       "(A[ids] / Bs[ids]), gather included",
-            "shape": {"rows": head["rows"], "H": head["H"], "R": head["R"],
-                      "N": head["N"], "slots": head["slots"],
-                      "x": "bfloat16", "row_is": "decode_r16 (gate_proj)"},
-            "shapes": per_case, "bytes": head["bytes"][kern],
-            "flops": head["flops"][kern], "card": card})
-    return rows_out
+            "rows": rows, "entries": slots.shape[0], "H": H, "N": bk.N,
+            "ranks": list(bk.ranks), "slots": list(bk.slots),
+            "plan": list(lora_apply_plan(rows, slots.shape[0], H, bk.N,
+                                         bk.ranks, bk.slots, sms)),
+            "ms": time_ms(lambda: lora_apply(xb, yw, slots, bk, out=yw), fl),
+            "plain_ms": time_ms(lambda: lora_apply_ref(xb, yb, slots, bk),
+                                fl, reps=10, warmup=2),
+            "library_ms": time_ms(_lora_library(xb, yb, slots, bk), fl),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+    head = per_case["decode"]
+    e = errs["lora_apply"]
+    name, source, replaces = KERNEL["lora_apply"]
+    return [{"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "design": DESIGN[name],
+             "launches": launches[name],
+             "max_abs_err": e["decode_bfloat16"]["err"],
+             "max_abs_err_fp32": e["decode_float32"]["err"],
+             "err_of": "the delta-only instantiation vs lora_apply_ref",
+             "ms": head["ms"], "kernel_ms": head["ms"],
+             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+             "library": "per rank bucket torch.bmm over the gathered slot "
+                        "stacks (A[ids], Bs[ids]), the fp32 sum, the cast "
+                        "and the add",
+             "shape": {"rows": head["rows"], "H": head["H"], "N": head["N"],
+                       "ranks": head["ranks"], "x": "bfloat16",
+                       "y": "bfloat16", "row_is": "decode (gate_proj)"},
+             "shapes": per_case, "bytes": head["bytes"],
+             "flops": head["flops"], "card": card}]
 
 
 def capture_batch(eng, reqs):
@@ -2469,12 +2523,19 @@ def main(argv=None) -> int:
         lines = log.read_text().splitlines() if log.exists() else []
         regs = [int(x.split("Used ")[1].split()[0]) for x in lines
                 if "Used " in x and " registers" in x]
-        spills = [int(x.split("bytes spill stores")[0].split(",")[-1])
-                  for x in lines if "bytes spill stores" in x]
+        spills, spilling, entry = [], {}, None
+        for x in lines:        # ptxas names a function, then its spills
+            if "Function properties for " in x:
+                entry = x.split("Function properties for ")[1].strip()
+            elif "bytes spill stores" in x:
+                n = int(x.split("bytes spill stores")[0].split(",")[-1])
+                spills.append(n)
+                if n:
+                    spilling[entry] = n
         reports[src] = {"kernels": len(regs),
                         "max_registers": max(regs) if regs else None,
                         "max_spill_store_bytes": max(spills) if spills
-                        else None}
+                        else None, "spilling": spilling}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": reports})
 

@@ -18,13 +18,15 @@ all-zero PAD page, so the sum adds an exact 0.0. The per-slot alpha/rank
 scaling folds into B once, here. All in fp32, in the reference's order
 of operations, so the stacks are the reference's bits on the CPU.
 
-Delta dispatch, per rank bucket: rows whose slot lies outside the bucket
-map to its null slot 0 (an exact zero), and the buckets' deltas sum. On
-CUDA tensors every call, decode rows and prefill chunks alike, runs the
-LoRA kernels (`kernels/lora_matmul.lora_matmul`) or raises. On CPU
-tensors the plain versions follow the reference's dispatch:
-single-token rows on a shape its tiling rule supports take the plain
-version of its kernel, everything else its gathered composition.
+Delta dispatch: one call of `kernels/lora_matmul.lora_apply` per
+projection (`LoRAContext.apply`), every rank bucket at once; rows whose
+slot lies outside a bucket take its null slot 0 (an exact zero), the
+buckets' deltas sum in fp32, and the sum is cast to y's dtype and added.
+On CUDA tensors every call, decode rows and prefill chunks alike, is one
+launch of the LoRA kernel, epilogue included, or raises. On CPU tensors
+the plain version follows the reference's dispatch: single-token rows on
+a shape its tiling rule supports take the plain version of its kernel,
+everything else its gathered composition.
 """
 from __future__ import annotations
 
@@ -33,8 +35,7 @@ from contextlib import contextmanager
 
 import torch
 
-from ...kernels.lora_matmul import (lora_matmul, lora_matmul_gathered,
-                                    lora_matmul_supported)
+from ...kernels.lora_matmul import LoRABuckets, lora_apply
 
 __all__ = ["lora_scope", "current_lora", "apply_lora", "LoRAContext",
            "build_context"]
@@ -66,40 +67,44 @@ class LoRAContext:
         self.layout = layout
         self.stacks = stacks          # {bucket: {module: (A, B)}}
         self.row_slots = row_slots    # (B,) int32 global slot ids
-        self._local = {}              # (bucket index, t) -> local ids
+        self._buckets = {}            # module -> LoRABuckets
 
-    def _local_ids(self, bi: int, t: int):
-        """Each row's (token-repeated) slot within bucket `bi`; slot 0
-        for rows outside it. Every layer of a launch asks the same, so
-        it is computed once."""
-        key = (bi, t)
-        ids = self._local.get(key)
-        if ids is None:
-            slots = self.row_slots.to(torch.int32)
-            if t > 1:
-                slots = slots.repeat_interleave(t)
-            local = slots - bi * self.layout.slots
-            in_bucket = (local >= 0) & (local < self.layout.slots)
-            ids = torch.where(in_bucket, local, 0).to(torch.int32)
-            self._local[key] = ids
-        return ids
+    def buckets(self, module: str) -> LoRABuckets:
+        """The module's rank buckets as `lora_apply` takes them: bucket bi
+        holds global slots bi * slots ... Every layer of a launch asks the
+        same, so they are checked and packed once."""
+        packed = self._buckets.get(module)
+        if packed is None:
+            packed = LoRABuckets(
+                [self.stacks[r][module] + (bi * self.layout.slots,)
+                 for bi, r in enumerate(self.layout.rank_buckets)])
+            self._buckets[module] = packed
+        return packed
 
     def delta(self, module, x):
         """(b, t, h) x -> (b, t, out) fp32 delta, summed over the rank
         buckets (a row lives in exactly one; the others give exact 0)."""
         b, t, h = x.shape
+        return lora_apply(x.reshape(b * t, h).contiguous(), None,
+                          self.row_slots, self.buckets(module)
+                          ).reshape(b, t, -1)
+
+    def apply(self, module, x, y):
+        """y + delta(module, x).to(y.dtype) for the projection input x (b,
+        t, h) and its output y (b, t, out). On the card the kernel writes
+        the sum into y itself when autograd is off (y is the projection's
+        fresh output); with autograd on and y requiring grad, the delta
+        is added out of place so y's graph stays."""
+        b, t, h = x.shape
         x2 = x.reshape(b * t, h).contiguous()
-        total = None
-        for bi, r in enumerate(self.layout.rank_buckets):
-            a_stack, b_stack = self.stacks[r][module]
-            local = self._local_ids(bi, t)
-            if x2.is_cuda or (t == 1 and lora_matmul_supported(
-                    b, h, r, b_stack.shape[2], x2.dtype)):
-                d = lora_matmul(x2, local, a_stack, b_stack)
-            else:
-                d = lora_matmul_gathered(x2, local, a_stack, b_stack)
-            total = d if total is None else total + d
-        return total.reshape(b, t, -1)
+        if not y.is_cuda:
+            return lora_apply(x2, y.reshape(b * t, -1), self.row_slots,
+                              self.buckets(module)).reshape(y.shape)
+        if torch.is_grad_enabled() and y.requires_grad:
+            return y + self.delta(module, x).to(y.dtype)
+        y2 = y.reshape(b * t, -1).contiguous()
+        return lora_apply(x2, y2, self.row_slots, self.buckets(module),
+                          out=y2).reshape(y.shape)
 
 
 def build_context(layout, flat_args, row_slots):
@@ -143,4 +148,4 @@ def apply_lora(module: str, x, y):
     ctx = current_lora()
     if ctx is None or module not in ctx.layout.dims:
         return y
-    return y + ctx.delta(module, x).to(y.dtype)
+    return ctx.apply(module, x, y)

@@ -6,6 +6,8 @@ runs on the card's machine:
 
 (`--noconftest` because tests/conftest.py configures JAX.)
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ from paddle_tpu_torch.nn.quant import weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (AdapterRegistry, LoRAAdapter,
                                       ServingEngine)
+from paddle_tpu_torch.serving.lora import runtime as lora_runtime
 
 pytestmark = pytest.mark.cuda
 
@@ -388,72 +391,156 @@ def test_quantized_engine_on_card_matches_cpu(card):
 
 
 # ------------------------------------------------------------ LoRA
-# (rows, H, R, N, S): the port's small decode shape, Llama-3-8B gate_proj
-# at 16 decode rows (8 H chunks), a ragged one (H and N not multiples of
-# 32, R 5, a partial last chunk) and the largest rank
-LORA_CASES = [(8, 256, 8, 128, 4), (16, 4096, 16, 14336, 4),
-              (37, 1100, 5, 72, 3), (3, 128, 256, 130, 2)]
+# (rows, tokens per entry, H, N, ranks, slots per bucket): one decode row
+# at gate_proj; 13 rows over both buckets at k/v_proj; down_proj; a
+# 512-token prefill chunk of one entry; 700 rows at ranks 1 and 64 with H
+# and N not multiples of the H slice or of 8; rank 256 alone; ranks 16 and
+# 256 together (16-row units) over 16-token entries; an odd H with N not a
+# multiple of 4 (the unvectorised paths)
+LORA_CASES = [(1, 1, 4096, 14336, (16,), 4), (13, 1, 4096, 1024, (8, 16), 4),
+              (16, 1, 14336, 4096, (8, 16), 4),
+              (512, 512, 4096, 14336, (8, 16), 4),
+              (700, 1, 1100, 1032, (1, 64), 3), (37, 1, 4100, 1032, (256,), 3),
+              (64, 16, 2048, 1024, (16, 256), 4),
+              (8, 1, 1023, 130, (8,), 3)]
 
 
-def _lora_case(rows, H, R, N, S, seed, device):
-    """Seeded x, ids (the null slot 0, slot 1, random slots and one id S
-    naming no slot), A and Bs stacks with a NON-zero slot 0 (which no row may
-    read)."""
+def _lora_case(rows, t, H, N, ranks, S, seed, device):
+    """Seeded x, y, row slots and rank buckets (first slots 0, S, 2S, ...)
+    whose slot 0 is zeros, as the registry's null adapter is (the
+    reference's gathered composition reads it). The slots cover live
+    slots, each bucket's slot 0 and ids naming no slot."""
     rng = np.random.RandomState(seed)
+    B = rows // t
     x = torch.from_numpy(rng.randn(rows, H).astype(np.float32))
-    a = torch.from_numpy((rng.randn(S, H, R) * 0.02).astype(np.float32))
-    b = torch.from_numpy((rng.randn(S, R, N) * 0.02).astype(np.float32))
-    ids = rng.randint(0, S, rows).astype(np.int32)
-    ids[0], ids[1], ids[-1] = 0, 1, S
-    return [t.to(device) for t in (x, torch.from_numpy(ids), a, b)]
+    y = torch.from_numpy(rng.randn(rows, N).astype(np.float32))
+    buckets = []
+    for bi, r in enumerate(ranks):
+        a = torch.from_numpy((rng.randn(S, H, r) * 0.02).astype(np.float32))
+        b = torch.from_numpy((rng.randn(S, r, N) * 0.02).astype(np.float32))
+        a[0] = b[0] = 0.0
+        buckets.append((a.to(device), b.to(device), bi * S))
+    top = S * len(ranks)
+    slots = rng.randint(-1, top + 2, B).astype(np.int32)
+    slots[:min(B, 3)] = [1, 0, top][:min(B, 3)]
+    return (x.to(device), y.to(device), torch.from_numpy(slots).to(device),
+            lm.LoRABuckets(buckets))
+
+
+def _null_rows(slots, t, buckets):
+    live = torch.zeros_like(slots, dtype=torch.bool)
+    for a, _, first in buckets.stacks:
+        live |= (slots > first) & (slots < first + a.shape[0])
+    return (~live).repeat_interleave(t)
 
 
 @pytest.mark.parametrize("case", LORA_CASES, ids=str)
-def test_lora_kernels_match_plain_versions(card, case):
-    """lora_shrink, lora_expand and the pair within 1e-5 of max |ref|
-    (fp32 products either way; only the summation order differs), bf16
-    and fp32 x; rows of slot 0 or no slot exact zeros; one launch each."""
-    x, ids, a, b = _lora_case(*case, seed=sum(case), device=card)
-    null = (ids <= 0) | (ids >= a.shape[0])
-    for dt in (torch.bfloat16, torch.float32):
-        xx = x.to(dt)
-        before = (lm.lora_shrink.launches, lm.lora_expand.launches)
-        got = lm.lora_matmul(xx, ids, a, b)
+def test_lora_kernel_matches_plain_version(card, case):
+    """The delta-only instantiation within 1e-5 of max |ref| (fp32
+    products either way; only the summation order differs), bf16 and fp32
+    x; the fused output, bf16 and fp32 y, bitwise y + delta.to(y.dtype) of
+    the kernel's own delta, null rows exactly y + 0.0 and delta 0; one
+    launch a call."""
+    x, y, slots, buckets = _lora_case(*case, seed=sum(case[:4]), device=card)
+    null = _null_rows(slots, case[1], buckets)
+    for xdt in (torch.bfloat16, torch.float32):
+        xx = x.to(xdt)
+        before = lm.lora_apply.launches
+        delta = lm.lora_apply(xx, None, slots, buckets)
         torch.cuda.synchronize()
-        assert (lm.lora_shrink.launches, lm.lora_expand.launches) == \
-            (before[0] + 1, before[1] + 1)
-        want = lm.lora_matmul_ref(xx, ids, a, b)
+        assert lm.lora_apply.launches == before + 1
+        want = lm.lora_apply_ref(xx, None, slots, buckets)
         tol = 1e-5 * want.abs().max().item()
-        assert (got - want).abs().max().item() <= tol, dt
-        assert torch.all(got[null] == 0)
-        part = lm.lora_shrink(xx, ids, a)
-        part_ref = lm.lora_shrink_ref(xx, ids, a)
-        assert (part - part_ref).abs().max().item() <= \
-            1e-5 * part_ref.abs().max().item()
-        out = lm.lora_expand(part_ref, ids, b)
-        out_ref = lm.lora_expand_ref(part_ref, ids, b)
-        assert (out - out_ref).abs().max().item() <= \
-            1e-5 * out_ref.abs().max().item()
+        assert (delta - want).abs().max().item() <= tol, xdt
+        assert torch.all(delta[null] == 0)
+        for ydt in (torch.bfloat16, torch.float32):
+            yy = y.to(ydt)
+            out = lm.lora_apply(xx, yy, slots, buckets)
+            torch.cuda.synchronize()
+            assert out.dtype == ydt
+            assert torch.equal(out, yy + delta.to(ydt)), (xdt, ydt)
+            assert torch.equal(out[null], yy[null] + 0.0)
 
 
 def test_lora_kernel_rows_are_bitwise_independent(card):
-    """A row's delta keeps every bit when every other row's id and every
-    other slot's weights change."""
-    x, ids, a, b = _lora_case(16, 4096, 16, 4096, 4, seed=3, device=card)
-    ids = torch.full_like(ids, 2)
-    base = lm.lora_matmul(x.bfloat16(), ids, a, b)
-    ids2 = torch.tensor([2, 1, 3, 0, 4, 1] + [2, 3] * 5, dtype=torch.int32,
-                        device=card)
-    a2, b2 = a.clone(), b.clone()
-    a2[[1, 3]] *= 7.0
-    b2[[1, 3]] = -b2[[1, 3]]
-    again = lm.lora_matmul(x.bfloat16(), ids2, a2, b2)
-    keep = ids2 == 2
+    """A row keeps every bit, delta and output, when every other row's
+    slot and every other slot's weights change (the grouping moves the
+    row to another block, never changes its arithmetic); null rows stay
+    exactly y + 0.0 when every bucket's slot 0 holds weights (no row
+    reads them)."""
+    x, y, slots, buckets = _lora_case(16, 1, 4096, 4096, (8, 16), 4, seed=3,
+                                      device=card)
+    slots = torch.full_like(slots, 6)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    base = lm.lora_apply(xb, None, slots, buckets)
+    base_out = lm.lora_apply(xb, yb, slots, buckets)
+    slots2 = torch.tensor([6, 1, 3, 0, 9, 5, 2] + [6, 7] * 4 + [4],
+                          dtype=torch.int32, device=card)
+    stacks = [(a.clone(), b.clone(), f) for a, b, f in buckets.stacks]
+    for a, b, _ in stacks:
+        a[[1, 3]] *= 7.0
+        b[[1, 3]] = -b[[1, 3]]
+        a[0] = 1.0
+        b[0] = 1.0
+    stacks[1][0][3] *= 3.0           # global slot 7
+    again = lm.lora_apply(xb, None, slots2, stacks)
+    again_out = lm.lora_apply(xb, yb, slots2, stacks)
+    keep = slots2 == 6
     assert torch.equal(base[keep], again[keep])
+    assert torch.equal(base_out[keep], again_out[keep])
+    null = (slots2 == 0) | (slots2 == 4) | (slots2 == 9)
+    assert torch.all(again[null] == 0)
+    assert torch.equal(again_out[null], yb[null] + 0.0)
 
 
-def test_lora_kernels_refuse_what_they_do_not_take(card):
-    x, ids, a, b = _lora_case(4, 256, 8, 64, 3, seed=1, device=card)
+def test_lora_kernel_repeat_launches_and_in_place_are_bitwise(card):
+    """Repeat launches give the same bits; writing into y in place gives
+    the out-of-place result."""
+    x, y, slots, buckets = _lora_case(512, 512, 4096, 14336, (8, 16), 4,
+                                      seed=5, device=card)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    first = lm.lora_apply(xb, yb, slots, buckets)
+    for _ in range(3):
+        assert torch.equal(lm.lora_apply(xb, yb, slots, buckets), first)
+    y2 = yb.clone()
+    assert lm.lora_apply(xb, y2, slots, buckets, out=y2) is y2
+    assert torch.equal(y2, first)
+
+
+def test_lora_hook_under_autograd_keeps_y_graph(card):
+    """With autograd on and y requiring grad, `apply_lora` adds the
+    delta-only kernel's output out of place: the same bits as the fused
+    kernel writing into y with autograd off, one launch, y itself left
+    as it was, and y's gradient flowing through."""
+    ranks, S = (8, 16), 4
+    x, y, slots, buckets = _lora_case(13, 1, 4096, 1024, ranks, S, seed=7,
+                                      device=card)
+    layout = SimpleNamespace(dims={"k_proj": (4096, 1024)}, slots=S,
+                             rank_buckets=ranks)
+    stacks = {r: {"k_proj": (a, b)}
+              for r, (a, b, _) in zip(ranks, buckets.stacks)}
+    ctx = lora_runtime.LoRAContext(layout, stacks, slots)
+    xb, yb = x.bfloat16()[:, None], y.bfloat16()[:, None]
+    fused = yb.clone()
+    with torch.no_grad(), lora_runtime.lora_scope(ctx):
+        assert lora_runtime.apply_lora("k_proj", xb, fused) is not None
+    assert not torch.equal(fused, yb)            # written in place
+    yg = yb.clone().requires_grad_()
+    before = lm.lora_apply.launches
+    with torch.enable_grad(), lora_runtime.lora_scope(ctx):
+        out = lora_runtime.apply_lora("k_proj", xb, yg)
+    assert lm.lora_apply.launches == before + 1
+    assert out.requires_grad and torch.equal(out.detach(), fused)
+    assert torch.equal(yg.detach(), yb)
+    out.float().sum().backward()
+    assert torch.equal(yg.grad, torch.ones_like(yb))
+
+
+def test_lora_kernel_refuses_what_it_does_not_take(card):
+    x, y, slots, buckets = _lora_case(4, 1, 256, 64, (8,), 3, seed=1,
+                                      device=card)
+    a, b, _ = buckets.stacks[0]
+    ids = slots
     with pytest.raises(ValueError, match="rank"):
         lm.lora_matmul(x, ids, torch.zeros(3, 256, 257, device=card),
                        torch.zeros(3, 257, 64, device=card))
@@ -461,19 +548,27 @@ def test_lora_kernels_refuse_what_they_do_not_take(card):
         lm.lora_matmul(x, ids.long(), a, b)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         lm.lora_matmul(x.half(), ids, a, b)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        lm.lora_apply(x, y.half(), slots, buckets)
     with pytest.raises(ValueError, match="on"):
         lm.lora_matmul(x, ids.cpu(), a, b)
+    with pytest.raises(ValueError, match="on"):
+        lm.lora_apply(x, y.cpu(), slots, buckets)
     with pytest.raises(ValueError, match="contiguous"):
         lm.lora_matmul(x, ids, a.transpose(1, 2).contiguous()
                        .transpose(1, 2), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.lora_apply(x.t().contiguous().t(), y, slots, buckets)
     with pytest.raises(ValueError, match="share"):
         lm.lora_matmul(x, ids, a, b[:2].contiguous())
+    with pytest.raises(ValueError, match="disjoint"):
+        lm.lora_apply(x, y, slots, [(a, b, 0), (a, b, 2)])
 
 
 def test_lora_engine_on_card_matches_cpu(card):
     """A tiny fp32 Llama served with two rank buckets of adapters (one of
     them int8) on the card gives the CPU's greedy tokens; every launch
-    ran the LoRA pair once per module, layer and rank bucket."""
+    ran the LoRA kernel once per module and layer."""
     cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
                       num_hidden_layers=2, num_attention_heads=2,
                       num_key_value_heads=1, max_position_embeddings=128)
@@ -495,7 +590,7 @@ def test_lora_engine_on_card_matches_cpu(card):
             reg.load(LoRAAdapter.random(name, rank, reg.layout.dims,
                                         seed=seed, scale=0.2), quant=quant)
         eng = ServingEngine(model, device=dev, lora=reg, **kw)
-        lm.lora_shrink.launches = lm.lora_expand.launches = 0
+        lm.lora_apply.launches = 0
         rids = [eng.add_request(p, max_new_tokens=m, adapter=a)
                 for p, m, a in prompts]
         eng.run()
@@ -503,9 +598,8 @@ def test_lora_engine_on_card_matches_cpu(card):
         if dev == "cuda":
             c = eng.metrics.counters
             want = (c["decode_launches"] + c["prefill_chunks"]) * 7 \
-                * cfg.num_hidden_layers * 2
-            assert lm.lora_shrink.launches == lm.lora_expand.launches \
-                == want > 0
+                * cfg.num_hidden_layers
+            assert lm.lora_apply.launches == want > 0
             assert all(reg.refs_of(n) == 0 for n in names if n)
             reg.check_invariants()
     assert outs["cuda"] == outs["cpu"]

@@ -1,17 +1,21 @@
 """The port's multi-LoRA pieces against the reference on the CPU: the
 delta's plain versions (`lora_matmul_ref`, `lora_matmul_gathered`, the
-shrink/expand pair's), the tiling rule the CPU dispatch keeps, the
-adapter registry and the launch context.
+shrink/expand split), `lora_apply`'s plain version against the
+reference's projection hook, the kernel's grouping rule and grid plan,
+the tiling rule the CPU dispatch keeps, the adapter registry and the
+launch context.
 
 The delta is held against the reference's Pallas kernel, run in
 interpret mode off the TPU (as tests/test_lora_matmul.py runs it),
-within 1e-5 of the largest |ref|: the two sum in different orders.
-Registry state, `flat_args()` and the gathered stacks are held bitwise.
-The CUDA kernels run only on the card: tests/test_torch_cuda.py holds
-them against these plain versions there.
+within 1e-5 of the largest |ref|: the two sum in different orders; the
+hook's output within one ulp of y's dtype (the delta's last bits may
+round the other way). Registry state, `flat_args()` and the gathered
+stacks are held bitwise. The CUDA kernel runs only on the card:
+tests/test_torch_cuda.py holds it against these plain versions there.
 """
 import ctypes
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -161,32 +165,197 @@ def test_shrink_expand_plain_versions_compose_to_the_delta(H):
 
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing():
     x, ids, a, b = _torch(*_mats(4, 256, 8, 64, 3, seed=5))
-    before = (lm.lora_shrink.launches, lm.lora_expand.launches)
-    part = lm.lora_shrink(x, ids, a)
-    assert torch.equal(part, lm.lora_shrink_ref(x, ids, a))
-    assert torch.equal(lm.lora_expand(part, ids, b),
-                       lm.lora_expand_ref(part, ids, b))
+    before = lm.lora_apply.launches
     assert torch.equal(lm.lora_matmul(x, ids, a, b),
                        lm.lora_matmul_ref(x, ids, a, b))
-    assert (lm.lora_shrink.launches, lm.lora_expand.launches) == before
+    buckets = lm.LoRABuckets([(a, b, 0)])
+    y = torch.randn(4, 64)
+    assert torch.equal(lm.lora_apply(x, None, ids, buckets),
+                       lm.lora_matmul_ref(x, ids, a, b))
+    assert torch.equal(lm.lora_apply(x, y, ids, buckets),
+                       y + lm.lora_matmul_ref(x, ids, a, b))
+    assert lm.lora_apply.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         lm.lora_matmul(x.to("meta"), ids, a, b)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lm.lora_apply(x.to("meta"), None, ids, buckets)
 
 
 def test_lora_ctypes_signatures_match_the_cuda_source():
-    """Both C entries' ctypes argtypes mirror the prototypes: a mismatch
-    would pass garbage to the kernels, and only the card could show it."""
+    """The C entry's ctypes argtypes mirror its prototype, and the bucket
+    record packed for it mirrors the source's struct: a mismatch would
+    pass garbage to the kernel, and only the card could show it."""
     src = (build.CSRC / lm.KERNEL_SOURCE).read_text()
     expect = {"void*": ctypes.c_void_p, "int": ctypes.c_int}
-    for fn, argtypes in (("lora_shrink", lm.C_SHRINK_ARGTYPES),
-                         ("lora_expand", lm.C_EXPAND_ARGTYPES)):
-        proto = re.search(rf'extern "C" int {fn}\((.*?)\)\s*\{{', src,
-                          re.S).group(1)
-        kinds = [expect[p.strip().replace("const ", "").rsplit(" ", 1)[0]
-                        .replace(" ", "")] for p in proto.split(",")]
-        assert kinds == argtypes, fn
+    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == {"lora_apply"}
+    proto = re.search(r'extern "C" int lora_apply\((.*?)\)\s*\{', src,
+                      re.S).group(1)
+    kinds = [expect[p.strip().replace("const ", "").rsplit(" ", 1)[0]
+                    .replace(" ", "")] for p in proto.split(",")]
+    assert kinds == lm.C_APPLY_ARGTYPES
+    record = re.search(r"struct LoraBucketC \{.*?\n\};", src, re.S).group(0)
+    assert re.findall(r"(int64_t|int32_t) ([\w, ]+);", record) == \
+        [("int64_t", "a, b"), ("int32_t", "R, first, S, pad")]
+    x, _, a, b = _torch(*_mats(2, 64, 8, 32, 3, seed=6))
+    rec = lm.LoRABuckets([(a, b, 0), (a, b, 5)]).records()
+    assert len(rec.raw) == 2 * 32
+    assert np.frombuffer(rec.raw, np.int32).reshape(2, 8)[:, 4:].tolist() \
+        == [[8, 0, 3, 0], [8, 5, 3, 0]]
     assert build.library_path(lm.KERNEL_SOURCE).name.startswith(
         "lora_matmul-")
+
+
+# ------------------------------------------ one projection, every bucket
+# two rank buckets of 4 slots (global slots 0-3 and 4-7), H 256, N 512
+APPLY_RANKS, APPLY_SLOTS, APPLY_H, APPLY_N = (8, 16), 4, 256, 512
+
+
+def _apply_case(seed):
+    """Seeded per-bucket stacks (slot 0 zeros) as numpy, and the port's
+    and the reference's views of them."""
+    rng = np.random.RandomState(seed)
+    stacks = {}
+    for r in APPLY_RANKS:
+        a = (rng.randn(APPLY_SLOTS, APPLY_H, r) * 0.05).astype(np.float32)
+        b = (rng.randn(APPLY_SLOTS, r, APPLY_N) * 0.05).astype(np.float32)
+        a[0] = b[0] = 0.0
+        stacks[r] = (a, b)
+    ours = lm.LoRABuckets([(*_torch(*stacks[r]), bi * APPLY_SLOTS)
+                           for bi, r in enumerate(APPLY_RANKS)])
+    layout = types.SimpleNamespace(rank_buckets=APPLY_RANKS,
+                                   slots=APPLY_SLOTS,
+                                   dims={"proj": (APPLY_H, APPLY_N)})
+    theirs = {r: {"proj": tuple(jnp.asarray(m) for m in stacks[r])}
+              for r in APPLY_RANKS}
+    return rng, ours, layout, theirs
+
+
+def _ulp_close(got, want, dtype, delta_tol):
+    """Elementwise within one unit in the last place of y's dtype, beyond
+    the delta's own tolerance (which the sum carries into fp32 outputs;
+    in bf16 it is ~1e-5 of an ulp)."""
+    got, want = (np.asarray(v, np.float64) for v in (got, want))
+    mag = np.maximum(np.abs(got), np.abs(want))
+    mant = 7 if dtype == "bfloat16" else 23
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - mant)
+    assert np.all(np.abs(got - want) <= ulp + delta_tol), \
+        np.abs(got - want).max()
+
+
+def _jax_out(a):
+    return np.asarray(getattr(a, "_data", a)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t", [(12, 1), (2, 5)], ids=["decode", "prefill"])
+def test_lora_apply_matches_reference_hook(dtype, b, t):
+    """Decode rows (the reference's interpret-mode kernel) and prefill
+    chunks (its gathered composition), rows in both buckets, null rows
+    (global slots 0 and 4) and ids naming no slot (8, -1): the plain
+    version's fp32 delta within 1e-5 of the reference's max |delta|, y +
+    delta within one ulp of y's dtype beyond that, null rows exactly y +
+    0.0."""
+    rng, ours, layout, theirs = _apply_case(seed=11 + t)
+    slots = np.array([1, 5, 0, 3, 7, 4, 2, 8, 6, -1, 5, 1][:b], np.int32)
+    x = rng.randn(b, t, APPLY_H).astype(np.float32)
+    y = rng.randn(b, t, APPLY_N).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    yt = torch.from_numpy(y).to(getattr(torch, dtype))
+    x, y = xt.float().numpy(), yt.float().numpy()    # the same bits
+    xj = jnp.asarray(x).astype(dtype)
+    yj = jnp.asarray(y).astype(dtype)
+    ctx = ref_rt.LoRAContext(layout, theirs, jnp.asarray(slots))
+    with ref_rt.lora_scope(ctx):
+        want_out = _jax_out(ref_rt.apply_lora("proj", xj, yj))
+    want_delta = np.asarray(ctx.delta("proj", xj))
+    st = torch.from_numpy(slots)
+    x2, y2 = xt.reshape(b * t, -1), yt.reshape(b * t, -1)
+    delta = lm.lora_apply(x2, None, st, ours)
+    out = lm.lora_apply(x2, y2, st, ours)
+    assert delta.dtype == torch.float32 and out.dtype == yt.dtype
+    _close(delta.numpy().reshape(b, t, -1), want_delta)
+    _ulp_close(out.float().numpy().reshape(b, t, -1), want_out, dtype,
+               1e-5 * np.abs(want_delta).max())
+    null = np.isin(slots, [0, 4, 8, -1])
+    assert torch.equal(out.reshape(b, t, -1)[torch.from_numpy(null)],
+                       yt[torch.from_numpy(null)] + 0.0)
+    assert torch.all(delta.reshape(b, t, -1)[torch.from_numpy(null)] == 0.0)
+    # the plain version is the old composition: bucket by bucket
+    assert torch.equal(out, y2 + delta.to(y2.dtype))
+
+
+def _brute_groups(row_slots, tokens, buckets):
+    """{(bucket, slot) or None: rows} straight from the definition."""
+    groups = {}
+    for m in range(len(row_slots) * tokens):
+        g = int(row_slots[m // tokens])
+        key = None
+        for b, (first, S) in enumerate(buckets):
+            if first <= g < first + S:
+                key = (b, g - first) if g > first else None
+        groups.setdefault(key, []).append(m)
+    return groups
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_grouping_rule_matches_brute_force(seed):
+    """`lora_groups` (the kernel's rule) partitions the rows by (bucket,
+    slot) as the definition does: keys in (bucket, slot) order, the null
+    key last, a key's rows in order, cut into units of T rows; no plan
+    for these shapes bounds fewer units than the ids make."""
+    rng = np.random.RandomState(seed)
+    buckets = [(0, int(rng.randint(1, 6)))]
+    for _ in range(int(rng.randint(0, 3))):
+        first, S = buckets[-1]
+        buckets.append((first + S + int(rng.randint(0, 3)),
+                        int(rng.randint(1, 6))))
+    top = buckets[-1][0] + buckets[-1][1]
+    B = int(rng.randint(1, 40))
+    tokens = int(rng.choice([1, 1, 3, 70]))
+    T = int(rng.choice([16, 64]))
+    row_slots = rng.randint(-2, top + 2, B)
+    units = lm.lora_groups(row_slots, tokens, buckets, T)
+    brute = _brute_groups(row_slots, tokens, buckets)
+    keys = sorted((k for k in brute if k is not None)) + \
+        ([None] if None in brute else [])
+    want = [(k, rows[j:j + T]) for k in keys
+            for rows in [brute[k]] for j in range(0, len(rows), T)]
+    got = [((b, s) if b is not None else None, rows) for b, s, rows in units]
+    assert got == want
+    ranks = [8] * len(buckets)
+    _, _, T_plan, _, bound = lm.lora_apply_plan(
+        B * tokens, B, 256, 512, tuple(ranks), tuple(S for _, S in buckets),
+        132)
+    assert T_plan == 64
+    if T == 64:
+        assert len(units) <= bound
+
+
+def test_grid_plan_is_a_function_of_the_shapes():
+    """The plan takes shapes only (the host never reads the ids) and
+    bounds the units of the worst ids; serving's shapes get clusters of
+    8 CTAs splitting H 4096 and 14336."""
+    import inspect
+    params = list(inspect.signature(lm.lora_apply_plan).parameters)
+    assert params == ["M", "B", "H", "N", "ranks", "slots", "sms"]
+    plan = lm.lora_apply_plan(16, 16, 4096, 14336, (8, 16), (4, 4), 132)
+    assert plan == lm.lora_apply_plan(16, 16, 4096, 14336, (8, 16), (4, 4),
+                                      132)
+    C, K, T, HC, units = plan
+    assert (C, T, HC, units) == (8, 64, 64, 7)
+    assert K * C * units <= 2 * 132
+    assert lm.lora_apply_plan(512, 1, 14336, 4096, (8, 16), (4, 4),
+                              132)[:5:4] == (8, 8)
+    assert lm.lora_apply_plan(4, 4, 256, 64, (256,), (3,), 132)[:4] == \
+        (1, 1, 16, 16)
+    # the worst ids: every entry its own slot, each key's last unit short
+    for M, B, S in ((16, 16, 4), (700, 700, 9), (130, 2, 3), (64, 64, 70)):
+        slots = np.arange(B) % (2 * S)
+        for T in (16, 64):
+            ranks = (8,) if T == 64 else (128,)
+            got = len(lm.lora_groups(slots, M // B, [(0, S), (S, S)], T))
+            assert got <= lm.lora_apply_plan(M, B, 256, 64, ranks * 2,
+                                             (S, S), 132)[4]
 
 
 # --------------------------------------------------------------- adapters
