@@ -14,7 +14,9 @@ for (all by default):
   kernels     — chip_smoke.time_ms (CUDA events, median of 30 launches,
                 L2 flushed before each) of the int8 matmul with bf16 x at
                 Llama-3-8B's gate/up and down, M 16 (the decode bucket)
-                and every prefill bucket 32-512; the flash forward, dQ and
+                and every prefill bucket 32-512, and at the LM head, M 16
+                and M 1 (the head's row at a prefill chunk's end); the
+                flash forward, dQ and
                 dK/dV at the training shape (B*H 32, S 4096, D 128,
                 causal); the varlen and flashmask (document mask) forward,
                 dQ and dK/dV at packed_attention's full width; the paged
@@ -36,7 +38,9 @@ for (all by default):
   train       — chip_smoke.phase_train: step ms and MFU;
   serve_quant — chip_smoke.phase_serve, then phase_serve_quant: wall
                 seconds of the prefill-only and mixed steps, decode step
-                ms;
+                ms and tokens/s, and the profiled decode-only step's
+                device ms, launches and int8 matmul kernels' ms and
+                launches;
   serve_lora  — chip_smoke.phase_serve, then phase_serve_lora: decode
                 step ms and tokens/s, and the profiled decode-only step's
                 device ms, launches and LoRA kernels' ms and launches.
@@ -97,27 +101,40 @@ def paged_kernel_times(seed: int, flush):
     return res
 
 
+def qmm_times(seed: int):
+    """{case: ms} of the int8 matmul with bf16 x at the two trees' shared
+    shapes."""
+    import torch
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import quant_matmul as qm
+    from paddle_tpu_torch.models.llama import llama_3_8b
+
+    cfg = llama_3_8b()
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").zero_
+    shapes = {f"qmm_{name}_m{M}": (M, K, N) for M in QMM_ROWS
+              for name, (K, N) in (("gate_up", (h, i)), ("down", (i, h)))}
+    shapes.update(qmm_lm_head_m16=(16, h, v), qmm_lm_head_m1=(1, h, v))
+    res = {}
+    for name, shape in shapes.items():
+        x, qw, scale = cs.qmm_inputs(shape, seed)
+        xb = x.bfloat16()
+        res[name] = cs.time_ms(lambda: qm.quant_matmul(xb, qw, scale), flush)
+        del x, qw, scale, xb
+    return res
+
+
 def kernel_times(seed: int):
     """{case: ms} of the kernels of the two trees' shared shapes."""
     import math
     import torch
     import chip_smoke as cs
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import quant_matmul as qm
-    from paddle_tpu_torch.models.llama import llama_3_8b
 
-    cfg = llama_3_8b()
-    h, i = cfg.hidden_size, cfg.intermediate_size
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
                         device="cuda").zero_
-    res = {}
-    for M in QMM_ROWS:
-        for name, (K, N) in (("gate_up", (h, i)), ("down", (i, h))):
-            x, qw, scale = cs.qmm_inputs((M, K, N), seed)
-            xb = x.bfloat16()
-            res[f"qmm_{name}_m{M}"] = cs.time_ms(
-                lambda: qm.quant_matmul(xb, qw, scale), flush)
-            del x, qw, scale, xb
+    res = qmm_times(seed)
     BH, S, _, D = cs.FLASH_SHAPES[0][:4]    # the parent's tuples may be 4 long
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
@@ -228,8 +245,16 @@ def child(phases, seed: int) -> int:
         cs.phase_serve_quant(served, seed)
         del served
         q = line("serve_quant")
-        out["serve_quant"] = {k: q[k] for k in (
-            "prefill_steps_s", "mixed_steps_s", "decode_step_ms", "serve_s")}
+        prof = q["profiled_step"] or {}
+        qmm = prof.get("by_kind", {}).get("quant_matmul", {})
+        out["serve_quant"] = {
+            **{k: q[k] for k in ("prefill_steps_s", "mixed_steps_s",
+                                 "decode_step_ms", "decode_tokens_per_s",
+                                 "serve_s")},
+            "profiled_device_ms": prof.get("device_ms"),
+            "profiled_launches": prof.get("kernel_launches"),
+            "profiled_qmm_ms": qmm.get("ms", 0.0),
+            "profiled_qmm_launches": qmm.get("launches", 0)}
         free()
     if "serve_lora" in phases:
         served = cs.phase_serve(seed)[2]

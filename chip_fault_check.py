@@ -39,12 +39,21 @@ Faults:
     (another query tile's rows; lse and delta still its own);
   * bwd_no_delta — the wgmma dQ and dK/dV kernels drop delta from dS
     (dS = P dP scale): dV stays right, dQ and dK do not;
-  * qmm_drop_last_k_tile — both int8 matmuls skip the last K tile of
-    every output tile (quant_matmul.cu 32-deep, the wgmma kernel 64-deep:
-    K 4096 loses 1/128 or 1/64 of its terms);
+  * qmm_drop_last_k_tile — quant_matmul.cu and the wgmma int8 matmul
+    skip the last K tile of every output tile (32-deep and 64-deep: K
+    4096 loses 1/128 or 1/64 of its terms);
   * qmm_sm90_next_stage — the wgmma int8 matmul's consumers read stage
     (s + 1) % kStages of the ring instead of s (another K tile's x and
     weights);
+  * qmm_decode_next_stage — the int8 decode stream's consumers read stage
+    (s + 1) % kStages of its ring instead of s (another unit's weights
+    and x slice, or a stage never filled);
+  * qmm_decode_drop_last_unit — each CTA of the decode stream leaves out
+    the last unit of its share (64 K rows of 256 columns), still waiting
+    for and releasing its stage;
+  * qmm_decode_merge_drops_last_part — the decode stream's merge of a
+    column tile shared by several CTAs leaves out the last partial (the
+    tile's last K rows);
   * int8_no_v_scale — the int8 paged-decode kernel ignores the V scale
     (each V row taken as its raw int8 values), on both of its paths;
   * paged_merge_drops_last_split — the paged-decode merge skips the last
@@ -127,6 +136,9 @@ _K_LOOP = "  for (int kt = kt0; kt < kt1; ++kt) {\n"
 _SM90_PRODUCT = ("      for (int j = 0; j < kBatch; ++j)\n"
                  "        wgmma_rs<BM>(acc, a + 4 * j, dx + 2 * (k0 + j));\n")
 _SM90_STAGE = "    const uint8_t* x = smem + s * C::kStageBytes;\n"
+_DECODE_STAGE = "      const uint8_t* st = smem + s * C::kStageBytes;\n"
+_DECODE_PRODUCT = "      mma_stage<kN8>(acc, st, warp, g, t);\n"
+_DECODE_PARTS = "    const int parts = last - first + 1;\n"
 _V_SCALE = "p * st_vs[lane]"
 _V_SCALE_MMA = "p[k] * st_vs[tok]"
 _PAGED_MERGE = ("    for (int r = 0; r < live; ++r) {\n"
@@ -188,6 +200,18 @@ FAULTS = {
         [("quant_matmul_sm90.cu",
           [(_SM90_STAGE, _SM90_STAGE.replace(
               "s * C", "(s + 1) % kStages * C"), 1)])], "quant"),
+    "qmm_decode_next_stage": (
+        [("quant_decode_sm90.cu",
+          [(_DECODE_STAGE, _DECODE_STAGE.replace(
+              "s * C", "(s + 1) % kStages * C"), 1)])], "quant"),
+    "qmm_decode_drop_last_unit": (
+        [("quant_decode_sm90.cu",
+          [(_DECODE_PRODUCT, "      if (u + 1 < u1)\n  " + _DECODE_PRODUCT,
+            1)])], "quant"),
+    "qmm_decode_merge_drops_last_part": (
+        [("quant_decode_sm90.cu",
+          [(_DECODE_PARTS, _DECODE_PARTS.replace("+ 1", ""), 1)])],
+        "quant"),
     "int8_no_v_scale": ([("paged_attention.cu",
                           [(_V_SCALE, "p", 1), (_V_SCALE_MMA, "p[k]", 1)])],
                         "quant"),
@@ -235,7 +259,7 @@ FAULTS = {
 CHECK_SOURCES = {
     "flash": ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"),
     "quant": ("paged_attention.cu", "quant_matmul.cu",
-              "quant_matmul_sm90.cu"),
+              "quant_matmul_sm90.cu", "quant_decode_sm90.cu"),
     "lora": ("lora_matmul.cu",), "packed": ("flash_attention.cu",),
     "norm": ("fused_norm.cu",), "paged": ("paged_attention.cu",)}
 GPU_SLOTS = 4
@@ -294,8 +318,14 @@ def plant(root: Path, plants) -> None:
 def must_fail(name: str):
     """The (check, output, case) triples a fault has to make fail: every
     output it corrupts at the main path's shapes in bf16."""
+    import torch
     from chip_smoke import FLASH_SHAPES, NORM_SHAPES, flash_case, qmm_shapes
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul_route
     _, sq, sk, d, causal = FLASH_SHAPES[0]
+    bf16_route = {s: quant_matmul_route(*shape, torch.bfloat16)
+                  for s, shape in qmm_shapes().items()}
+    stream = [("quant", "quant_matmul", f"{s}_bfloat16")
+              for s, r in bf16_route.items() if r == "decode_sm90"]
     flash_case = flash_case("bfloat16", sq, sk, d, causal)
     if name == "skip_tile":
         return [("flash", o, flash_case)
@@ -311,11 +341,20 @@ def must_fail(name: str):
     if name == "bwd_no_delta":
         return [("flash", o, flash_case) for o in ("dq", "dk")]
     if name == "qmm_drop_last_k_tile":
-        return [("quant", "quant_matmul", f"{s}_bfloat16")
-                for s in qmm_shapes()]
+        # the bf16 cases of the two kernels it edits, and fp32 x (always
+        # quant_matmul.cu)
+        return [("quant", "quant_matmul", f"{s}_{dt}")
+                for s, r in bf16_route.items() for dt in ("bfloat16",
+                                                           "float32")
+                if dt == "float32" or r != "decode_sm90"]
     if name == "qmm_sm90_next_stage":
         return [("quant", "quant_matmul", f"{s}_bfloat16")
-                for s, (M, K, N) in qmm_shapes().items() if M > 16]
+                for s, r in bf16_route.items() if r == "sm90"]
+    if name in ("qmm_decode_next_stage", "qmm_decode_drop_last_unit",
+                "qmm_decode_merge_drops_last_part"):
+        # every decode-stream case: each has CTAs of several units and
+        # column tiles shared by several CTAs
+        return stream
     if name in ("lora_drop_h_slice", "lora_drop_bucket1"):
         return [("lora", "lora_apply", f"{c}_bfloat16")
                 for c in ("decode", "prefill", "rows512", "ragged")]
@@ -350,18 +389,6 @@ def must_fail(name: str):
                 for k in ("paged_attention_decode",
                           "paged_attention_decode_int8")
                 for c in ("serve", "b1_32768", "b4_8192")]
-    if name in ("lora_drop_h_slice", "lora_drop_bucket1"):
-        return [("lora", "lora_apply", f"{c}_bfloat16")
-                for c in ("decode", "prefill", "rows512", "ragged")]
-    if name == "lora_row0_slot":
-        # the prefill chunk is one entry: its rows are row 0's already
-        return [("lora", "lora_apply", f"{c}_bfloat16")
-                for c in ("decode", "rows512", "ragged")]
-    if name == "lora_epilogue_unrounded":
-        # one rounding or two differ where y + d lies near a bf16 rounding
-        # boundary: hundreds of elements at the full-width cases
-        return [("lora", "lora_apply", f"{c}_bfloat16")
-                for c in ("decode", "prefill", "rows512")]
     return [("quant", "paged_attention_decode_int8", "bfloat16")]
 
 

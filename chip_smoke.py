@@ -43,11 +43,17 @@ Phases, one JSON line each:
                requests are served on the same schedule. Checks as in
                phase 3, plus the int8 paged-decode kernel once per layer
                per decode launch and the int8 matmul kernels 97 times per
-               launch (gate/up/down x 32 and the head): every prefill
+               launch (gate/up/down x 32 and the head), each launch on
+               the kernel `quant_matmul_route` names, counted per kernel
+               and held to the engine's flight recorder: every prefill
                chunk's MLP linears through the wgmma route
-               (quant_matmul_sm90.cu) at its bucket's rows, the head's
-               single row and the decode launches through the decode
-               route (quant_matmul.cu). Reports the
+               (quant_matmul_sm90.cu) at its bucket's rows, every bf16
+               launch of at most 16 rows — the decode launches and the
+               head's single row at each chunk's end — through the decode
+               weight stream (quant_decode_sm90.cu), none through
+               quant_matmul.cu; the profiled decode-only step launches
+               the int8 matmul 97 times and `reduce_splits` never.
+               Reports the
                weight bytes before and after, and where each request's
                greedy tokens first leave phase 3's (not gated: random
                weights give near-flat logits).
@@ -126,13 +132,20 @@ Phases, one JSON line each:
                  long-context shapes;
                * int8 matmul: seeded x and `weight_quantize`d seeded
                  weights at Llama-3-8B's decode GEMMs (M 16, the decode
-                 route), gate/up and down at M 512 (the wgmma route) and
-                 a ragged shape on each route, bf16 within a relative
-                 error of 1e-2 and fp32 within 1e-4 of max |ref|
-                 (chip_fault_check.py shows that planted faults in the
-                 quantized kernels fail these checks); timed in bf16 as
-                 two rows: the decode route at M 16 and the wgmma route
-                 at M 512 and at each prefill bucket serve_quant launched;
+                 stream) and the head's prefill row (M 1), gate/up and
+                 down at M 512 (the wgmma route), a ragged shape on each
+                 Hopper route and one TMA cannot address
+                 (quant_matmul.cu), bf16 within a relative error of 1e-2
+                 (the decode stream also bitwise equal on a repeat
+                 launch, its ticket counters back at 0) and fp32 within
+                 1e-4 of max |ref| (chip_fault_check.py shows that
+                 planted faults in the quantized kernels fail these
+                 checks); timed as three rows: the decode stream in bf16
+                 at M 16 and 1 (also after an L2 flush that leaves no
+                 dirty lines, beside one PyTorch read of the same weight
+                 bytes), the wgmma route at M 512 and at each prefill
+                 bucket serve_quant launched, and quant_matmul.cu with
+                 fp32 x at M 16 (its route; 0 launches on the main path);
                * LoRA (lora_apply): layer 0's gate_proj input and
                  output, row slots and both rank buckets' gathered
                  stacks of a live serve_lora decode launch, a 512-token
@@ -205,6 +218,8 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/paged_attention.py:152"),
            ("quant_matmul", _CSRC + "quant_matmul.cu",
             "paddle_tpu/kernels/quant_matmul.py:162"),
+           ("quant_matmul_decode", _CSRC + "quant_decode_sm90.cu",
+            "paddle_tpu/kernels/quant_matmul.py:162"),
            ("quant_matmul_prefill", _CSRC + "quant_matmul_sm90.cu",
             "paddle_tpu/kernels/quant_matmul.py:162"),
            ("lora_apply", _CSRC + "lora_matmul.cu",
@@ -260,8 +275,19 @@ DESIGN = {
                             "mbarriers), wgmma RS on out^T = W^T x^T with "
                             "W^T converted to bf16 in registers, 2 consumer "
                             "warpgroups of 64 columns + 1 producer",
-    "quant_matmul": "mma.sync m16n8k16 decode tile (16 rows x 128 columns, "
-                    "K splits), quant_matmul.cu",
+    "quant_matmul_decode": "one balanced launch: units of 64 K rows x 256 "
+                           "columns split evenly over one CTA an SM; a "
+                           "producer warp keeping a TMA ring of 4 units "
+                           "(two swizzled int8 W boxes + the x slice, "
+                           "mbarriers); 8 consumer warps, each 32 columns "
+                           "over the unit's K, on mma.sync m16n8k16 for "
+                           "out^T = W^T x^T, W converted to bf16 in "
+                           "registers; a column tile shared by CTAs merged "
+                           "in K order by the last to arrive (ticket "
+                           "counter)",
+    "quant_matmul": "fp32 x and shapes TMA cannot address: mma.sync / FMA "
+                    "tiles (16 x 128 at M <= 16, K splits summed by a second "
+                    "launch), quant_matmul.cu",
     "lora_apply": "one launch per projection: rows grouped by (bucket, "
                   "slot) on the card into units of up to 64 rows; a "
                   "thread-block cluster of C CTAs splits H (a ring of x "
@@ -345,7 +371,8 @@ def kernel_kind(name: str) -> str:
         return "adamw"
     if "paged_decode" in n:
         return "paged_decode"
-    if any(k in n for k in ("quant_matmul", "qmm_sm90", "reduce_splits")):
+    if any(k in n for k in ("quant_matmul", "qmm_sm90", "qmm_decode",
+                            "reduce_splits")):
         return "quant_matmul"
     if "lora_apply" in n:
         return "lora"
@@ -375,6 +402,8 @@ def profile_summary(prof, wall_s: float, **fields):
     return {**fields, "wall_ms_profiled": wall_s * 1e3,
             "device_ms": sum(t for t, _ in by_name.values()) / 1e3,
             "kernel_launches": sum(n for _, n in by_name.values()),
+            "reduce_splits_launches": sum(n for k, (_, n) in by_name.items()
+                                          if "reduce_splits" in k),
             "by_kind": {k: {"ms": t / 1e3, "launches": n}
                         for k, (t, n) in sorted(kinds.items())},
             "top_kernels": [{"name": k[:100], "ms": t / 1e3, "calls": n}
@@ -579,16 +608,17 @@ def phase_serve_quant(served, seed: int):
     full_width = paged_attention_decode.launches
     paged_attention_decode.int8_launches = 0     # the main path starts
     quant_matmul.launches = quant_matmul.prefill_launches = 0
+    quant_matmul.decode_launches = 0
     fields, capture, outs = serve_requests(eng, served["prompts"])
     launches = {"paged_attention_decode_int8":
                 paged_attention_decode.int8_launches,
-                "quant_matmul": (quant_matmul.launches
-                                 - quant_matmul.prefill_launches),
+                "quant_matmul": quant_matmul.launches,
+                "quant_matmul_decode": quant_matmul.decode_launches,
                 "quant_matmul_prefill": quant_matmul.prefill_launches}
-    # the main path ended. Every prefill chunk's MLP linears (gate, up,
-    # down in each layer) at its bucket's rows take the wgmma route
-    # wherever quant_matmul_route says so; the rest is the decode route
-    # (decode launches, and the head's single row at a chunk's end)
+    # the main path ended. Every launch takes the kernel quant_matmul_route
+    # names for its rows: a decode launch's 16 (the batch bucket) for the
+    # MLP linears and the head, a prefill chunk's bucket for its MLP
+    # linears (read back from the flight recorder) and 1 for its head row
     chunks = [int(prog.split(":")[1][1:]) for rec in eng.recorder.records()
               for prog in rec["programs"] if prog.startswith("chunk:")]
     if len(chunks) != fields["prefill_launches"]:
@@ -596,17 +626,35 @@ def phase_serve_quant(served, seed: int):
                              f"{fields['prefill_launches']} chunks")
     h, i = cfg.hidden_size, cfg.intermediate_size
     mlp = ((h, i), (h, i), (i, h))
-    prefill = sum(quant_matmul_route(S, K, N, torch.bfloat16) == "sm90"
-                  for S in chunks for K, N in mlp) * cfg.num_hidden_layers
-    total = (fields["decode_launches"] + fields["prefill_launches"]) \
-        * mlp_and_head
+    kernel_of = {"decode_sm90": "quant_matmul_decode",
+                 "sm90": "quant_matmul_prefill"}
     want = {"paged_attention_decode_int8":
             fields["decode_launches"] * cfg.num_hidden_layers,
-            "quant_matmul": total - prefill, "quant_matmul_prefill": prefill}
-    if launches != want or not all(launches.values()) or \
+            "quant_matmul": 0, "quant_matmul_decode": 0,
+            "quant_matmul_prefill": 0}
+    L, head = cfg.num_hidden_layers, (h, cfg.vocab_size)
+    for rows, K, N, times in (
+            [(16, K, N, L * fields["decode_launches"]) for K, N in mlp]
+            + [(16, *head, fields["decode_launches"]), (1, *head, len(chunks))]
+            + [(S, K, N, L) for S in chunks for K, N in mlp]):
+        route = quant_matmul_route(rows, K, N, torch.bfloat16)
+        want[kernel_of.get(route, "quant_matmul")] += times
+    if launches != want or launches["quant_matmul"] or not all(
+            v for k, v in launches.items() if k != "quant_matmul") or \
             paged_attention_decode.launches != full_width:
         raise AssertionError(f"quantized-path launches {launches} != "
-                             f"{want}, or a full-width decode launch")
+                             f"{want}, a bf16 launch on quant_matmul.cu, or "
+                             f"a full-width decode launch")
+    # the profiled decode-only step: 97 int8 matmul launches, every one the
+    # decode stream's, and no second launch to sum K splits
+    prof = fields["profiled_step"]
+    if prof is not None and prof["decode_only"]:
+        qmm = prof["by_kind"].get("quant_matmul", {}).get("launches", 0)
+        if qmm != mlp_and_head or prof["reduce_splits_launches"]:
+            raise AssertionError(f"profiled decode step: {qmm} int8 matmul "
+                                 f"launches (want {mlp_and_head}), "
+                                 f"{prof['reduce_splits_launches']} "
+                                 f"reduce_splits")
     buckets = {S: chunks.count(S) for S in sorted(set(chunks))}
     peak = torch.cuda.max_memory_allocated()
     eng.reset_prefix_cache()
@@ -1286,16 +1334,20 @@ def _rel_err(got, want) -> float:
 
 def qmm_shapes():
     """(name: (M, K, N)) of the int8 matmul checks: Llama-3-8B's decode
-    GEMMs at the batch bucket (16 rows, the decode route), gate/up and
-    down at the prefill token budget (512 rows, the wgmma route), and a
-    ragged shape on each route (the prefill one: M not a multiple of 64,
-    N not of the 128-column tile, split over K)."""
+    GEMMs at the batch bucket (16 rows) and the head's prefill row (1),
+    the decode stream's routes; gate/up and down at the prefill token
+    budget (512 rows, the wgmma route); a ragged shape on each of the two
+    (the decode one: 13 rows, K not a multiple of the 64-row unit, N not
+    of the 256-column tile; the prefill one: M not a multiple of 64, N not
+    of the 128-column tile, split over K) and one TMA cannot address (N
+    not a multiple of 16: quant_matmul.cu)."""
     from paddle_tpu_torch.models.llama import llama_3_8b
     cfg = llama_3_8b()
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     return {"gate_up_m16": (16, h, i), "down_m16": (16, i, h),
-            "lm_head_m16": (16, h, v), "gate_up_m512": (512, h, i),
-            "down_m512": (512, i, h), "ragged": (5, 200, 72),
+            "lm_head_m16": (16, h, v), "lm_head_m1": (1, h, v),
+            "gate_up_m512": (512, h, i), "down_m512": (512, i, h),
+            "ragged": (5, 200, 72), "ragged_decode": (13, 1000, 4112),
             "ragged_prefill": (200, h, 1040)}
 
 
@@ -1318,12 +1370,14 @@ def check_quant_kernels(seed: int, decode=None):
     `serve_lens`) with bf16 and fp32 queries — max abs error within
     2e-2 / 1e-4 of the plain version, as for the full-width kernel, the
     pad row exact zeros — and the int8 matmul at `qmm_shapes` in bf16
-    (||got - ref|| / ||ref|| <= 1e-2, the output's rounding) and fp32
-    (max abs error <= 1e-4 of max |ref|). Returns (errors, failures,
-    q): errors[kernel][case] = {"err", "limit"}; failures lists the
-    (kernel, case) that missed or gave a non-finite value. Launches here
-    are not counted as the main path's."""
+    (||got - ref|| / ||ref|| <= 1e-2, the output's rounding; on the
+    decode stream also a repeat launch bitwise equal and its ticket
+    counters back at 0) and fp32 (max abs error <= 1e-4 of max |ref|).
+    Returns (errors, failures, q): errors[kernel][case] = {"err",
+    "limit"}; failures lists the (kernel, case) that missed or gave a
+    non-finite value. Launches here are not counted as the main path's."""
     import torch
+    from paddle_tpu_torch.kernels import quant_matmul as qm
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_attention_decode_ref)
     from paddle_tpu_torch.kernels.quant_matmul import (
@@ -1367,10 +1421,22 @@ def check_quant_kernels(seed: int, decode=None):
             else:
                 err = _max_err(got, want)
                 lim = 1e-4 * want.float().abs().max().item()
+            route = quant_matmul_route(*shape, dt)
             errs["quant_matmul"][case] = {
                 "err": err, "limit": lim, "max_abs": _max_err(got, want),
-                "route": quant_matmul_route(*shape, dt)}
-            if not (err <= lim and torch.isfinite(got).all()):
+                "route": route}
+            ok = err <= lim and torch.isfinite(got).all()
+            if route == "decode_sm90":
+                again = quant_matmul(xx, qw, scale)
+                torch.cuda.synchronize()
+                tickets = qm._DECODE_SCRATCH[got.device][1]
+                repeat = torch.equal(got, again)
+                idle = not tickets.any().item()
+                errs["quant_matmul"][case].update(
+                    repeat_bitwise=repeat, tickets_zero=idle)
+                ok = ok and repeat and idle
+                del again
+            if not ok:
                 failures.append(("quant_matmul", case))
             del got, want, xx
         del x, qw, scale
@@ -1380,9 +1446,10 @@ def check_quant_kernels(seed: int, decode=None):
 def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
     """The int8 paged-decode kernel on layer 0 of a live serve_quant
     decode batch and the int8 matmul at the main path's shapes (the
-    decode route at M 16, the wgmma route at M 512 and at each prefill
-    bucket serve_quant launched, `buckets`), against their plain versions,
-    then timed beside them, a library call and the bound."""
+    decode stream at M 16 and 1, the wgmma route at M 512 and at each
+    prefill bucket serve_quant launched, `buckets`; quant_matmul.cu with
+    fp32 x at M 16), against their plain versions, then timed beside
+    them, a library call and the bound."""
     import torch
     from paddle_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_ref, quant_matmul_route)
@@ -1422,12 +1489,14 @@ def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
                  "gb_per_s": t["gb_per_s"], "long_context": long_ctx,
                  "card": card})
 
-    # --- int8 matmul, bf16 x: the decode route at M 16 (the quant_matmul
-    # row) and the wgmma route (quant_matmul_prefill) at gate/up and down
-    # M 512 and at every bucket serve_quant's prefill chunks launched
-    def qmm_row(M, K, N):
+    # --- int8 matmul: the decode stream at M 16 and the head's M 1 row
+    # (quant_matmul_decode), the wgmma route (quant_matmul_prefill) at
+    # gate/up and down M 512 and at every bucket serve_quant's prefill
+    # chunks launched, both with bf16 x, and quant_matmul.cu with fp32 x
+    # at M 16, the decode rows it keeps
+    def qmm_row(M, K, N, dtype=torch.bfloat16, stream=False):
         x, qw, scale = qmm_inputs((M, K, N), seed)
-        xb = x.bfloat16()
+        xb = x.to(dtype)
         got = quant_matmul(xb, qw, scale)
         err = _rel_err(got, quant_matmul_ref(xb, qw, scale))
         if not (err <= 1e-2 and torch.isfinite(got).all()):
@@ -1436,56 +1505,87 @@ def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
         ms = time_ms(lambda: quant_matmul(xb, qw, scale), flush_buf.zero_)
         pms = time_ms(lambda: quant_matmul_ref(xb, qw, scale),
                       flush_buf.zero_, reps=10, warmup=2)
-        # library yardstick, never called by the port: the bf16 GEMM the
-        # int8 path replaces (twice the weight bytes)
-        wb = weight_dequantize(qw, scale, out_dtype="bfloat16")
+        # library yardstick, never called by the port: the GEMM the int8
+        # path replaces on the dequantized weight (bf16: twice the weight
+        # bytes; fp32: four times)
+        wb = weight_dequantize(qw, scale, out_dtype=str(dtype).replace(
+            "torch.", ""))
         lms = time_ms(lambda: torch.matmul(xb, wb), flush_buf.zero_)
-        nb = K * N + N * 4 + M * K * 2 + M * N * 2
+        w = xb.element_size()
+        nb = K * N + N * 4 + M * K * w + M * N * w
         fl = 2 * M * K * N
+        name = str(dtype).replace("torch.", "")
         b_ms = nb / HBM_BYTES_PER_S * 1e3
-        o_ms = fl / PEAK_FLOPS["bfloat16"] * 1e3
-        return {"M": M, "K": K, "N": N,
-                "route": quant_matmul_route(M, K, N, torch.bfloat16),
-                "ms": ms, "plain_ms": pms, "library_ms": lms,
-                "bound_ms": max(b_ms, o_ms),
-                "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "bytes": nb, "flops": fl, "gb_per_s": nb / ms / 1e6,
-                "tflops_per_s": fl / ms / 1e9, "rel_err_bf16": err}
+        o_ms = fl / PEAK_FLOPS[name] * 1e3
+        row = {"M": M, "K": K, "N": N, "x": name,
+               "route": quant_matmul_route(M, K, N, dtype),
+               "ms": ms, "plain_ms": pms, "library_ms": lms,
+               "bound_ms": max(b_ms, o_ms),
+               "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "bytes": nb, "flops": fl, "gb_per_s": nb / ms / 1e6,
+               "tflops_per_s": fl / ms / 1e9, "rel_err": err}
+        if stream:
+            # what a cold start costs a byte stream this size: the kernel
+            # after a flush that leaves L2 clean (a read of the flush
+            # buffer, where zero_ leaves ~50 MB of dirty lines for the
+            # kernel's misses to write back), and one PyTorch read of the
+            # same weight bytes (amax) after either flush
+            clean = flush_buf.view(torch.float32).amax
+            words = qw.view(torch.float32)
+            row.update(
+                ms_l2_clean=time_ms(lambda: quant_matmul(xb, qw, scale),
+                                    clean),
+                weight_read_ms=time_ms(words.amax, flush_buf.zero_),
+                weight_read_ms_l2_clean=time_ms(words.amax, clean))
+        return row
 
     shapes = qmm_shapes()
     h, i = shapes["gate_up_m16"][1:]
-    decode = {n: qmm_row(*shapes[n])
-              for n in ("gate_up_m16", "down_m16", "lm_head_m16")}
+    decode = {n: qmm_row(*shapes[n], stream=True)
+              for n in ("gate_up_m16", "down_m16", "lm_head_m16",
+                        "lm_head_m1")}
     prefill = {n: qmm_row(*shapes[n]) for n in ("gate_up_m512", "down_m512")}
     for S in buckets:
         for n, (K, N) in (("gate_up", (h, i)), ("down", (i, h))):
             if f"{n}_m{S}" not in prefill and \
                     quant_matmul_route(S, K, N, torch.bfloat16) == "sm90":
                 prefill[f"{n}_m{S}"] = qmm_row(S, K, N)
+    fp32 = {"gate_up_m16_fp32": qmm_row(*shapes["gate_up_m16"],
+                                        dtype=torch.float32)}
     e = errs["quant_matmul"]
-    for name, per_shape, head in (("quant_matmul", decode, "gate_up_m16"),
-                                  ("quant_matmul_prefill", prefill,
-                                   "gate_up_m512")):
+    for name, per_shape, head, case in (
+            ("quant_matmul_decode", decode, "gate_up_m16",
+             "gate_up_m16_bfloat16"),
+            ("quant_matmul_prefill", prefill, "gate_up_m512",
+             "gate_up_m512_bfloat16"),
+            ("quant_matmul", fp32, "gate_up_m16_fp32",
+             "gate_up_m16_float32")):
         _, source, replaces = KERNEL[name]
         top = per_shape[head]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "design": DESIGN[name],
                      "launches": launches[name],
-                     "max_abs_err": e[f"{head}_bfloat16"]["max_abs"],
-                     "rel_err": top["rel_err_bf16"],
+                     "max_abs_err": e[case]["max_abs"],
+                     "rel_err": top["rel_err"],
                      "ms": top["ms"], "kernel_ms": top["ms"],
                      "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                      "bound_by": top["bound_by"],
                      "library_ms": top["library_ms"],
-                     "library": "torch.matmul on the bf16 dequantized weight",
+                     "library": "torch.matmul on the dequantized weight "
+                                "in x's dtype",
                      "shape": {"M": top["M"], "K": top["K"], "N": top["N"],
-                               "x": "bfloat16", "w": "int8 + fp32 scales",
+                               "x": top["x"], "w": "int8 + fp32 scales",
                                "row_is": head},
                      "shapes": per_shape, "bytes": top["bytes"],
                      "flops": top["flops"], "card": card})
-    # fp32 x keeps quant_matmul.cu at every M: its check, on the decode row
-    rows[-2]["max_abs_err_fp32"] = e["gate_up_m16_float32"]["max_abs"]
-    rows[-1]["prefill_chunks_by_bucket"] = buckets
+    rows[-3]["max_abs_err_by_case"] = {
+        c: v["max_abs"] for c, v in e.items() if v["route"] == "decode_sm90"}
+    rows[-2]["prefill_chunks_by_bucket"] = buckets
+    rows[-1]["launches_note"] = ("fp32 x and shapes TMA cannot address: "
+                                 "no bf16 launch of the main path takes it")
+    rows[-1]["max_abs_err_by_case"] = {
+        c: v["max_abs"] for c, v in e.items()
+        if v["route"] in ("decode", "fp32", "mma")}
     return rows
 
 

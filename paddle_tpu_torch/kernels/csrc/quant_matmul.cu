@@ -8,11 +8,14 @@
 // applied once at the flush (not per K step), as on the TPU. Any M, K, N:
 // ragged edges are zero-filled in shared memory and never stored.
 //
-// Bound on this card: bytes. Serving runs it at M = 16 (the decode batch
-// bucket) over the MLP's and the LM head's weights, where it does ~2 M
-// = 32 flops per weight byte, far below the ~295 flop/byte where the
-// tensor cores bind; the int8 weight is half the bytes of the bf16 GEMM
-// it replaces. Prefill runs it at M <= 512. The design:
+// What it keeps: the port's Hopper kernels take bf16 x whose operands
+// TMA can address (quant_decode_sm90.cu at M <= 16, quant_matmul_sm90.cu
+// above), so this file serves fp32 x at every M and the shapes TMA cannot
+// address (K not a multiple of 8, N not of 16, an unaligned base) in
+// either type; no bf16 launch of the serving path reaches it. Bound on
+// this card: bytes at decode rows (~2 M flops per weight byte, far below
+// the ~295 where the bf16 tensor cores bind), operations at prefill rows
+// in fp32. The design:
 //   * a block of 4 warps owns a BM x BN output tile and walks K in
 //     32-deep tiles: x and int8 weight tiles are loaded with 16-byte
 //     vectors where the shape and alignment allow (byte or element loads
@@ -25,10 +28,9 @@
 //     the order of summation;
 //   * fp32 x: fp32 FMAs (never TF32), each thread computing the same
 //     accumulator fragment positions, so the epilogue is shared;
-//   * M <= 16 (decode): BM 16, BN 128, the 4 warps side by side in N;
-//     M > 16 (prefill): BM 64, BN 64, the warps stacked in M;
-//   * when the output tiles alone leave the card short of blocks (at
-//     M = 16 down_proj has 32 tiles of 128 columns for 132 SMs), K is
+//   * M <= 16 (decode rows): BM 16, BN 128, the 4 warps side by side in
+//     N; M > 16 (prefill rows): BM 64, BN 64, the warps stacked in M;
+//   * when the output tiles alone leave the card short of blocks, K is
 //     split over a third grid axis; each split writes its fp32 partial
 //     tile to a workspace and a second kernel sums the splits in a fixed
 //     order, applies the scale and casts: deterministic, no atomics

@@ -9,8 +9,9 @@
 // bf16; fp32 accumulation, the per-column scale once at the flush, as on
 // the TPU. TMA addresses the operands, so K must be a multiple of 8 (x's
 // row stride a multiple of 16 bytes), N a multiple of 16 (q's) and both
-// bases 16-byte aligned; the wrapper's route sends every other shape,
-// fp32 x and M <= 16 (decode) to quant_matmul.cu.
+// bases 16-byte aligned; the wrapper's route sends bf16 rows of at most
+// 16 to quant_decode_sm90.cu, and fp32 x and every other shape to
+// quant_matmul.cu.
 //
 // Bound on this card: operations. A serving prefill chunk runs it at M up
 // to 512 over the MLP weights: at gate/up (512, 4096, 14336) 60 GFLOP

@@ -6,15 +6,22 @@
 int8, scale (N,) fp32) -> (M, N) in x2d's dtype. On CUDA tensors it
 launches a hand-written Hopper kernel (each replaces the Pallas
 `_kernel`; the source notes say what bounds it and how the design
-answers), counted in `.launches`, or raises. `quant_matmul_route` picks
-the kernel before the launch, from the shape, the dtype and the
-alignment alone: bf16 prefill rows (M > 16) that TMA can address take
-the wgmma kernel of `csrc/quant_matmul_sm90.cu` (also counted in
-`.prefill_launches`; `quant_prefill_plan` picks its tile rows and K
-splits), every other shape `csrc/quant_matmul.cu`. On CPU tensors it
-runs `quant_matmul_ref`, the plain version with the kernels' numerics:
-fp32 accumulation of x.float() @ qw.float(), the per-column scale once
-at the flush, then the cast.
+answers) or raises. `quant_matmul_route` picks the kernel before the
+launch, from the shape, the dtype and the alignment alone, and each
+kernel counts its own launches:
+  * bf16 decode rows (M <= 16) that TMA can address: the weight stream
+    of `csrc/quant_decode_sm90.cu`, one balanced launch a call
+    (`quant_decode_plan` sizes its grid, `quant_decode_split` is its
+    split of the work in Python), in `.decode_launches`;
+  * bf16 prefill rows (M > 16) that TMA can address: the wgmma kernel of
+    `csrc/quant_matmul_sm90.cu` (`quant_prefill_plan` picks its tile
+    rows and K splits), in `.prefill_launches`;
+  * fp32 x, and shapes TMA cannot address at any M: `csrc/quant_matmul.cu`
+    (its decode tile at M <= 16, its FMA and ragged mma.sync prefill
+    tiles above), in `.launches`.
+On CPU tensors it runs `quant_matmul_ref`, the plain version with the
+kernels' numerics: fp32 accumulation of x.float() @ qw.float(), the
+per-column scale once at the flush, then the cast.
 
 `dequant_matmul` is the reference's scale-first composition
 (`dequant_matmul_xla`): the weight is dequantized, then multiplied.
@@ -35,11 +42,14 @@ from . import build
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "dequant_matmul",
            "pick_quant_blocks", "quant_matmul_supported",
-           "quant_matmul_route", "quant_prefill_plan", "KERNEL_SOURCE",
-           "SM90_SOURCE", "C_ARGTYPES", "SM90_C_ARGTYPES"]
+           "quant_matmul_route", "quant_prefill_plan", "quant_decode_plan",
+           "quant_decode_split", "KERNEL_SOURCE", "SM90_SOURCE",
+           "DECODE_SOURCE", "C_ARGTYPES", "SM90_C_ARGTYPES",
+           "DECODE_C_ARGTYPES"]
 
 KERNEL_SOURCE = "quant_matmul.cu"
 SM90_SOURCE = "quant_matmul_sm90.cu"
+DECODE_SOURCE = "quant_decode_sm90.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the reference's tiling rule (kernels/quant_matmul.py): divisor search
@@ -150,22 +160,25 @@ def _check_cuda_args(x2d, qw, scale):
 DECODE_ROWS = 16
 # csrc/quant_matmul_sm90.cu: output columns of a block, K depth of a stage
 SM90_BN, SM90_BK = 128, 64
+# csrc/quant_decode_sm90.cu: output columns and K rows of a work unit
+DECODE_BN, DECODE_BK = 256, 64
 
 
 def quant_matmul_route(M, K, N, x_dtype, aligned=True) -> str:
     """Which kernel a CUDA launch of (M, K) @ (K, N) takes, decided before
-    the launch: "decode" (M <= 16, `csrc/quant_matmul.cu`'s decode tile,
-    either dtype), "fp32" (fp32 x, its FMA kernel), "sm90" (bf16 x whose
-    operands TMA can address: K a multiple of 8, N of 16, both bases
-    16-byte aligned — `csrc/quant_matmul_sm90.cu`), else "mma"
-    (`csrc/quant_matmul.cu`'s mma.sync prefill tile)."""
+    the launch. bf16 x whose operands TMA can address (K a multiple of 8,
+    N of 16, both bases 16-byte aligned) takes "decode_sm90" at M <= 16
+    (`csrc/quant_decode_sm90.cu`) and "sm90" above
+    (`csrc/quant_matmul_sm90.cu`). `csrc/quant_matmul.cu` keeps the rest:
+    "decode" (M <= 16: fp32 x, or a shape TMA cannot address), "fp32"
+    (fp32 x above 16 rows) and "mma" (its ragged bf16 prefill tile)."""
+    addressable = x_dtype == torch.bfloat16 and K % 8 == 0 \
+        and N % 16 == 0 and aligned
     if M <= DECODE_ROWS:
-        return "decode"
+        return "decode_sm90" if addressable else "decode"
     if x_dtype != torch.bfloat16:
         return "fp32"
-    if K % 8 == 0 and N % 16 == 0 and aligned:
-        return "sm90"
-    return "mma"
+    return "sm90" if addressable else "mma"
 
 
 def quant_prefill_plan(M, K, N, num_sms):
@@ -186,6 +199,59 @@ def quant_prefill_plan(M, K, N, num_sms):
     return 64, -(-kt // per)
 
 
+def _decode_units(K, N):
+    """(column tiles, K units a tile) of the decode_sm90 route."""
+    return -(-N // DECODE_BN), -(-K // DECODE_BK)
+
+
+def quant_decode_plan(M, K, N, num_sms) -> int:
+    """CTAs of a decode_sm90 launch: one an SM, never more than the work
+    units (column tiles x K units). Shapes only."""
+    tiles, kt = _decode_units(K, N)
+    return max(1, min(num_sms, tiles * kt))
+
+
+def quant_decode_split(K, N, ctas):
+    """The split every CTA of the decode_sm90 kernel computes, in Python:
+    (runs, merges). Units are numbered column tile by column tile, K
+    inside; the first U % ctas CTAs take U // ctas + 1 units, the others
+    U // ctas, each a contiguous run. runs[i] lists CTA i's segments as
+    (tile, first K unit, end K unit, slot): slot None for a tile it
+    covers alone (flushed by it), else the workspace slot of its partial
+    (0 for its first tile, 1 for its last). merges maps each shared tile
+    to its parts [(cta, slot)] in the order the merging CTA adds them:
+    the owners of the tile's first to last unit, that is K order."""
+    tiles, kt = _decode_units(K, N)
+    units = tiles * kt
+    base, rem = divmod(units, ctas)
+
+    def start(i):
+        return i * base + min(i, rem)
+
+    def owner(u):
+        big = rem * (base + 1)
+        return u // (base + 1) if u < big else rem + (u - big) // base
+
+    runs = []
+    for i in range(ctas):
+        segs, u, u1 = [], start(i), start(i + 1)
+        while u < u1:
+            tile = u // kt
+            end = min(u1, (tile + 1) * kt)
+            whole = u == tile * kt and end == (tile + 1) * kt
+            slot = None if whole else 0 if start(i) // kt == tile else 1
+            segs.append((tile, u - tile * kt, end - tile * kt, slot))
+            u = end
+        runs.append(segs)
+    merges = {}
+    for tile in range(tiles):
+        first, last = owner(tile * kt), owner((tile + 1) * kt - 1)
+        if first != last:
+            merges[tile] = [(j, 0 if start(j) // kt == tile else 1)
+                            for j in range(first, last + 1)]
+    return runs, merges
+
+
 # the C entries of csrc/quant_matmul.cu:
 #   quant_matmul(x, q, scale, out, ws, M, K, N, splits, dtype, stream)
 #   quant_matmul_splits(M, K, N, num_sms)
@@ -195,6 +261,19 @@ C_SPLITS_ARGTYPES = [ctypes.c_int] * 4
 #   quant_matmul_sm90(x, q, scale, out, ws, M, K, N, bm, splits, stream)
 SM90_C_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]
+# csrc/quant_decode_sm90.cu:
+#   quant_decode_sm90(x, q, scale, out, ws, tickets, M, K, N, ctas, stream)
+DECODE_C_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+# fp32 workspace of the decode_sm90 route per CTA: two slots of 256
+# consumer threads x up to 16 sums
+_DECODE_WS_PER_CTA = 2 * 256 * 16
+# per device: the decode_sm90 route's scratch — its fp32 workspace (a
+# launch reads back all it writes, so launches in one stream's order
+# share it) and its merge's ticket counters, one per column tile (zeroed
+# once; each launch leaves them 0). Not for concurrent launches on
+# several streams.
+_DECODE_SCRATCH = {}
 
 
 def _kernel_lib():
@@ -215,11 +294,32 @@ def _sm90_entry():
     return fn
 
 
+def _decode_entry():
+    fn = build.load(DECODE_SOURCE).quant_decode_sm90
+    if fn.argtypes is None:
+        fn.argtypes = DECODE_C_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _decode_scratch(device, ctas, tiles):
+    """(ws, tickets) of a decode_sm90 launch on `device`."""
+    ws, tickets = _DECODE_SCRATCH.get(device, (None, None))
+    if ws is None or ws.numel() < ctas * _DECODE_WS_PER_CTA:
+        ws = torch.empty(ctas * _DECODE_WS_PER_CTA, dtype=torch.float32,
+                         device=device)
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _DECODE_SCRATCH[device] = (ws, tickets)
+    return ws, tickets
+
+
 def quant_matmul(x2d, qw, scale):
     """x2d (M, K) bf16/fp32 @ dequant(qw (K, N) int8, scale (N,) fp32)
     -> (M, N) in x2d's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel `quant_matmul_route` names (counted in
-    `.launches`, the sm90 route also in `.prefill_launches`) or raise."""
+    tensors launch the kernel `quant_matmul_route` names or raise. Each
+    kernel counts its launches: `.decode_launches` (decode_sm90),
+    `.prefill_launches` (sm90), `.launches` (quant_matmul.cu)."""
     if x2d.device.type == "cpu":
         return quant_matmul_ref(x2d, qw, scale)
     if x2d.device.type != "cuda":
@@ -239,6 +339,19 @@ def quant_matmul(x2d, qw, scale):
         sms = torch.cuda.get_device_properties(x2d.device) \
             .multi_processor_count
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        if route == "decode_sm90":
+            ctas = quant_decode_plan(M, K, N, sms)
+            ws, tickets = _decode_scratch(x2d.device, ctas,
+                                          _decode_units(K, N)[0])
+            err = _decode_entry()(x2d.data_ptr(), qw.data_ptr(),
+                                  scale.data_ptr(), out.data_ptr(),
+                                  ws.data_ptr(), tickets.data_ptr(),
+                                  M, K, N, ctas, stream)
+            if err != 0:
+                raise RuntimeError(f"quant_decode_sm90 kernel launch "
+                                   f"failed: cudaError {err}")
+            quant_matmul.decode_launches += 1
+            return out
         if route == "sm90":
             bm, splits = quant_prefill_plan(M, K, N, sms)
             ws = (torch.empty((splits, M, N), dtype=torch.float32,
@@ -250,7 +363,6 @@ def quant_matmul(x2d, qw, scale):
             if err != 0:
                 raise RuntimeError(f"quant_matmul_sm90 kernel launch "
                                    f"failed: cudaError {err}")
-            quant_matmul.launches += 1
             quant_matmul.prefill_launches += 1
             return out
         lib = _kernel_lib()
@@ -270,3 +382,4 @@ def quant_matmul(x2d, qw, scale):
 
 
 quant_matmul.launches = quant_matmul.prefill_launches = 0
+quant_matmul.decode_launches = 0

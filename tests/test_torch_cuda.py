@@ -221,22 +221,38 @@ def test_long_context_splits_match_plain_version(card):
 # edges in every dimension, and an odd K that defeats the vector loads
 QMM_CASES = [(16, 4096, 14336), (16, 14336, 4096), (64, 4096, 1024),
              (1, 4096, 2048), (5, 200, 72), (17, 96, 130), (3, 37, 16)]
+# the counter of each route's kernel
+QMM_COUNTER = {"decode_sm90": "decode_launches", "sm90": "prefill_launches",
+               "decode": "launches", "fp32": "launches", "mma": "launches"}
+QMM_COUNTERS = ("launches", "prefill_launches", "decode_launches")
+
+
+def _qmm_counts():
+    return {c: getattr(qm.quant_matmul, c) for c in QMM_COUNTERS}
+
+
+def _qmm_case(M, K, N, card, seed=None):
+    """Seeded x (M, K) fp32 and a quantized (K, N) weight on the card."""
+    rng = np.random.RandomState(M + K + N if seed is None else seed)
+    w = torch.from_numpy((rng.randn(K, N) * 0.02).astype(np.float32))
+    qw, s = (t.to(card) for t in weight_quantize(w))
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(card)
+    return x, qw, s
 
 
 @pytest.mark.parametrize("case", QMM_CASES, ids=str)
 def test_quant_matmul_matches_plain_version(card, case):
     """bf16 within ||got - ref|| / ||ref|| <= 1e-2 (the output's
-    rounding), fp32 within 1e-4 of max |ref| (summation order)."""
+    rounding), fp32 within 1e-4 of max |ref| (summation order); each
+    launch counted by its route's kernel alone."""
     M, K, N = case
-    rng = np.random.RandomState(M + K + N)
-    w = torch.from_numpy((rng.randn(K, N) * 0.02).astype(np.float32))
-    qw, s = (t.to(card) for t in weight_quantize(w))
-    x = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(card)
+    x, qw, s = _qmm_case(M, K, N, card)
     for dt in (torch.bfloat16, torch.float32):
-        n0 = qm.quant_matmul.launches
+        n0 = _qmm_counts()
         got = qm.quant_matmul(x.to(dt), qw, s)
         torch.cuda.synchronize()
-        assert qm.quant_matmul.launches == n0 + 1
+        counter = QMM_COUNTER[qm.quant_matmul_route(M, K, N, dt)]
+        assert _qmm_counts() == dict(n0, **{counter: n0[counter] + 1})
         want = qm.quant_matmul_ref(x.to(dt), qw, s)
         assert got.dtype == dt and got.shape == (M, N)
         if dt == torch.float32:
@@ -277,30 +293,111 @@ def test_quant_matmul_prefill_route_matches_plain_version(card, case):
 
 
 def test_quant_matmul_decode_and_unaddressable_shapes_keep_their_kernel(card):
-    """M 16 (the decode bucket) and shapes TMA cannot address — N not a
-    multiple of 16, K not of 8, an unaligned x — keep quant_matmul.cu: no
-    prefill launch, same limits."""
+    """bf16 M 16 (the decode bucket) takes the decode stream
+    (quant_decode_sm90.cu); shapes TMA cannot address — N not a multiple
+    of 16, K not of 8, an unaligned x — keep quant_matmul.cu at decode
+    and prefill rows alike; same limits."""
     rng = np.random.RandomState(3)
-    for M, K, N, shift in ((16, 4096, 14336, 0), (17, 96, 130, 0),
-                           (40, 100, 64, 0), (33, 256, 128, 1)):
+    for M, K, N, shift, counter in (
+            (16, 4096, 14336, 0, "decode_launches"),
+            (16, 96, 130, 0, "launches"), (5, 100, 64, 0, "launches"),
+            (16, 256, 128, 1, "launches"), (17, 96, 130, 0, "launches"),
+            (40, 100, 64, 0, "launches"), (33, 256, 128, 1, "launches")):
         w = torch.from_numpy((rng.randn(K, N) * 0.02).astype(np.float32))
         qw, s = (t.to(card) for t in weight_quantize(w))
         xb = torch.from_numpy(rng.randn(M * K + shift).astype(np.float32)) \
             .to(card).bfloat16()
         x = xb[shift:].view(M, K)
-        n0, p0 = qm.quant_matmul.launches, qm.quant_matmul.prefill_launches
+        n0 = _qmm_counts()
         got = qm.quant_matmul(x, qw, s)
         torch.cuda.synchronize()
-        assert (qm.quant_matmul.launches, qm.quant_matmul.prefill_launches) \
-            == (n0 + 1, p0)
+        assert _qmm_counts() == dict(n0, **{counter: n0[counter] + 1})
         _close_rel(got, qm.quant_matmul_ref(x, qw, s), 1e-2)
+
+
+# (K, N) of the decode stream (csrc/quant_decode_sm90.cu): Llama-3-8B's
+# gate/up, down and LM head, then ragged ones — K not a multiple of the
+# 64-row unit, N a multiple of 16 but not of the 256-column tile, fewer
+# units than SMs, a single unit
+DECODE_QMM_KN = [(4096, 14336), (14336, 4096), (4096, 128256), (1000, 4112),
+                 (200, 80), (136, 16), (8, 16)]
+
+
+@pytest.mark.parametrize("M", [1, 5, 16])
+@pytest.mark.parametrize("kn", DECODE_QMM_KN, ids=str)
+def test_quant_decode_stream_matches_plain_version(card, kn, M):
+    """bf16 rows up to 16 that TMA can address take the decode stream:
+    within ||got - ref|| / ||ref|| <= 1e-2 of quant_matmul_ref (the
+    output's rounding), one `decode_launches` and no other counter."""
+    K, N = kn
+    assert qm.quant_matmul_route(M, K, N, torch.bfloat16) == "decode_sm90"
+    x, qw, s = _qmm_case(M, K, N, card)
+    xb = x.bfloat16()
+    n0 = _qmm_counts()
+    got = qm.quant_matmul(xb, qw, s)
+    torch.cuda.synchronize()
+    assert _qmm_counts() == dict(n0, decode_launches=n0["decode_launches"]
+                                 + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    _close_rel(got, qm.quant_matmul_ref(xb, qw, s), 1e-2)
+
+
+def test_quant_decode_stream_is_deterministic(card):
+    """No float atomics: repeated launches give bitwise equal outputs at
+    shapes whose column tiles are merged from several CTAs' partials, and
+    every ticket counter is back at 0 after each."""
+    for M, K, N in ((16, 4096, 14336), (16, 14336, 4096), (1, 4096, 128256),
+                    (13, 1000, 4112)):
+        x, qw, s = _qmm_case(M, K, N, card)
+        xb = x.bfloat16()
+        first = qm.quant_matmul(xb, qw, s)
+        for _ in range(3):
+            again = qm.quant_matmul(xb, qw, s)
+            torch.cuda.synchronize()
+            assert torch.equal(first, again)
+            assert not qm._DECODE_SCRATCH[first.device][1].any()
+
+
+def test_quant_decode_stream_refuses_with_no_fallback(card, monkeypatch):
+    """The C entry refuses what it does not take (cudaErrorInvalidValue =
+    1): more than 16 rows, K not a multiple of 8, N not of 16, more CTAs
+    than units, an unaligned base, no workspace. A refusal on the route
+    raises in the wrapper, counts nothing and never reaches
+    quant_matmul.cu or the plain version."""
+    x, qw, s = _qmm_case(16, 256, 512, card)
+    xb = x.bfloat16()
+    out = torch.empty(16, 512, dtype=torch.bfloat16, device=card)
+    ws, tickets = qm._decode_scratch(xb.device, 8, 2)
+    entry = qm._decode_entry()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (xb, qw, s, out, ws, tickets)]
+    for M, K, N, ctas in ((17, 256, 512, 8), (16, 252, 512, 8),
+                          (16, 256, 520, 8), (16, 256, 512, 9),
+                          (16, 256, 512, 0)):
+        assert entry(*ptrs, M, K, N, ctas, stream) == 1
+    assert entry(ptrs[0] + 8, *ptrs[1:], 16, 256, 512, 8, stream) == 1
+    assert entry(*ptrs[:4], None, ptrs[5], 16, 256, 512, 8, stream) == 1
+    assert entry(*ptrs, 16, 256, 512, 8, stream) == 0
+    torch.cuda.synchronize()
+    _close_rel(out, qm.quant_matmul_ref(xb, qw, s), 1e-2)
+
+    def fell_back(*a, **k):
+        raise AssertionError("fell back")
+    monkeypatch.setattr(qm, "_decode_entry", lambda: lambda *a: 1)
+    monkeypatch.setattr(qm, "_kernel_lib", fell_back)
+    monkeypatch.setattr(qm, "quant_matmul_ref", fell_back)
+    n0 = _qmm_counts()
+    with pytest.raises(RuntimeError, match="quant_decode_sm90"):
+        qm.quant_matmul(xb, qw, s)
+    assert _qmm_counts() == n0
 
 
 def test_bf16_quantized_engine_prefill_runs_the_wgmma_kernel(card):
     """A tiny bf16 Llama served with wq="int8" on the card through one
     64-token prefill bucket: every prefill chunk's MLP linears (3 per
     layer) take the wgmma route, the head's single row and the decode
-    launches the decode route; every request completes."""
+    launches (8 rows) the decode stream, nothing quant_matmul.cu; every
+    request completes."""
     cfg = LlamaConfig(vocab_size=128, hidden_size=128, intermediate_size=256,
                       num_hidden_layers=2, num_attention_heads=2,
                       num_key_value_heads=1, max_position_embeddings=128,
@@ -314,13 +411,15 @@ def test_bf16_quantized_engine_prefill_runs_the_wgmma_kernel(card):
     prompts = [(rng.randint(0, 128, int(n)).tolist(), 6)
                for n in rng.randint(3, 30, 6)]
     qm.quant_matmul.launches = qm.quant_matmul.prefill_launches = 0
+    qm.quant_matmul.decode_launches = 0
     rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
     eng.run()
     c = eng.metrics.counters
     assert c["prefill_chunks"] > 0
     assert qm.quant_matmul.prefill_launches == c["prefill_chunks"] * 6
-    assert qm.quant_matmul.launches == \
-        (c["decode_launches"] + c["prefill_chunks"]) * 7
+    assert qm.quant_matmul.decode_launches == \
+        c["decode_launches"] * 7 + c["prefill_chunks"]
+    assert qm.quant_matmul.launches == 0
     assert [len(eng.requests[r].output_ids) for r in rids] == [6] * 6
     assert not c["requests_quarantined"]
 
@@ -340,19 +439,27 @@ def test_quantized_kernels_refuse_mismatches(card):
     with pytest.raises(ValueError, match="k_scale"):
         pa.paged_attention_decode(q, k8, v8, bt, sl, k_scale=ks[1:],
                                   v_scale=vs)
-    x = torch.zeros(4, 64, device=card)
     qw = torch.zeros(64, 32, dtype=torch.int8, device=card)
     s = torch.ones(32, device=card)
-    with pytest.raises(ValueError, match="int8"):
-        qm.quant_matmul(x, qw.float(), s)
-    with pytest.raises(ValueError, match="float32"):
-        qm.quant_matmul(x, qw, s.bfloat16())
-    with pytest.raises(ValueError, match="bfloat16 or float32"):
-        qm.quant_matmul(x.half(), qw, s)
-    with pytest.raises(ValueError, match="fit"):
-        qm.quant_matmul(x, qw[:32].contiguous(), s)
-    with pytest.raises(ValueError, match="on"):
-        qm.quant_matmul(x, qw.cpu(), s)
+    # fp32 x (quant_matmul.cu) and bf16 decode rows (the decode stream)
+    for x in (torch.zeros(4, 64, device=card),
+              torch.zeros(16, 64, device=card, dtype=torch.bfloat16)):
+        n0 = _qmm_counts()
+        with pytest.raises(ValueError, match="int8"):
+            qm.quant_matmul(x, qw.float(), s)
+        with pytest.raises(ValueError, match="float32"):
+            qm.quant_matmul(x, qw, s.bfloat16())
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            qm.quant_matmul(x.half(), qw, s)
+        with pytest.raises(ValueError, match="fit"):
+            qm.quant_matmul(x, qw[:32].contiguous(), s)
+        with pytest.raises(ValueError, match="fit"):
+            qm.quant_matmul(x, qw, s[:16])
+        with pytest.raises(ValueError, match="on"):
+            qm.quant_matmul(x, qw.cpu(), s)
+        with pytest.raises(ValueError, match="contiguous"):
+            qm.quant_matmul(x, qw.t().contiguous().t(), s)
+        assert _qmm_counts() == n0
 
 
 def test_quantized_engine_on_card_matches_cpu(card):

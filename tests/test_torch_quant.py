@@ -60,11 +60,14 @@ def test_weight_quantize_is_bitwise_the_reference(dtype, algo):
         pq.weight_dequantize(got_q, got_s, algo=algo).numpy(), _np(want))
 
 
-@pytest.mark.parametrize("M,K,N", [(8, 256, 384), (5, 512, 128)])
+# (M, K, N): tile-legal shapes, among them the decode route's extremes —
+# one row (the LM head's prefill row) and the 16-row decode bucket
+@pytest.mark.parametrize("M,K,N", [(8, 256, 384), (5, 512, 128),
+                                   (1, 256, 384), (16, 512, 256)])
 def test_quant_matmul_ref_matches_reference_kernel(M, K, N):
     """Tile-legal shapes: the reference runs its Pallas kernel
     (interpret mode); the CPU wrapper runs the plain version and counts
-    no launch."""
+    no launch on any route."""
     assert qm.quant_matmul_supported(M, K, N)
     assert qm.pick_quant_blocks(M, K, N) == ref_qm.pick_quant_blocks(M, K, N)
     _, tw = _weight(K, N, M, "float32")
@@ -73,9 +76,10 @@ def test_quant_matmul_ref_matches_reference_kernel(M, K, N):
     want = np.asarray(ref_qm.quant_matmul(jnp.asarray(x),
                                           jnp.asarray(qw.numpy()),
                                           jnp.asarray(s.numpy())))
-    before = qm.quant_matmul.launches
+    counters = ("launches", "prefill_launches", "decode_launches")
+    before = [getattr(qm.quant_matmul, c) for c in counters]
     got = qm.quant_matmul(torch.from_numpy(x), qw, s)
-    assert qm.quant_matmul.launches == before
+    assert [getattr(qm.quant_matmul, c) for c in counters] == before
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(qm.quant_matmul_ref(torch.from_numpy(x), qw,
                                                    s).numpy(), want,
