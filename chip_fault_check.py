@@ -71,19 +71,30 @@ Faults:
   * lora_epilogue_unrounded — the LoRA kernel's bf16 epilogue adds the
     fp32 delta to y without rounding it to bf16 first (y + d rounded
     once, not y + bf16(d));
-  * seg_global_causal — the segment mode applies the global causal mask
+  * seg_global_causal — the segment mode (flash_attention.cu's three
+    kernels and the wgmma dQ and dK/dV) applies the global causal mask
     (key j <= query i + Sk - Sq) instead of the per-sequence one (pos_k <=
     pos_q): equal for self-attention over whole documents, wrong once the
     sequences' q/k lengths differ unevenly (the ragged varlen case);
-  * masked_break_at_gap — the masked modes' fwd and dQ k-loops stop at the
-    first tile that does not contribute (a `break` where a later tile can
-    contribute again): every document after the first loses its keys;
+  * masked_break_at_gap — flash_attention.cu's masked fwd and dQ k-loops
+    stop at the first tile that does not contribute (a `break` where a
+    later tile can contribute again): every document after the first
+    loses its keys (the dQ of the fp32 pass: bf16 dQ is the wgmma
+    kernel's);
   * rms_residual_after_square — rms_norm_rows takes the mean of squares of
     x before the residual is added (the residual joins only the output);
-  * seg_visit_every_tile — the segment mode's skip predicate lets every
-    tile through: the outputs stay right (masked scores add exact zeros),
-    so only the count of visited tile pairs against the plain predicate
-    catches it.
+  * seg_visit_every_tile — the segment mode's skip predicate (in
+    flash_mask.cuh, both flash sources) lets every tile through: the
+    outputs stay right (masked scores add exact zeros), so only the count
+    of visited tile pairs against the plain predicate catches it;
+  * bwd_seg_drop_id — the wgmma masked dQ drops the segment-id test
+    (keys of other documents at or before the query's position count);
+  * bwd_dkv_drop_last_tile — each wgmma masked dK/dV block leaves out the
+    last query tile of its list, still waiting for and freeing it;
+  * bwd_fm_dq_other_stage — the wgmma masked dQ reads its key tile's
+    mask rows (flashmask bounds, segment ids) from stage (s + 1) % 3 of
+    the ring (another key tile's): the full-width document mask and every
+    small flashmask case.
 
 The ring faults keep the ring's protocol (every stage is still waited for
 and released), so they give wrong numbers, never a hang. The unmodified
@@ -91,7 +102,8 @@ copy must pass every check. A planted fault counts as caught when every
 output it corrupts fails its check at the main path's shapes in bf16,
 the main path's type (seg_global_causal: at the ragged
 varlen case, the only one where the two causal masks differ;
-seg_visit_every_tile: the visited-tile counts of the varlen cases). Prints
+seg_visit_every_tile: the visited-tile counts of the varlen cases;
+masked_break_at_gap's dQ: fp32). Prints
 one JSON line per copy and
 exits 0 only when the clean copy passed and every fault was caught.
 """
@@ -115,6 +127,11 @@ _MASKED_LOOP = "    for (int base = 0; base < nk; base += 32) {\n"
 _MASKED_BALLOT = ("                  : 0);\n      }\n"
                   "      unsigned live = __ballot_sync(0xffffffffu, c);\n")
 _SEG_SKIP = "  return overlap && !(causal && one_seq && all_future);\n"
+_BWD_SEG_CAUSAL_DQ = "(causal_b & (kpos > rpos[h]))"
+_BWD_SEG_CAUSAL_DKV = "(causal_b & (kpos[h] > qpos[e]))"
+_BWD_SEG_ID = "(kid != rid[h]) | "
+_BWD_MINE = "      const bool mine = (word >> (24 + wg)) & 1;\n"
+_BWD_COLS = "    const int* cols = m.ivec + s * kIvec;\n"
 _RMS_PASS1 = "    load_row<T, kRes, V>(f, xr, rr, c);\n#pragma unroll\n" \
              "    for (int i = 0; i < V; ++i) ss = fmaf(f[i], f[i], ss);\n"
 _SM90_MASKED = "    const bool masked_tile =\n"
@@ -241,16 +258,33 @@ FAULTS = {
     "seg_global_causal": ([("flash_attention.cu",
                             [(_SEG_CAUSAL, "(causal && col > row + off)", 2),
                              (_SEG_CAUSAL_DKV, "(causal && key > qi + off)",
-                              1)])], "packed"),
+                              1)]),
+                           ("flash_bwd_sm90.cu",
+                            [(_BWD_SEG_CAUSAL_DQ,
+                              "(causal_b & (col > row + off))", 1),
+                             (_BWD_SEG_CAUSAL_DKV,
+                              "(causal_b & (key0 + 8 * h > q + off))", 1)])],
+                          "packed"),
     "masked_break_at_gap": (
         [("flash_attention.cu",
           [(_MASKED_LOOP, "    bool stop = false;\n" + _MASKED_LOOP, 2),
            (_MASKED_BALLOT, _MASKED_BALLOT
             + "      live = stop ? 0u : live & ~(live + 1u);\n"
             "      stop = stop || live != 0xffffffffu;\n", 2)])], "packed"),
-    "seg_visit_every_tile": ([("flash_attention.cu",
+    "seg_visit_every_tile": ([("flash_mask.cuh",
                                [(_SEG_SKIP, "  return true;\n", 1)])],
                              "packed"),
+    "bwd_seg_drop_id": ([("flash_bwd_sm90.cu", [(_BWD_SEG_ID, "", 1)])],
+                        "packed"),
+    "bwd_dkv_drop_last_tile": (
+        [("flash_bwd_sm90.cu",
+          [(_BWD_MINE, _BWD_MINE.replace("& 1;", "& 1 && it + 1 < n;"),
+            1)])], "packed"),
+    "bwd_fm_dq_other_stage": (
+        [("flash_bwd_sm90.cu",
+          [(_BWD_COLS, _BWD_COLS.replace("s * kIvec",
+                                         "(s + 1) % kStages * kIvec"), 1)])],
+        "packed"),
     "rms_residual_after_square": (
         [("fused_norm.cu",
           [(_RMS_PASS1, _RMS_PASS1.replace("kRes", "false"), 1)])], "norm"),
@@ -260,7 +294,8 @@ CHECK_SOURCES = {
     "flash": ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu"),
     "quant": ("paged_attention.cu", "quant_matmul.cu",
               "quant_matmul_sm90.cu", "quant_decode_sm90.cu"),
-    "lora": ("lora_matmul.cu",), "packed": ("flash_attention.cu",),
+    "lora": ("lora_matmul.cu",),
+    "packed": ("flash_attention.cu", "flash_bwd_sm90.cu"),
     "norm": ("fused_norm.cu",), "paged": ("paged_attention.cu",)}
 GPU_SLOTS = 4
 CHILD = """
@@ -372,9 +407,22 @@ def must_fail(name: str):
         # where the two masks coincide; the ragged case's do not
         return [("packed", o, "varlen_ragged_bfloat16")
                 for o in ("out", "lse", "dq", "dk", "dv")]
-    if name == "masked_break_at_gap":
-        return [("packed", o, f"{c}_bfloat16") for o in ("out", "lse", "dq")
+    if name == "masked_break_at_gap":   # bf16 dQ is the wgmma kernel's
+        return [("packed", o, f"{c}_{dt}")
+                for o, dt in (("out", "bfloat16"), ("lse", "bfloat16"),
+                              ("dq", "float32"))
                 for c in ("varlen_full", "flashmask_doc_full")]
+    if name == "bwd_seg_drop_id":
+        return [("packed", "dq", f"{c}_bfloat16")
+                for c in ("varlen_full", "varlen_ragged")]
+    if name == "bwd_dkv_drop_last_tile":
+        return [("packed", o, f"{c}_bfloat16") for o in ("dk", "dv")
+                for c in ("varlen_full", "varlen_ragged",
+                          "flashmask_doc_full", "flashmask_band_c2")]
+    if name == "bwd_fm_dq_other_stage":
+        return [("packed", "dq", f"{c}_bfloat16")
+                for c in ("flashmask_doc_full", "flashmask_band_c2",
+                          "flashmask_nc2", "flashmask_nc4", "flashmask_heads")]
     if name == "seg_visit_every_tile":
         return [("packed", "tiles", f"{c}_{dt}")
                 for c in ("varlen_full", "varlen_ragged")

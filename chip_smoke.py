@@ -12,7 +12,8 @@ Phases, one JSON line each:
                packed-attention paths and rms_norm_rows from the
                repository's sources (one nvcc per source, in parallel);
                reports each source's ptxas registers and spills, naming
-               the functions that spill.
+               the functions that spill, and each wgmma kernel's
+               registers and spill bytes.
   3. serve   — builds Llama-3-8B (`llama_3_8b`, all 32 layers, bf16)
                from seeded random weights on the card and serves 16
                greedy requests (prompts of 128-1024 tokens, 32-64 new
@@ -77,7 +78,9 @@ Phases, one JSON line each:
                flash_attn_varlen_qkvpacked, flashmask_attention with the
                causal document mask (C 1) and with window_size=1024: 2
                warm-up and 4 timed calls each. Checks every call launched
-               its variant's fwd, dQ and dK/dV kernels once, finite
+               its variant's fwd, dQ and dK/dV kernels once (every dQ
+               and dK/dV on the wgmma kernels of flash_bwd_sm90.cu, every
+               forward on flash_attention.cu), finite
                outputs and gradients, one document's change leaving every
                other row of outputs and gradients bitwise unchanged, the
                varlen and document-mask entries within flash_error's bf16
@@ -112,7 +115,8 @@ Phases, one JSON line each:
                * flash fwd / dQ / dK/dV: the training shape (B*H 32,
                  S 4096, D 128, causal; seeded) and small ragged ones
                  (S not a tile multiple, D 64 and 40, Sq < Sk and
-                 Sq > Sk, causal and not, causal rows that see no key)
+                 Sq > Sk, causal and not, causal rows that see no key,
+                 Sq not a multiple of 4)
                  — bf16 on the wgmma kernels (flash_fwd_sm90.cu,
                  flash_bwd_sm90.cu), fp32 on flash_attention.cu; bf16
                  outputs within a relative error ||got - ref|| / ||ref||
@@ -171,7 +175,9 @@ Phases, one JSON line each:
                  causal C 2, non-causal C 2 and C 4, per-head bounds — in
                  bf16 and fp32 with flash_error's limits, each kernel's
                  count of visited tile pairs equal to the plain
-                 predicate's (`check_packed_kernels`); timed at full
+                 predicate's (`check_packed_kernels`: bf16 dQ and
+                 dK/dV on flash_bwd_sm90.cu, the rest on
+                 flash_attention.cu); timed at full
                  width (tile summaries prebuilt, as the autograd
                  Functions pass them) beside SDPA with the equivalent
                  dense boolean mask and the bound of the allowed pairs;
@@ -226,21 +232,22 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/lora_matmul.py:176"),
            ("flash_attention_varlen_fwd", _CSRC + "flash_attention.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
-           ("flash_attention_varlen_dq", _CSRC + "flash_attention.cu",
+           ("flash_attention_varlen_dq", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:333"),
-           ("flash_attention_varlen_dkv", _CSRC + "flash_attention.cu",
+           ("flash_attention_varlen_dkv", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:386"),
            ("flashmask_attention_fwd", _CSRC + "flash_attention.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
-           ("flashmask_attention_dq", _CSRC + "flash_attention.cu",
+           ("flashmask_attention_dq", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:333"),
-           ("flashmask_attention_dkv", _CSRC + "flash_attention.cu",
+           ("flashmask_attention_dkv", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:386"),
            ("rms_norm_rows", _CSRC + "fused_norm.cu",
             "paddle_tpu/kernels/fused_norm.py:36")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
-# flash_attention.cu also holds the fp32, head_dim > 128 and masked routes
-# of all three flash kernels; the wgmma sources share csrc/hopper.cuh
+# flash_attention.cu also holds the fp32 and head_dim > 128 routes of all
+# three flash kernels and the masked forward; the wgmma sources share
+# csrc/hopper.cuh, the two flash sources csrc/flash_mask.cuh
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the design of each kernel of the redesigned routes, for the kernels line
 DESIGN = {
@@ -271,6 +278,25 @@ DESIGN = {
                            "dV += P^T dO and dK += dS^T Q, 2 consumer "
                            "warpgroups of 64 keys, thread 0 issuing the "
                            "loads",
+    "flash_attention_varlen_dq": "sm90, segment mode: the plain dQ's block "
+                                 "and ring; before the roles split every "
+                                 "warp ballots the skip predicate for 32 key "
+                                 "tiles at once per warpgroup, the ring "
+                                 "carries the tiles either warpgroup "
+                                 "computes, each with its (id, position) "
+                                 "rows as 1-D TMA boxes; the mask "
+                                 "branch-free on the accumulators, skipped "
+                                 "on pairs the summaries show whole",
+    "flash_attention_varlen_dkv": "sm90, segment mode: the plain dK/dV's "
+                                  "block and ring over the listed query "
+                                  "tiles, their (id, position) rows riding "
+                                  "with Q and lse; thread 0 walking the "
+                                  "list as it refills",
+    "flashmask_attention_dq": "sm90, flashmask mode: as the segment dQ, the "
+                              "key tiles' C bound rows riding in the stage",
+    "flashmask_attention_dkv": "sm90, flashmask mode: as the segment dK/dV, "
+                               "the block's C x 128 key bounds loaded once "
+                               "with K and V",
     "quant_matmul_prefill": "sm90: TMA ring of x and int8 W tiles (4 stages, "
                             "mbarriers), wgmma RS on out^T = W^T x^T with "
                             "W^T converted to bf16 in registers, 2 consumer "
@@ -302,11 +328,11 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 4, 3e-4
 # flash kernel checks (B*H, Sq, Sk, D, causal): the training shape, and
 # ragged ones: S not a tile multiple with D 64 and Sq < Sk; Sq > Sk, whose
-# first 70 query rows see no key under causal; non-causal Sq > Sk, and Sq
-# < Sk at D 40 (below the instantiated width)
+# first 70 query rows see no key under causal; non-causal Sq > Sk, Sq < Sk
+# at D 40 (below the instantiated width), and Sq not a multiple of 4
 FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128, True), (3, 72, 136, 64, True),
                 (2, 200, 130, 128, True), (2, 136, 64, 128, False),
-                (2, 96, 200, 40, False))
+                (2, 96, 200, 40, False), (2, 130, 130, 64, True))
 # the serve phase's bf16 pool; serve_quant gets the same bytes of int8
 # pages
 SERVE_PAGES = 2048
@@ -2097,6 +2123,7 @@ def phase_packed_attention(seed: int):
     results, per_entry = {}, {}
     for f in fns.values():                       # the main path starts
         f.launches = f.varlen_launches = f.flashmask_launches = 0
+        f.sm90_launches = 0
     for name, (make, fn) in entries.items():
         leaves = make(q, k, v)
         torch.cuda.synchronize()
@@ -2118,11 +2145,16 @@ def phase_packed_attention(seed: int):
                 for kind in ("varlen", "flashmask")
                 for k_, f in fns.items()}
     plain = {k_: f.launches for k_, f in fns.items()}
+    sm90 = {k_: f.sm90_launches for k_, f in fns.items()}
     # the main path ended
     calls = 2 * (PACK_WARMUP + PACK_TIMED)      # two entry points a variant
     if set(launches.values()) != {calls} or any(plain.values()):
         raise AssertionError(f"packed_attention launches {launches} (want "
                              f"{calls} each), plain-mode {plain} (want 0)")
+    # every masked dQ and dK/dV on the wgmma kernels, no forward
+    if sm90 != {"fwd": 0, "dq": 2 * calls, "dkv": 2 * calls}:
+        raise AssertionError(f"packed_attention wgmma launches {sm90} (want "
+                             f"fwd 0, dq and dkv {2 * calls})")
     for name, (out, grads) in results.items():
         if not all(torch.isfinite(t).all() for t in (out,) + grads):
             raise AssertionError(f"{name}: non-finite output or gradient")
@@ -2218,7 +2250,8 @@ def phase_packed_attention(seed: int):
           "flops_basis": "18 * D per allowed (q, k) pair and head: fwd 4, "
                          "dQ 6, dK/dV 8 (the kernels' products)",
           "entries": per_entry, "kernel_launches": launches,
-          "plain_mode_launches": plain, "varlen_vs_flashmask": agree,
+          "plain_mode_launches": plain, "sm90_launches": sm90,
+          "varlen_vs_flashmask": agree,
           "isolated_document": j, "isolation_bitwise": isolated,
           "single_document_vs_causal_flash": single})
     return {f"flash_attention_{k_}" if k_.startswith("varlen") else
@@ -2327,7 +2360,9 @@ def check_packed_kernels(seed: int, lens=None):
     """The six masked flash kernels (segment and flashmask modes of fwd,
     dQ, dK/dV) against their plain versions on `packed_cases`, in bf16
     and fp32, with `flash_error`'s limits, and the tile pairs each
-    visited against the plain predicate (`flash_visits_ref`). Returns
+    visited against the plain predicate (`flash_visits_ref`): bf16 dQ and
+    dK/dV at head_dim <= 128 run the wgmma kernels (flash_bwd_sm90.cu),
+    fp32 and every forward flash_attention.cu. Returns
     (errors, failures): errors[output][case], errors["tiles"][case];
     failures the (output, case) that missed or gave a non-finite value,
     ("tiles", case) where a kernel's count differs. Launches here are
@@ -2474,6 +2509,7 @@ def phase_packed_kernels(launches, lens, seed: int, card: str):
             rows.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "entry": PACK_ENTRY[variant],
+                "design": DESIGN.get(name, "mma.sync, flash_attention.cu"),
                 "launches": launches[name],
                 "max_abs_err": worst["max_abs"], "rel_err": worst["err"],
                 "max_abs_err_fp32": worst32,
@@ -2624,18 +2660,25 @@ def main(argv=None) -> int:
         regs = [int(x.split("Used ")[1].split()[0]) for x in lines
                 if "Used " in x and " registers" in x]
         spills, spilling, entry = [], {}, None
+        per_fn, spill_of = {}, {}
         for x in lines:        # ptxas names a function, then its spills
             if "Function properties for " in x:
                 entry = x.split("Function properties for ")[1].strip()
             elif "bytes spill stores" in x:
                 n = int(x.split("bytes spill stores")[0].split(",")[-1])
                 spills.append(n)
+                spill_of[entry] = n
                 if n:
                     spilling[entry] = n
+            elif "Used " in x and " registers" in x and entry:
+                per_fn[entry] = int(x.split("Used ")[1].split()[0])
         reports[src] = {"kernels": len(regs),
                         "max_registers": max(regs) if regs else None,
                         "max_spill_store_bytes": max(spills) if spills
                         else None, "spilling": spilling}
+        if "_sm90" in src:     # each wgmma kernel: (registers, spill bytes)
+            reports[src]["registers"] = {
+                fn: (r, spill_of.get(fn)) for fn, r in per_fn.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "ptxas": reports})
 

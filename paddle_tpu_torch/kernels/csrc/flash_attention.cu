@@ -4,10 +4,12 @@
 // Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py:
 // `_fwd_kernel` (online-softmax attention; out and the fp32 logsumexp),
 // `_dq_kernel` and `_dkv_kernel` (the backward from the saved lse; delta =
-// rowsum(dO * O) arrives precomputed) — in fp32, at head_dim > 128 and in
-// the segment and flashmask modes. bf16 in the plain mode at head_dim <=
-// 128 runs the wgmma kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu,
-// and these entries refuse it. Layout (B*H, S, D), contiguous;
+// rowsum(dO * O) arrives precomputed) where the wgmma kernels do not:
+// every kernel in fp32 and at head_dim > 128, and the forward of the
+// segment and flashmask modes in bf16 at head_dim <= 128. bf16 at
+// head_dim <= 128 runs the wgmma kernels of flash_fwd_sm90.cu (the plain
+// forward) and flash_bwd_sm90.cu (dQ and dK/dV in every mode), and these
+// entries refuse those shapes. Layout (B*H, S, D), contiguous;
 // causal is bottom-right aligned: key j is visible to query i iff
 // j <= i + (Sk - Sq). A masked score is -1e30 and contributes exactly 0;
 // the softmax sum is clamped at 1e-30 at finalize, so a row that sees no
@@ -30,6 +32,8 @@
 // largest start). Those ranges come from per-32-row summaries the wrapper
 // computes with plain torch ops, once for the three kernels of a call; a
 // caller may ask for the count of visited tile pairs (`Mask::visits`).
+// The predicate and the mask helpers live in flash_mask.cuh, shared with
+// flash_bwd_sm90.cu.
 // Under the masked modes a skipped tile can be followed by a contributing
 // one, so each warp evaluates the predicate for 32 tiles at once (one
 // lane per tile, every warp alike) and the loop visits the set bits of
@@ -61,8 +65,10 @@
 //   * ragged edges (S not a multiple of the tile, head_dim a multiple of
 //     8 below the instantiated 64/128/256) are zero-filled in shared
 //     memory and masked; nothing past S or D is stored.
-// Not done here (later work): wgmma/TMA, cp.async double buffering,
-// ldmatrix, a persistent causal schedule.
+// Not done here: wgmma/TMA (flash_fwd_sm90.cu and flash_bwd_sm90.cu have
+// them for bf16 at head_dim <= 128; the masked forward is still this
+// file's), cp.async double buffering, ldmatrix, a persistent causal
+// schedule.
 //
 // The kernels launch on the caller's stream and allocate nothing; each C
 // entry returns cudaGetLastError() of its launch.
@@ -71,7 +77,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
+
 namespace {
+
+using namespace flash_mask;
 
 constexpr float kNegInf = -1e30f;
 
@@ -266,98 +276,6 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 }
 
-// The TPU kernel's `_block_contributes` for plain causal attention: can
-// the (q tile, k tile) pair hold any unmasked score?
-__device__ __forceinline__ bool contributes(int q0, int k0, int tile,
-                                            int off, int causal) {
-  return !causal || k0 <= q0 + tile - 1 + off;
-}
-
-// ---------------------------------------------------------- mask modes
-enum { kPlain = 0, kSegment = 1, kFlashmask = 2 };
-constexpr int kGroup = 32;  // rows a summary entry covers
-
-// The masked modes' extra inputs (null in the plain mode). Summaries are
-// over 32-row groups of the in-range rows; a tile (64 or 32 rows) spans
-// one or two groups.
-struct Mask {
-  const int* segq;   // (B, 2, Sq): segment id, position in its sequence
-  const int* segk;   // (B, 2, Sk)
-  const int* qsum;   // (B, 4, ceil(Sq/32)): min id, max id, min pos, max pos
-  const int* ksum;   // (B, 4, ceil(Sk/32))
-  const int* fm;     // (B*Hm, C, Sk): row bounds of each key column
-  const int* fmsum;  // (B*Hm, ceil(Sk/32)): largest bound 0 (C == 1 causal)
-  int* visits;       // null, or a count of the (q, k) tile pairs visited
-  int H, Hm, C, fm_causal;
-};
-
-// adds a ballot's visited tiles to `visits`: once a block (every warp
-// holds the same ballot) and only from the first D chunk
-__device__ __forceinline__ void count_visits(const Mask& mk, unsigned live) {
-  if (mk.visits && threadIdx.x == 0 && blockIdx.z == 0)
-    atomicAdd(mk.visits, __popc(live));
-}
-
-struct SegRange {
-  int idmin, idmax, posmin, posmax;
-};
-
-// the summary of rows [r0, r0 + tile) from a batch row's (4, ng) summary
-__device__ __forceinline__ SegRange seg_range(const int* sum, int ng, int r0,
-                                              int tile) {
-  SegRange r{0x7fffffff, -0x7fffffff - 1, 0x7fffffff, -0x7fffffff - 1};
-  const int g1 = min(ng, (r0 + tile) / kGroup);
-  for (int g = r0 / kGroup; g < g1; ++g) {
-    r.idmin = min(r.idmin, sum[g]);
-    r.idmax = max(r.idmax, sum[ng + g]);
-    r.posmin = min(r.posmin, sum[2 * ng + g]);
-    r.posmax = max(r.posmax, sum[3 * ng + g]);
-  }
-  return r;
-}
-
-// `_block_contributes` under segments: the id ranges overlap, and under
-// causal the pair is not one shared sequence with every key after every
-// query.
-__device__ __forceinline__ bool seg_contributes(const SegRange& q,
-                                                const SegRange& k,
-                                                int causal) {
-  const bool overlap = q.idmin <= k.idmax && q.idmax >= k.idmin;
-  const bool one_seq = q.idmin == k.idmax && q.idmax == k.idmin;
-  const bool all_future = k.posmin > q.posmax;
-  return overlap && !(causal && one_seq && all_future);
-}
-
-// the largest bound-0 entry over key rows [k0, k0 + tile)
-__device__ __forceinline__ int fm_start_max(const int* sum, int ng, int k0,
-                                            int tile) {
-  int mx = -0x7fffffff - 1;
-  const int g1 = min(ng, (k0 + tile) / kGroup);
-  for (int g = k0 / kGroup; g < g1; ++g) mx = max(mx, sum[g]);
-  return mx;
-}
-
-// `_block_contributes` under flashmask: the causal bound, then the C == 1
-// causal document skip (every row of the q tile at or past every start).
-__device__ __forceinline__ bool fm_contributes(int q0, int k0, int tile,
-                                               int off, int causal,
-                                               const Mask& mk,
-                                               int start_max) {
-  return contributes(q0, k0, tile, off, causal) &&
-         !(mk.C == 1 && mk.fm_causal && q0 >= start_max);
-}
-
-// `_flashmask_block_mask` for one score: is `row` masked by the bounds
-// b[0], b[stride], ... of its key column?
-__device__ __forceinline__ bool fm_masked(int row, const int* b, int stride,
-                                          int C, int fm_causal) {
-  if (fm_causal)
-    return C == 1 ? row >= b[0] : (row >= b[0] && row < b[stride]);
-  if (C == 2) return row >= b[0] || row < b[stride];
-  return (row >= b[0] && row < b[stride]) ||
-         (row >= b[2 * stride] && row < b[3 * stride]);
-}
-
 // the key columns' mask inputs of tile [k0, k0 + tile) into shared memory:
 // segment (id, pos) rows, or the C bound rows
 template <int kMode>
@@ -543,7 +461,7 @@ flash_fwd_kernel(const typename Tr<kBf16>::T* __restrict__ q,
           c = fm_contributes(
               q0, kt * kT, kT, off, causal, mk,
               mk.C == 1 && mk.fm_causal
-                  ? fm_start_max(mk.fmsum + fh * nkg, nkg, kt * kT, kT)
+                  ? fm_start_max(mk.fmsum + fh * 2 * nkg, nkg, kt * kT, kT)
                   : 0);
       }
       unsigned live = __ballot_sync(0xffffffffu, c);
@@ -691,7 +609,7 @@ flash_dq_kernel(const typename Tr<kBf16>::T* __restrict__ q,
           c = fm_contributes(
               q0, kt * kT, kT, off, causal, mk,
               mk.C == 1 && mk.fm_causal
-                  ? fm_start_max(mk.fmsum + fh * nkg, nkg, kt * kT, kT)
+                  ? fm_start_max(mk.fmsum + fh * 2 * nkg, nkg, kt * kT, kT)
                   : 0);
       }
       unsigned live = __ballot_sync(0xffffffffu, c);
@@ -835,7 +753,7 @@ flash_dkv_kernel(const typename Tr<kBf16>::T* __restrict__ q,
     if constexpr (kMode == kSegment)
       kr = seg_range(mk.ksum + b * 4 * nkg, nkg, k0, kT);
     else if (mk.C == 1 && mk.fm_causal)
-      start_max = fm_start_max(mk.fmsum + fh * nkg, nkg, k0, kT);
+      start_max = fm_start_max(mk.fmsum + fh * 2 * nkg, nkg, k0, kT);
     for (int base = 0; base < nq; base += 32) {
       const int qt = base + lane;
       bool c = false;
@@ -884,7 +802,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <bool kBf16, int DP, int kMode>
+// kFwdOnly: the forward alone (bf16 masked shapes at head_dim <= 128,
+// whose dQ and dK/dV are the wgmma kernels'): no backward instantiated
+template <bool kBf16, int DP, int kMode, bool kFwdOnly = false>
 cudaError_t launch(int kind, const Args& a) {
   using C = Cfg<kBf16, DP>;
   using T = typename Tr<kBf16>::T;
@@ -903,6 +823,8 @@ cudaError_t launch(int kind, const Args& a) {
         static_cast<const T*>(a.v), static_cast<T*>(a.out),
         static_cast<float*>(a.lse), a.Sq, a.Sk, a.D, a.scale, a.causal,
         a.mk);
+  } else if constexpr (kFwdOnly) {
+    return cudaErrorInvalidValue;
   } else if (kind == 1) {
     e = cudaFuncSetAttribute(flash_dq_kernel<kBf16, DP, kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -931,8 +853,15 @@ cudaError_t launch(int kind, const Args& a) {
 
 template <bool kBf16, int kMode>
 cudaError_t dispatch_d(int kind, const Args& a) {
-  if constexpr (kBf16 && kMode == kPlain) {  // the wgmma kernels' shapes
-    if (a.D <= 128) return cudaErrorInvalidValue;
+  if constexpr (kBf16) {
+    // the wgmma kernels' shapes: every kernel of the plain mode, dQ and
+    // dK/dV of the masked modes
+    if (a.D <= 128 && (kMode == kPlain || kind != 0))
+      return cudaErrorInvalidValue;
+    if constexpr (kMode != kPlain) {
+      if (a.D <= 64) return launch<kBf16, 64, kMode, true>(kind, a);
+      if (a.D <= 128) return launch<kBf16, 128, kMode, true>(kind, a);
+    }
   } else {
     if (a.D <= 64) return launch<kBf16, 64, kMode>(kind, a);
     if (a.D <= 128) return launch<kBf16, 128, kMode>(kind, a);
@@ -1006,12 +935,13 @@ Args make_args(const void* segq, const void* segk, const void* qsum,
 // none), 1 segment, 2 flashmask. The masked modes' inputs, as in `Mask`:
 // segq/segk (B, 2, S) int32 and their (B, 4, ceil(S/32)) summaries
 // (segment mode); fm (B*fm_heads, fm_cols, Sk) int32 and its
-// (B*fm_heads, ceil(Sk/32)) start summary (flashmask mode; the summary
-// only for fm_cols 1 with fm_causal); H heads per batch row. `visits`,
-// if not null, gains the (q, k) tile pairs a masked mode visits. Pointers
-// a mode does not use may be null. Each returns a cudaError_t: 0 on a
-// successful launch, cudaErrorInvalidValue for arguments it refuses (bf16
-// in the plain mode at D <= 128 among them: the wgmma kernels' shapes).
+// (B*fm_heads, 2, ceil(Sk/32)) start summary, largest and smallest
+// (flashmask mode; the summary only for fm_cols 1 with fm_causal); H heads
+// per batch row. `visits`, if not null, gains the (q, k) tile pairs a
+// masked mode visits. Pointers a mode does not use may be null. Each
+// returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
+// for arguments it refuses (bf16 at D <= 128 in the plain mode, and dQ and
+// dK/dV of the masked modes, among them: the wgmma kernels' shapes).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     const void* segq, const void* segk, const void* qsum, const void* ksum,

@@ -1,12 +1,12 @@
 // Flash attention backward for Hopper (sm_90a): dQ and dK/dV on wgmma over
 // a TMA tile ring. Plain C interface.
 //
-// Replaces, for bf16 in the plain mode (causal or none) at head_dim <= 128,
-// the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel` of
+// Replaces, for bf16 at head_dim <= 128 in every mask mode, the Pallas TPU
+// kernels `_dq_kernel` and `_dkv_kernel` of
 // paddle_tpu/kernels/flash_attention.py (the backward from the saved lse;
 // delta = rowsum(dO * O) arrives precomputed, a plain op outside the
-// kernels, as in the reference's `_bwd`). flash_attention.cu keeps fp32,
-// head_dim > 128 and the segment and flashmask modes. Layout (B*H, S, D),
+// kernels, as in the reference's `_bwd`). flash_attention.cu keeps fp32
+// and head_dim > 128 (and every masked forward). Layout (B*H, S, D),
 // contiguous; causal is bottom-right aligned: key j is visible to query i
 // iff j <= i + (Sk - Sq). A masked probability is forced to exactly 0
 // (never exp(-1e30 - lse)), so a query row that sees no key gives zero
@@ -70,23 +70,71 @@
 //     diagonal or the end of S evaluate the mask; nothing past S or D is
 //     stored.
 //
+// The segment and flashmask modes (`kMode`, a template parameter, as in
+// flash_attention.cu; the plain instantiations keep their contiguous
+// causal range, grid order and registers) keep the block's shape and the
+// ring. What changes is which ring tiles a block walks and the mask:
+//   * the walk: before the roles split, every warp of the block evaluates
+//     the reference's `_block_contributes` (flash_mask.cuh, over the
+//     wrapper's per-32-row summaries) for 32 ring tiles at once, one lane
+//     a tile, for each warpgroup's 64 fixed rows, and keeps the ballots in
+//     shared memory: a word a warpgroup and group of 32 tiles (8 bytes a
+//     group: every length the grid takes fits). The ring carries, in
+//     ascending order, the tiles at least one warpgroup computes; the
+//     loading thread walks the words and writes each stage's tile and the
+//     two warpgroups' bits beside it, so the consumers read them with the
+//     stage. A warpgroup whose pair does not contribute skips its
+//     products but still waits on the stage and frees it. `visits` gains
+//     the pairs the warpgroups compute (the 64 x 64 pairs of
+//     `flash_visits_ref`);
+//   * the mask, on the accumulators in registers: each thread's two fixed
+//     rows keep their segment (id, position); the ring tile's (dQ: the
+//     keys' (id, position) or their C flashmask bound rows; dK/dV: the
+//     queries' (id, position)) travel in its stage as 1-D TMA boxes of 64
+//     int32 over the flattened tensors, and dK/dV's key bounds (C rows of
+//     128) load once with K and V. A box must start 16-byte aligned, so
+//     the wrapper pads each of those rows (and dK/dV's lse and delta) to a
+//     multiple of 4 elements when S is not one (`row4`). Each score is
+//     tested without a branch (flashmask bounds as two row bands), and a
+//     pair the summaries show to be whole (one segment on both sides with
+//     every key at or before every query; or, for C == 1 causal bounds,
+//     every row before the tile's smallest start and the causal bound
+//     clear) skips the test. A masked probability is exactly 0, so a
+//     query that sees no key gets dQ 0 and a key no query sees dK = dV =
+//     0.
+//
 // The kernels launch on the caller's stream and allocate nothing; each C
 // entry returns cudaGetLastError() of its launch.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace flash_mask;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBig = 128;    // rows a block owns: queries (dQ), keys (dK/dV)
 constexpr int kSmall = 64;   // rows of a ring tile: keys (dQ), queries (dK/dV)
 constexpr int kStages = 3;
 constexpr int kConsumerWarps = 8;  // two consumer warpgroups
+// the masked modes: the int rows of a stage (a segment's id and position,
+// or up to 4 flashmask bound rows, 64 each), and the longest list (groups
+// of 32 ring tiles) that also keeps which pairs are whole
+constexpr int kIvec = 4 * kSmall;
+constexpr int kWholeGroups = 2048;
+
+// The length of a row that TMA reads in 1-D boxes (dK/dV's lse and delta,
+// the masked modes' segment rows and bounds): S rounded up to a multiple
+// of 4 elements, since a box must start 16-byte aligned. The wrapper pads
+// those rows to it.
+__host__ __device__ __forceinline__ int row4(int S) { return (S + 3) & ~3; }
 
 // DP: the head dim the tiles are laid out for (64 or 128; D <= DP).
 template <int DP>
@@ -104,15 +152,29 @@ struct Cfg {
            kStages * (2 * kSmallBytes + (vecs ? 2 * kVecBytes : 0)) +
            kBars * 8 + 1024;
   }
+  // the masked modes add (after the barriers, 128-byte aligned) each
+  // stage's int rows, the block's key bounds (4 rows of 128), the stage
+  // words and counters, and the list: 8 bytes a group of 32 ring tiles,
+  // 16 up to kWholeGroups groups
+  static constexpr int smem_masked(bool vecs, int groups) {
+    return smem(vecs) + 128 + kStages * kIvec * 4 + 4 * kBig * 4 + 32 +
+           (groups <= kWholeGroups ? 16 : 8) * groups;
+  }
 };
 
 // The block's two fixed tiles (Q and dO in dQ, K and V in dK/dV), the
 // ring's two tiles a stage (K and V; Q and dO) with dK/dV's lse and delta,
-// and the barriers: `fixed`, then full0 / full1 / empty a stage.
+// and the barriers: `fixed`, then full0 / full1 / empty a stage. The
+// masked modes' region (`carve_masked`): each stage's int rows and word
+// (its ring tile and the warpgroups' bits, `next_word`), dK/dV's key
+// bounds, the counters (cnt[0] the ring's length, cnt[1] the computed
+// pairs, cnt[2..3] the loading thread's place in the list) and the list.
 struct Smem {
   uint8_t *big0, *big1, *ring0, *ring1;
   float *vec0, *vec1;
   uint64_t *fixed, *full0, *full1, *empty;
+  int *ivec = nullptr, *kfm = nullptr, *word = nullptr, *cnt = nullptr;
+  uint32_t *list = nullptr, *whole = nullptr;
 };
 
 template <int DP>
@@ -134,6 +196,19 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, bool vecs) {
   return m;
 }
 
+// the masked modes' region for a list of `groups` groups of 32 ring
+// tiles; no `whole` words past kWholeGroups groups
+__device__ __forceinline__ void carve_masked(Smem& m, int groups) {
+  uint8_t* p = reinterpret_cast<uint8_t*>(m.empty + kStages);
+  p += (128 - (smem_u32(p) & 127)) & 127;
+  m.ivec = reinterpret_cast<int*>(p);
+  m.kfm = m.ivec + kStages * kIvec;
+  m.word = m.kfm + 4 * kBig;
+  m.cnt = m.word + 4;
+  m.list = reinterpret_cast<uint32_t*>(m.cnt + 4);
+  m.whole = groups <= kWholeGroups ? m.list + 2 * groups : nullptr;
+}
+
 __device__ __forceinline__ void init_barriers(const Smem& m) {
   mbar_init(m.fixed, 1);
   for (int s = 0; s < kStages; ++s) {
@@ -144,38 +219,63 @@ __device__ __forceinline__ void init_barriers(const Smem& m) {
   mbar_fence_init();
 }
 
+// The masked modes' int rows of a stage or of the block: n rows of the
+// 1-D int32 map, the first at element c0, each `stride` past the last.
+struct Rows {
+  const CUtensorMap* map = nullptr;
+  int c0 = 0, n = 0, stride = 0;
+};
+
 // the block's fixed tiles: rows [row, row + 128) of head bh of both maps
-template <int DP>
+// (and, in the masked modes, `kr`'s rows of 128 into kfm)
+template <int DP, int kMode = kPlain>
 __device__ __forceinline__ void load_fixed(const Smem& m, const CUtensorMap* m0,
                                            const CUtensorMap* m1, int row,
-                                           int bh) {
+                                           int bh, const Rows& kr = Rows{}) {
   using C = Cfg<DP>;
-  mbar_arrive_expect_tx(m.fixed, 2 * C::kBigBytes);
+  uint32_t bytes = 2 * C::kBigBytes;
+  if constexpr (kMode != kPlain) bytes += kr.n * kBig * 4;
+  mbar_arrive_expect_tx(m.fixed, bytes);
   for (int c = 0; c < C::kBlocks; ++c) {
     tma_load_3d(m.big0 + c * kBig * 128, m0, m.fixed, 64 * c, row, bh);
     tma_load_3d(m.big1 + c * kBig * 128, m1, m.fixed, 64 * c, row, bh);
   }
+  if constexpr (kMode != kPlain)
+    for (int i = 0; i < kr.n; ++i)
+      tma_load_1d(m.kfm + i * kBig, kr.map, m.fixed, kr.c0 + i * kr.stride);
 }
 
 // ring tile t: rows [row, row + 64) of head bh of both maps (with the fp32
 // vectors at element vrow of v0 / v1 when kVecs) into stage t % kStages,
-// once the stage's previous tile has been released
-template <int DP, bool kVecs>
+// once the stage's previous tile has been released; in the masked modes
+// also `ir`'s rows of 64 (with the first half) and the stage's word
+template <int DP, bool kVecs, int kMode = kPlain>
 __device__ __forceinline__ void load_stage(const Smem& m, const CUtensorMap* m0,
                                            const CUtensorMap* m1,
                                            const CUtensorMap* v0,
                                            const CUtensorMap* v1, int t,
-                                           int row, int bh, int vrow) {
+                                           int row, int bh, int vrow,
+                                           const Rows& ir = Rows{},
+                                           int word = 0) {
   using C = Cfg<DP>;
   constexpr uint32_t kBytes = C::kSmallBytes + (kVecs ? C::kVecBytes : 0);
   const int s = t % kStages;
   mbar_wait(&m.empty[s], ((t / kStages) & 1) ^ 1);
   uint8_t* r0 = m.ring0 + s * C::kSmallBytes;
   uint8_t* r1 = m.ring1 + s * C::kSmallBytes;
-  mbar_arrive_expect_tx(&m.full0[s], kBytes);
+  uint32_t bytes0 = kBytes;
+  if constexpr (kMode != kPlain) {
+    m.word[s] = word;  // released to the consumers by the arrive below
+    bytes0 += ir.n * kSmall * 4;
+  }
+  mbar_arrive_expect_tx(&m.full0[s], bytes0);
   for (int c = 0; c < C::kBlocks; ++c)
     tma_load_3d(r0 + c * kSmall * 128, m0, &m.full0[s], 64 * c, row, bh);
   if constexpr (kVecs) tma_load_1d(m.vec0 + s * kSmall, v0, &m.full0[s], vrow);
+  if constexpr (kMode != kPlain)
+    for (int i = 0; i < ir.n; ++i)
+      tma_load_1d(m.ivec + s * kIvec + i * kSmall, ir.map, &m.full0[s],
+                  ir.c0 + i * ir.stride);
   mbar_arrive_expect_tx(&m.full1[s], kBytes);
   for (int c = 0; c < C::kBlocks; ++c)
     tma_load_3d(r1 + c * kSmall * 128, m1, &m.full1[s], 64 * c, row, bh);
@@ -247,14 +347,110 @@ __device__ __forceinline__ void zero(float (&x)[R]) {
   for (int i = 0; i < R; ++i) x[i] = 0.f;
 }
 
+// ----------------------------------------------------- the masked walk
+// The block's list (masked modes), built by every thread (`warps` warps)
+// before the roles split: for each group of 32 ring tiles, a word a
+// warpgroup of the tiles it computes — the reference's
+// `_block_contributes` for the pair of its 64 fixed rows (queries from
+// `fixed0` in dQ, kDq; keys in dK/dV) and the 64-row ring tile — and,
+// with `m.whole`, a word of those whose pair has no masked score. A warp
+// takes a group at a time, a lane a tile. cnt[0] gains the tiles either
+// warpgroup computes (the ring's length), cnt[1] the pairs computed.
+template <int kMode, bool kDq>
+__device__ __forceinline__ void build_list(const Smem& m, const Mask& mk,
+                                           int fixed0, int Sq, int Sk,
+                                           int causal, int b, int fh,
+                                           int warps) {
+  const int off = Sk - Sq;
+  const int nqg = (Sq + kGroup - 1) / kGroup;
+  const int nkg = (Sk + kGroup - 1) / kGroup;
+  const int* qsum = mk.qsum + static_cast<size_t>(b) * 4 * nqg;
+  const int* ksum = mk.ksum + static_cast<size_t>(b) * 4 * nkg;
+  const int* fmsum = mk.fmsum + static_cast<size_t>(fh) * 2 * nkg;
+  const bool doc = mk.C == 1 && mk.fm_causal;  // the C == 1 causal skip
+  const int nt = ((kDq ? Sk : Sq) + kSmall - 1) / kSmall;
+  const int fixed_rows = kDq ? Sq : Sk;
+  const int lane = threadIdx.x & 31;
+  for (int gi = threadIdx.x >> 5; gi < (nt + 31) / 32; gi += warps) {
+    const int t = 32 * gi + lane;
+    bool c[2], w[2];
+#pragma unroll
+    for (int wg = 0; wg < 2; ++wg) {
+      const int r0 = fixed0 + 64 * wg;  // the warpgroup's first fixed row
+      const int q0 = kDq ? r0 : t * kSmall;
+      const int k0 = kDq ? t * kSmall : r0;
+      c[wg] = w[wg] = false;
+      if (t >= nt || r0 >= fixed_rows) continue;
+      if constexpr (kMode == kSegment) {
+        const SegRange qr = seg_range(qsum, nqg, q0, kSmall);
+        const SegRange kr = seg_range(ksum, nkg, k0, kSmall);
+        c[wg] = seg_contributes(qr, kr, causal);
+        w[wg] = seg_whole(qr, kr, causal);
+      } else {
+        c[wg] = fm_contributes(
+            q0, k0, kSmall, off, causal, mk,
+            doc ? fm_start_max(fmsum, nkg, k0, kSmall) : 0);
+        w[wg] = doc && (!causal || k0 + kSmall - 1 <= q0 + off) &&
+                q0 + kSmall - 1 < fm_start_min(fmsum, nkg, k0, kSmall);
+      }
+      w[wg] = c[wg] && w[wg] && q0 + kSmall <= Sq && k0 + kSmall <= Sk;
+    }
+    const uint32_t c0 = __ballot_sync(0xffffffffu, c[0]);
+    const uint32_t c1 = __ballot_sync(0xffffffffu, c[1]);
+    const uint32_t w0 = __ballot_sync(0xffffffffu, w[0]);
+    const uint32_t w1 = __ballot_sync(0xffffffffu, w[1]);
+    if (lane == 0) {
+      m.list[2 * gi] = c0;
+      m.list[2 * gi + 1] = c1;
+      if (m.whole) {
+        m.whole[2 * gi] = w0;
+        m.whole[2 * gi + 1] = w1;
+      }
+      atomicAdd(&m.cnt[0], __popc(c0 | c1));
+      atomicAdd(&m.cnt[1], __popc(c0) + __popc(c1));
+    }
+  }
+}
+
+// the list's counters before the build: nothing counted, the loading
+// thread before the first group
+__device__ __forceinline__ void init_list(const Smem& m) {
+  m.cnt[0] = m.cnt[1] = 0;
+  m.cnt[2] = -1;
+  m.cnt[3] = 0;
+}
+
+// The next ring tile of the list, for the one thread that loads the ring:
+// its stage word, the tile (bits 0-23), then bit 24 + wg when warpgroup wg
+// computes it and bit 26 + wg when that pair is whole.
+__device__ __forceinline__ int next_word(const Smem& m) {
+  int g = m.cnt[2];
+  uint32_t left = static_cast<uint32_t>(m.cnt[3]);
+  while (left == 0) {
+    ++g;
+    left = m.list[2 * g] | m.list[2 * g + 1];
+  }
+  const int bit = __ffs(left) - 1;
+  m.cnt[2] = g;
+  m.cnt[3] = static_cast<int>(left & (left - 1));
+  int word = (32 * g + bit) | (((m.list[2 * g] >> bit) & 1) << 24) |
+             (((m.list[2 * g + 1] >> bit) & 1) << 25);
+  if (m.whole)
+    word |= (((m.whole[2 * g] >> bit) & 1) << 26) |
+            (((m.whole[2 * g + 1] >> bit) & 1) << 27);
+  return word;
+}
+
 // ------------------------------------------------------------------- dQ
 // One consumer warpgroup's part of a dQ block: rows [qw, qw + 64) of the
-// block's 128 at q0, over its n key tiles.
-template <int DP>
+// block's 128 at q0, over its n key tiles (the masked modes: the n ring
+// tiles of the list, each named by its stage's word).
+template <int DP, int kMode>
 __device__ __forceinline__ void dq_consumer(
     const Smem& m, const float* __restrict__ lse,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
-    int Sk, int D, float scale, int causal, int q0, int n, int bh, int wg) {
+    int Sk, int D, float scale, int causal, int q0, int n, int bh, int wg,
+    const Mask& mk) {
   using C = Cfg<DP>;
   const int off = Sk - Sq;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -270,6 +466,21 @@ __device__ __forceinline__ void dq_consumer(
     lse2[h] = row < Sq ? lse[r] * kLog2e : 0.f;
     dlt[h] = row < Sq ? delta[r] : 0.f;
   }
+  // segment mode: this thread's rows' (id, position)
+  const bool causal_b = causal != 0;
+  int rid[2] = {0, 0}, rpos[2] = {0, 0};
+  if constexpr (kMode == kSegment) {
+    const int ld = row4(Sq);
+    const int* seg = mk.segq + static_cast<size_t>(bh / mk.H) * 2 * ld;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < Sq) {
+        rid[h] = seg[row];
+        rpos[h] = seg[ld + row];
+      }
+    }
+  }
   const uint64_t dq_a = desc_sw128(m.big0 + wg * 64 * 128, 16, 1024);
   const uint64_t ddo_a = desc_sw128(m.big1 + wg * 64 * 128, 16, 1024);
   float acc[DP / 2], sc[32], dp[32];
@@ -280,11 +491,24 @@ __device__ __forceinline__ void dq_consumer(
   for (int it = 0; it < n; ++it) {
     const int s = it % kStages;
     const uint32_t par = (it / kStages) & 1;
-    const int k0 = it * kSmall;
+    int k0 = it * kSmall;
     const uint8_t* kt = m.ring0 + s * C::kSmallBytes;
     const uint8_t* vt = m.ring1 + s * C::kSmallBytes;
 
     mbar_wait(&m.full0[s], par);
+    bool whole = false;
+    if constexpr (kMode != kPlain) {
+      const int word = m.word[s];
+      k0 = (word & 0xffffff) * kSmall;
+      whole = (word >> (26 + wg)) & 1;
+      if (((word >> (24 + wg)) & 1) == 0) {  // the other warpgroup's tile
+        mbar_wait(&m.full1[s], par);
+        if (lane == 0) mbar_arrive(&m.empty[s]);
+        continue;
+      }
+    }
+    // the masked modes: the key tile's (id, position) or bound rows
+    const int* cols = m.ivec + s * kIvec;
     wgmma_fence();
     ss_product<DP>(sc, dq_a, desc_sw128(kt, 16, 1024));  // S = Q K^T
     wgmma_commit();
@@ -296,22 +520,66 @@ __device__ __forceinline__ void dq_consumer(
 
     // P on the accumulator while dP runs: rows row0 (h 0) and row0 + 8,
     // columns k0 + 8j + 2t4 + e
-    const bool masked_tile =
-        k0 + kSmall > Sk || (causal && k0 + kSmall - 1 > qw + off);
+    if constexpr (kMode == kPlain) {
+      const bool masked_tile =
+          k0 + kSmall > Sk || (causal && k0 + kSmall - 1 > qw + off);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * h + e;
-          float p = exp2f(fmaf(sc[i], scale_log2, -lse2[h]));
-          if (masked_tile) {
-            const int col = k0 + 8 * j + 2 * t4 + e;
-            if (col >= Sk || (causal && col > row0 + 8 * h + off)) p = 0.f;
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2f(fmaf(sc[i], scale_log2, -lse2[h]));
+            if (masked_tile) {
+              const int col = k0 + 8 * j + 2 * t4 + e;
+              if (col >= Sk || (causal && col > row0 + 8 * h + off)) p = 0.f;
+            }
+            sc[i] = p;
           }
-          sc[i] = p;
-        }
+    } else {
+      // a whole pair skips the mask; any other tests every score without
+      // a branch (a divergent branch a score costs more than its products)
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t4 + e;  // the key within the tile
+            const int col = k0 + c;
+            int kid = 0, kpos = 0;
+            FmBands bd{};
+            if constexpr (decltype(masked)::value) {
+              if constexpr (kMode == kSegment) {
+                kid = cols[c];
+                kpos = cols[kSmall + c];
+              } else {
+                bd = fm_bands(cols + c, kSmall, mk.C, mk.fm_causal);
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              const float p = exp2f(fmaf(sc[i], scale_log2, -lse2[h]));
+              if constexpr (decltype(masked)::value) {
+                const int row = row0 + 8 * h;
+                bool out;
+                if constexpr (kMode == kSegment)
+                  out = (kid != rid[h]) | (causal_b & (kpos > rpos[h]));
+                else
+                  out = (causal_b & (col > row + off)) | in_bands(bd, row);
+                sc[i] = (col >= Sk) | out ? 0.f : p;
+              } else {
+                sc[i] = p;
+              }
+            }
+          }
+      };
+      if (whole)
+        probs(std::false_type{});
+      else
+        probs(std::true_type{});
+    }
     fence_operand(sc);
     wgmma_wait<0>();
     fence_operand(dp);
@@ -338,8 +606,9 @@ __device__ __forceinline__ void dq_consumer(
 
 // grid (B*H, ceil(Sq / 128)), 384 threads: warpgroup 2 is the producer
 // and gives its registers to the consumers; the two roles split in one
-// if / else and never join.
-template <int DP>
+// if / else and never join. The masked modes take the key tiles' int rows
+// through `imap` (1-D int32, boxes of 64) and their inputs in `mk`.
+template <int DP, int kMode>
 __global__ void __launch_bounds__(384, 1)
 flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -348,9 +617,11 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int D,
-                     float scale, int causal) {
+                     float scale, int causal,
+                     const __grid_constant__ CUtensorMap imap,
+                     const Mask mk) {
   extern __shared__ uint8_t smem_raw[];
-  const Smem m = carve<DP>(smem_raw, false);
+  Smem m = carve<DP>(smem_raw, false);
   const int bh = blockIdx.x;
   const int nq = (Sq + kBig - 1) / kBig;
   const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kBig;
@@ -358,50 +629,88 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   // or before its last row's diagonal
   const int last = q0 + kBig - 1 + Sk - Sq;
   const int nk_all = (Sk + kSmall - 1) / kSmall;
-  const int n =
-      !causal ? nk_all : (last < 0 ? 0 : min(nk_all, last / kSmall + 1));
+  int n = !causal ? nk_all : (last < 0 ? 0 : min(nk_all, last / kSmall + 1));
 
-  if (threadIdx.x == 0) init_barriers(m);
+  if constexpr (kMode != kPlain) carve_masked(m, (nk_all + 31) / 32);
+  if (threadIdx.x == 0) {
+    init_barriers(m);
+    if constexpr (kMode != kPlain) init_list(m);
+  }
   __syncthreads();
+  const int b = kMode == kPlain ? 0 : bh / mk.H;
+  const int fh = mk.Hm == 1 ? b : bh;  // the flashmask bounds' row
+  if constexpr (kMode != kPlain) {  // the masked modes' list of key tiles
+    build_list<kMode, true>(m, mk, q0, Sq, Sk, causal, b, fh, 12);
+    __syncthreads();
+    n = m.cnt[0];
+    if (threadIdx.x == 0 && mk.visits) atomicAdd(mk.visits, m.cnt[1]);
+  }
   const int wg = threadIdx.x >> 7;
   if (wg == 2) {  // -------------------------------------------- producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256 && n > 0) {
       load_fixed<DP>(m, &qmap, &domap, q0, bh);
-      for (int t = 0; t < n; ++t)
-        load_stage<DP, false>(m, &kmap, &vmap, nullptr, nullptr, t,
-                              t * kSmall, bh, 0);
+      for (int t = 0; t < n; ++t) {
+        if constexpr (kMode == kPlain) {
+          load_stage<DP, false>(m, &kmap, &vmap, nullptr, nullptr, t,
+                                t * kSmall, bh, 0);
+        } else {
+          // the key tile's segment (id, position) or C bound rows
+          const int word = next_word(m);
+          const int k0 = (word & 0xffffff) * kSmall;
+          const int ld = row4(Sk);
+          const Rows ir =
+              kMode == kSegment
+                  ? Rows{&imap, b * 2 * ld + k0, 2, ld}
+                  : Rows{&imap, fh * mk.C * ld + k0, mk.C, ld};
+          load_stage<DP, false, kMode>(m, &kmap, &vmap, nullptr, nullptr, t,
+                                       k0, bh, 0, ir, word);
+        }
+      }
     }
   } else {  // ------------------------------------------------- consumers
     setmaxnreg_inc<232>();
-    dq_consumer<DP>(m, lse, delta, dq, Sq, Sk, D, scale, causal, q0, n, bh,
-                    wg);
+    dq_consumer<DP, kMode>(m, lse, delta, dq, Sq, Sk, D, scale, causal, q0,
+                           n, bh, wg, mk);
   }
 }
 
 // ---------------------------------------------------------------- dK/dV
 // the ring tiles of a dK/dV block: the 64 query rows of tile qt0 + t, with
-// their lse and delta, into stage t % kStages
-template <int DP>
+// their lse and delta (rows of row4(Sq)), into stage t % kStages; in the
+// masked modes the
+// list's next tile, with segment mode's query (id, position) rows (`imap`,
+// batch row b)
+template <int DP, int kMode = kPlain>
 __device__ __forceinline__ void load_query_tile(
     const Smem& m, const CUtensorMap* qmap, const CUtensorMap* domap,
     const CUtensorMap* lsemap, const CUtensorMap* deltamap, int t, int qt0,
-    int bh, int Sq) {
-  const int q0 = (qt0 + t) * kSmall;
-  load_stage<DP, true>(m, qmap, domap, lsemap, deltamap, t, q0, bh,
-                       bh * Sq + q0);
+    int bh, int Sq, const CUtensorMap* imap = nullptr, int b = 0) {
+  const int ld = row4(Sq);  // lse and delta rows, as padded
+  if constexpr (kMode == kPlain) {
+    const int q0 = (qt0 + t) * kSmall;
+    load_stage<DP, true>(m, qmap, domap, lsemap, deltamap, t, q0, bh,
+                         bh * ld + q0);
+  } else {
+    const int word = next_word(m);
+    const int q0 = (word & 0xffffff) * kSmall;
+    const Rows ir{imap, b * 2 * ld + q0, kMode == kSegment ? 2 : 0, ld};
+    load_stage<DP, true, kMode>(m, qmap, domap, lsemap, deltamap, t, q0, bh,
+                                bh * ld + q0, ir, word);
+  }
 }
 
 // One consumer warpgroup's part of a dK/dV block: keys [kw, kw + 64) of
-// the block's 128 at k0, over its n query tiles from qt0. Thread 0 refills
-// each stage the previous tile released.
-template <int DP>
+// the block's 128 at k0, over its n query tiles from qt0 (the masked
+// modes: the n ring tiles of the list, each named by its stage's word).
+// Thread 0 refills each stage the previous tile released.
+template <int DP, int kMode>
 __device__ __forceinline__ void dkv_consumer(
     const Smem& m, const CUtensorMap* qmap, const CUtensorMap* domap,
     const CUtensorMap* lsemap, const CUtensorMap* deltamap,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
-    int Sk, int D, float scale, int causal, int k0, int qt0, int n, int bh,
-    int wg) {
+    const CUtensorMap* imap, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int D, float scale,
+    int causal, int k0, int qt0, int n, int bh, int wg, const Mask& mk) {
   using C = Cfg<DP>;
   const int off = Sk - Sq;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -409,6 +718,22 @@ __device__ __forceinline__ void dkv_consumer(
   const int kw = k0 + wg * 64;          // this warpgroup's first key
   const int key0 = kw + warp * 16 + g;  // this thread's keys: +0, +8
   const float scale_log2 = scale * kLog2e;
+  const int b = kMode == kPlain ? 0 : bh / mk.H;
+  const bool causal_b = causal != 0;
+  // segment mode: this thread's keys' (id, position)
+  int kid[2] = {0, 0}, kpos[2] = {0, 0};
+  if constexpr (kMode == kSegment) {
+    const int ld = row4(Sk);
+    const int* seg = mk.segk + static_cast<size_t>(b) * 2 * ld;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 8 * h;
+      if (key < Sk) {
+        kid[h] = seg[key];
+        kpos[h] = seg[ld + key];
+      }
+    }
+  }
   const uint64_t dk_a = desc_sw128(m.big0 + wg * 64 * 128, 16, 1024);
   const uint64_t dv_a = desc_sw128(m.big1 + wg * 64 * 128, 16, 1024);
   float acc_k[DP / 2], acc_v[DP / 2], sc[32], dp[32];
@@ -420,13 +745,30 @@ __device__ __forceinline__ void dkv_consumer(
   for (int it = 0; it < n; ++it) {
     const int s = it % kStages;
     const uint32_t par = (it / kStages) & 1;
-    const int q0 = (qt0 + it) * kSmall;
+    int q0 = (qt0 + it) * kSmall;
     const uint8_t* qt = m.ring0 + s * C::kSmallBytes;
     const uint8_t* dot = m.ring1 + s * C::kSmallBytes;
     const float* lse_s = m.vec0 + s * kSmall;
     const float* dl_s = m.vec1 + s * kSmall;
 
     mbar_wait(&m.full0[s], par);
+    bool whole = false;
+    if constexpr (kMode != kPlain) {
+      const int word = m.word[s];
+      q0 = (word & 0xffffff) * kSmall;
+      whole = (word >> (26 + wg)) & 1;
+      const bool mine = (word >> (24 + wg)) & 1;
+      if (!mine) {  // the other warpgroup's tile: wait, refill, free
+        mbar_wait(&m.full1[s], par);
+        if (threadIdx.x == 0 && it > 0 && it - 1 + kStages < n)
+          load_query_tile<DP, kMode>(m, qmap, domap, lsemap, deltamap,
+                                     it - 1 + kStages, qt0, bh, Sq, imap, b);
+        if (lane == 0) mbar_arrive(&m.empty[s]);
+        continue;
+      }
+    }
+    // segment mode: the query tile's (id, position) rows
+    const int* qseg = m.ivec + s * kIvec;
     wgmma_fence();
     ss_product<DP>(sc, dk_a, desc_sw128(qt, 16, 1024));  // S^T = K Q^T
     wgmma_commit();
@@ -434,8 +776,8 @@ __device__ __forceinline__ void dkv_consumer(
     ss_product<DP>(dp, dv_a, desc_sw128(dot, 16, 1024));  // dP^T = V dO^T
     wgmma_commit();
     if (threadIdx.x == 0 && it > 0 && it - 1 + kStages < n)
-      load_query_tile<DP>(m, qmap, domap, lsemap, deltamap, it - 1 + kStages,
-                          qt0, bh, Sq);
+      load_query_tile<DP, kMode>(m, qmap, domap, lsemap, deltamap,
+                                 it - 1 + kStages, qt0, bh, Sq, imap, b);
     wgmma_wait<0>();
     fence_operand(sc);
     fence_operand(dp);
@@ -443,32 +785,89 @@ __device__ __forceinline__ void dkv_consumer(
     // P^T and dS^T on the accumulators: rows (keys) key0 (h 0) and
     // key0 + 8, columns (queries) q0 + 8j + 2t4 + e; both in bf16 pairs in
     // accumulator order
-    const bool masked_tile =
-        q0 + kSmall > Sq || (causal && kw + kSmall - 1 > q0 + off);
+    if constexpr (kMode == kPlain) {
+      const bool masked_tile =
+          q0 + kSmall > Sq || (causal && kw + kSmall - 1 > q0 + off);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * t4;
-      const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
-      const float2 dl = *reinterpret_cast<const float2*>(dl_s + c);
-      const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
-      const float dlt[2] = {dl.x, dl.y};
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t4;
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 dl = *reinterpret_cast<const float2*>(dl_s + c);
+        const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+        const float dlt[2] = {dl.x, dl.y};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float p2[2], d2[2];
+        for (int h = 0; h < 2; ++h) {
+          float p2[2], d2[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * h + e;
-          float p = exp2f(fmaf(sc[i], scale_log2, -l2[e]));
-          if (masked_tile) {
-            const int q = q0 + c + e;
-            if (q >= Sq || (causal && key0 + 8 * h > q + off)) p = 0.f;
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2f(fmaf(sc[i], scale_log2, -l2[e]));
+            if (masked_tile) {
+              const int q = q0 + c + e;
+              if (q >= Sq || (causal && key0 + 8 * h > q + off)) p = 0.f;
+            }
+            p2[e] = p;
+            d2[e] = p * (dp[i] - dlt[e]) * scale;
           }
-          p2[e] = p;
-          d2[e] = p * (dp[i] - dlt[e]) * scale;
+          pt[2 * j + h] = pack_bf16(p2[0], p2[1]);
+          ds[2 * j + h] = pack_bf16(d2[0], d2[1]);
         }
-        pt[2 * j + h] = pack_bf16(p2[0], p2[1]);
-        ds[2 * j + h] = pack_bf16(d2[0], d2[1]);
       }
+    } else {
+      // as dQ's: a whole pair skips the mask, any other tests every score
+      // without a branch
+      auto probs = [&](auto masked) {
+        FmBands bd[2] = {};  // flashmask: the bands of this thread's keys
+        if constexpr (kMode == kFlashmask && decltype(masked)::value) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            bd[h] = fm_bands(m.kfm + (key0 + 8 * h - k0), kBig, mk.C,
+                             mk.fm_causal);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t4;
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 dl = *reinterpret_cast<const float2*>(dl_s + c);
+          const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+          const float dlt[2] = {dl.x, dl.y};
+          int qid[2] = {0, 0}, qpos[2] = {0, 0};  // segment: the queries'
+          if constexpr (kMode == kSegment && decltype(masked)::value) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              qid[e] = qseg[c + e];
+              qpos[e] = qseg[kSmall + c + e];
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float pm[2], dm[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              float p = exp2f(fmaf(sc[i], scale_log2, -l2[e]));
+              if constexpr (decltype(masked)::value) {
+                const int q = q0 + c + e;
+                bool out;
+                if constexpr (kMode == kSegment)
+                  out = (qid[e] != kid[h]) | (causal_b & (kpos[h] > qpos[e]));
+                else
+                  out = (causal_b & (key0 + 8 * h > q + off)) |
+                        in_bands(bd[h], q);
+                p = (q >= Sq) | out ? 0.f : p;
+              }
+              pm[e] = p;
+              dm[e] = p * (dp[i] - dlt[e]) * scale;
+            }
+            pt[2 * j + h] = pack_bf16(pm[0], pm[1]);
+            ds[2 * j + h] = pack_bf16(dm[0], dm[1]);
+          }
+        }
+      };
+      if (whole)
+        probs(std::false_type{});
+      else
+        probs(std::true_type{});
     }
 
     wgmma_fence();
@@ -487,7 +886,10 @@ __device__ __forceinline__ void dkv_consumer(
 
 // grid (B*H, ceil(Sk / 128)), 256 threads: no producer warpgroup (see the
 // registers above); thread 0 issues the loads between its own products.
-template <int DP>
+// The masked modes take segment mode's query rows (1-D int32, boxes of
+// 64) or the flashmask bound rows (boxes of 128) through `imap` and their
+// inputs in `mk`.
+template <int DP, int kMode>
 __global__ void __launch_bounds__(256, 1)
 flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
@@ -497,9 +899,11 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap deltamap,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int D,
-                      float scale, int causal) {
+                      float scale, int causal,
+                      const __grid_constant__ CUtensorMap imap,
+                      const Mask mk) {
   extern __shared__ uint8_t smem_raw[];
-  const Smem m = carve<DP>(smem_raw, true);
+  Smem m = carve<DP>(smem_raw, true);
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBig;
   // query tiles that see the block's first key: all, or under causal
@@ -507,18 +911,36 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int nq_all = (Sq + kSmall - 1) / kSmall;
   const int first = k0 - (Sk - Sq) - (kSmall - 1);
   const int qt0 = !causal || first <= 0 ? 0 : (first + kSmall - 1) / kSmall;
-  const int n = max(0, nq_all - qt0);
+  int n = max(0, nq_all - qt0);
 
-  if (threadIdx.x == 0) init_barriers(m);
-  __syncthreads();
-  if (threadIdx.x == 0 && n > 0) {
-    load_fixed<DP>(m, &kmap, &vmap, k0, bh);
-    for (int t = 0; t < min(n, kStages); ++t)
-      load_query_tile<DP>(m, &qmap, &domap, &lsemap, &deltamap, t, qt0, bh,
-                          Sq);
+  if constexpr (kMode != kPlain) carve_masked(m, (nq_all + 31) / 32);
+  if (threadIdx.x == 0) {
+    init_barriers(m);
+    if constexpr (kMode != kPlain) init_list(m);
   }
-  dkv_consumer<DP>(m, &qmap, &domap, &lsemap, &deltamap, dk, dv, Sq, Sk, D,
-                   scale, causal, k0, qt0, n, bh, threadIdx.x >> 7);
+  __syncthreads();
+  const int b = kMode == kPlain ? 0 : bh / mk.H;
+  const int fh = mk.Hm == 1 ? b : bh;  // the flashmask bounds' row
+  if constexpr (kMode != kPlain) {  // the masked modes' list of query tiles
+    build_list<kMode, false>(m, mk, k0, Sq, Sk, causal, b, fh, 8);
+    __syncthreads();
+    n = m.cnt[0];
+    if (threadIdx.x == 0 && mk.visits) atomicAdd(mk.visits, m.cnt[1]);
+  }
+  if (threadIdx.x == 0 && n > 0) {
+    // flashmask: the block's keys' C bound rows, with K and V
+    load_fixed<DP, kMode>(m, &kmap, &vmap, k0, bh,
+                          kMode == kFlashmask
+                              ? Rows{&imap, fh * mk.C * row4(Sk) + k0, mk.C,
+                                     row4(Sk)}
+                              : Rows{});
+    for (int t = 0; t < min(n, kStages); ++t)
+      load_query_tile<DP, kMode>(m, &qmap, &domap, &lsemap, &deltamap, t,
+                                 qt0, bh, Sq, &imap, b);
+  }
+  dkv_consumer<DP, kMode>(m, &qmap, &domap, &lsemap, &deltamap, &imap, dk,
+                          dv, Sq, Sk, D, scale, causal, k0, qt0, n, bh,
+                          threadIdx.x >> 7, mk);
 }
 
 // ------------------------------------------------------------- launches
@@ -535,8 +957,9 @@ bool map_rows(CUtensorMap* map, const void* base, int BH, int S, int D,
                   box);
 }
 
-// the 1-D map of BH * Sq fp32 values in boxes of 64, as stored (a box that
-// runs past a head's rows reads the next head's, which the kernel masks)
+// the 1-D map of n fp32 values (BH rows of row4(Sq)) in boxes of 64 (a box
+// that runs past a head's rows reads the next head's, which the kernel
+// masks)
 bool map_vec(CUtensorMap* map, const void* base, int n) {
   const cuuint32_t box[1] = {kSmall};
   const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
@@ -545,52 +968,71 @@ bool map_vec(CUtensorMap* map, const void* base, int n) {
                   box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <int DP>
+// the 1-D map of n int32 mask values (a flattened (B, 2, row4(S)) segment
+// or (B*Hm, C, row4(Sk)) bound tensor) in boxes of `box`; a box that runs
+// past a row's S reads its padding or the next row's, which the kernels
+// mask (key or query >= S)
+bool map_ints(CUtensorMap* map, const void* base, long long n, int box) {
+  const cuuint32_t b[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t str[1] = {4};  // unused at rank 1
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, base, dims, str, b,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <int DP, int kMode>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int BH, int Sq, int Sk, int D, float scale,
-                      int causal, cudaStream_t s) {
+                      int causal, const CUtensorMap& imap, const Mask& mk,
+                      cudaStream_t s) {
   CUtensorMap qmap, kmap, vmap, domap;
   if (!map_rows(&qmap, q, BH, Sq, D, kBig) ||
       !map_rows(&domap, dout, BH, Sq, D, kBig) ||
       !map_rows(&kmap, k, BH, Sk, D, kSmall) ||
       !map_rows(&vmap, v, BH, Sk, D, kSmall))
     return cudaErrorInvalidValue;
-  constexpr int kSmem = Cfg<DP>::smem(false);
-  auto kernel = flash_dq_sm90_kernel<DP>;
+  const int groups = ((Sk + kSmall - 1) / kSmall + 31) / 32;
+  const int smem = kMode == kPlain ? Cfg<DP>::smem(false)
+                                   : Cfg<DP>::smem_masked(false, groups);
+  auto kernel = flash_dq_sm90_kernel<DP, kMode>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(BH, (Sq + kBig - 1) / kBig);
-  kernel<<<grid, 384, kSmem, s>>>(
+  kernel<<<grid, 384, smem, s>>>(
       qmap, kmap, vmap, domap, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), Sq,
-      Sk, D, scale, causal);
+      Sk, D, scale, causal, imap, mk);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, int kMode>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int Sq, int Sk, int D,
-                       float scale, int causal, cudaStream_t s) {
+                       float scale, int causal, const CUtensorMap& imap,
+                       const Mask& mk, cudaStream_t s) {
   CUtensorMap qmap, kmap, vmap, domap, lsemap, deltamap;
   if (!map_rows(&kmap, k, BH, Sk, D, kBig) ||
       !map_rows(&vmap, v, BH, Sk, D, kBig) ||
       !map_rows(&qmap, q, BH, Sq, D, kSmall) ||
       !map_rows(&domap, dout, BH, Sq, D, kSmall) ||
-      !map_vec(&lsemap, lse, BH * Sq) || !map_vec(&deltamap, delta, BH * Sq))
+      !map_vec(&lsemap, lse, BH * row4(Sq)) ||
+      !map_vec(&deltamap, delta, BH * row4(Sq)))
     return cudaErrorInvalidValue;
-  constexpr int kSmem = Cfg<DP>::smem(true);
-  auto kernel = flash_dkv_sm90_kernel<DP>;
+  const int groups = ((Sq + kSmall - 1) / kSmall + 31) / 32;
+  const int smem = kMode == kPlain ? Cfg<DP>::smem(true)
+                                   : Cfg<DP>::smem_masked(true, groups);
+  auto kernel = flash_dkv_sm90_kernel<DP, kMode>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(BH, (Sk + kBig - 1) / kBig);
-  kernel<<<grid, 256, kSmem, s>>>(
+  kernel<<<grid, 256, smem, s>>>(
       qmap, kmap, vmap, domap, lsemap, deltamap,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
-      Sk, D, scale, causal);
+      Sk, D, scale, causal, imap, mk);
   return cudaGetLastError();
 }
 
@@ -608,12 +1050,72 @@ bool refuse(const void* const* ptrs, int n, int BH, int Sq, int Sk, int D) {
   return false;
 }
 
+// What the masked entries also take: mode 1 (segment: segq, segk and
+// their summaries) or 2 (flashmask: fm, Sq == Sk, Hm 1 or H, C 1|2 with
+// causal bounds or 2|4 without, the start summary for C == 1 causal), H
+// dividing B*H, and the tensors TMA reads (segq and segk, or fm) 16-byte
+// aligned and within reach of its 32-bit coordinates.
+bool refuse_mask(const Mask& mk, int mode, int BH, int Sq, int Sk) {
+  if (mk.H <= 0 || BH % mk.H != 0) return true;
+  const long long B = BH / mk.H;
+  long long n = 0;
+  const void* rows[2] = {nullptr, nullptr};
+  if (mode == kSegment) {
+    if (!mk.segq || !mk.segk || !mk.qsum || !mk.ksum) return true;
+    rows[0] = mk.segq;
+    rows[1] = mk.segk;
+    n = 2 * B * row4(Sq > Sk ? Sq : Sk);
+  } else if (mode == kFlashmask) {
+    if (!mk.fm || Sq != Sk || (mk.Hm != 1 && mk.Hm != mk.H)) return true;
+    if (mk.fm_causal ? (mk.C != 1 && mk.C != 2) : (mk.C != 2 && mk.C != 4))
+      return true;
+    if (mk.C == 1 && mk.fm_causal && !mk.fmsum) return true;
+    rows[0] = mk.fm;
+    n = B * mk.Hm * mk.C * row4(Sk);
+  } else {
+    return true;
+  }
+  for (const void* r : rows)
+    if (reinterpret_cast<uintptr_t>(r) % 16 != 0) return true;
+  return n >= (1ll << 31);
+}
+
+Mask make_mask(const void* segq, const void* segk, const void* qsum,
+               const void* ksum, const void* fm, const void* fmsum,
+               void* visits, int H, int fm_heads, int fm_cols,
+               int fm_causal) {
+  Mask mk{};
+  mk.segq = static_cast<const int*>(segq);
+  mk.segk = static_cast<const int*>(segk);
+  mk.qsum = static_cast<const int*>(qsum);
+  mk.ksum = static_cast<const int*>(ksum);
+  mk.fm = static_cast<const int*>(fm);
+  mk.fmsum = static_cast<const int*>(fmsum);
+  mk.visits = static_cast<int*>(visits);
+  mk.H = H;
+  mk.Hm = fm_heads;
+  mk.C = fm_cols;
+  mk.fm_causal = fm_causal;
+  return mk;
+}
+
+// the int map of a masked launch: the (B, 2, row4(S)) segment rows or the
+// (B*Hm, C, row4(S)) bounds, flattened, in boxes of `box`
+bool mask_map(CUtensorMap* map, const Mask& mk, int mode, const int* seg,
+              int BH, int S, int box) {
+  const long long B = BH / mk.H;
+  if (mode == kSegment) return map_ints(map, seg, 2 * B * row4(S), box);
+  return map_ints(map, mk.fm, B * mk.Hm * mk.C * row4(S), box);
+}
+
 }  // namespace
 
 // q/dout/dq (BH, Sq, D), k/v/dk/dv (BH, Sk, D) bf16, contiguous, 16-byte
-// aligned; lse and delta (BH, Sq) fp32. Refuses (cudaErrorInvalidValue) D
-// > 128 or not a multiple of 8, BH > 65535, BH * Sq >= 2^31, unaligned
-// inputs. Each returns a cudaError_t: 0 on a successful launch.
+// aligned; lse and delta (BH, Sq) fp32, and for dK/dV (BH, row4(Sq)): each
+// row padded to a multiple of 4 (its TMA boxes start 16-byte aligned).
+// Refuses (cudaErrorInvalidValue) D > 128 or not a multiple of 8, BH >
+// 65535, BH * Sq >= 2^31, unaligned inputs. Each returns a cudaError_t: 0
+// on a successful launch.
 extern "C" int flash_attention_dq_sm90(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -624,11 +1126,13 @@ extern "C" int flash_attention_dq_sm90(const void* q, const void* k,
   if (refuse(in, 6, BH, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CUtensorMap none{};
+  const Mask plain{};
   const cudaError_t e =
-      D <= 64 ? launch_dq<64>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D,
-                              scale, causal, s)
-              : launch_dq<128>(q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D,
-                               scale, causal, s);
+      D <= 64 ? launch_dq<64, kPlain>(q, k, v, dout, lse, delta, dq, BH, Sq,
+                                      Sk, D, scale, causal, none, plain, s)
+              : launch_dq<128, kPlain>(q, k, v, dout, lse, delta, dq, BH, Sq,
+                                       Sk, D, scale, causal, none, plain, s);
   return static_cast<int>(e);
 }
 
@@ -642,10 +1146,91 @@ extern "C" int flash_attention_dkv_sm90(const void* q, const void* k,
   if (refuse(in, 6, BH, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const CUtensorMap none{};
+  const Mask plain{};
   const cudaError_t e =
-      D <= 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk,
-                               D, scale, causal, s)
-              : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, BH, Sq,
-                                Sk, D, scale, causal, s);
+      D <= 64 ? launch_dkv<64, kPlain>(q, k, v, dout, lse, delta, dk, dv, BH,
+                                       Sq, Sk, D, scale, causal, none, plain,
+                                       s)
+              : launch_dkv<128, kPlain>(q, k, v, dout, lse, delta, dk, dv,
+                                        BH, Sq, Sk, D, scale, causal, none,
+                                        plain, s);
+  return static_cast<int>(e);
+}
+
+// The segment (mode 1) and flashmask (mode 2) modes of the same kernels,
+// with flash_attention.cu's masked tail (less its dtype): segq/segk (B, 2,
+// row4(S)) int32, each row padded to a multiple of 4 as lse and delta
+// are for dK/dV, and their (B, 4, ceil(S/32)) summaries of the unpadded
+// rows, or fm (B*fm_heads, fm_cols, row4(Sk)) int32, padded so, and its
+// (B*fm_heads, 2, ceil(Sk/32)) start summary
+// (fm_cols 1 with fm_causal only); H heads per batch row; `visits`, if
+// not null, gains the 64 x 64 (q, k) tile pairs the warpgroups compute.
+// Pointers a mode does not use may be null. Refuses what the plain
+// entries refuse and what `refuse_mask` does.
+extern "C" int flash_attention_dq_sm90_masked(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const void* segq,
+    const void* segk, const void* qsum, const void* ksum, const void* fm,
+    const void* fmsum, void* visits, int BH, int Sq, int Sk, int D, int H,
+    int fm_heads, int fm_cols, float scale, int causal, int fm_causal,
+    int mode, void* stream) {
+  const void* in[6] = {q, k, v, dout, lse, delta};
+  const Mask mk = make_mask(segq, segk, qsum, ksum, fm, fmsum, visits, H,
+                            fm_heads, fm_cols, fm_causal);
+  CUtensorMap imap;
+  if (refuse(in, 6, BH, Sq, Sk, D) || refuse_mask(mk, mode, BH, Sq, Sk) ||
+      !mask_map(&imap, mk, mode, mk.segk, BH, Sk, kSmall))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (mode == kSegment)
+    e = D <= 64 ? launch_dq<64, kSegment>(q, k, v, dout, lse, delta, dq, BH,
+                                          Sq, Sk, D, scale, causal, imap, mk,
+                                          s)
+                : launch_dq<128, kSegment>(q, k, v, dout, lse, delta, dq, BH,
+                                           Sq, Sk, D, scale, causal, imap, mk,
+                                           s);
+  else
+    e = D <= 64 ? launch_dq<64, kFlashmask>(q, k, v, dout, lse, delta, dq,
+                                            BH, Sq, Sk, D, scale, causal,
+                                            imap, mk, s)
+                : launch_dq<128, kFlashmask>(q, k, v, dout, lse, delta, dq,
+                                             BH, Sq, Sk, D, scale, causal,
+                                             imap, mk, s);
+  return static_cast<int>(e);
+}
+
+extern "C" int flash_attention_dkv_sm90_masked(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, const void* segq,
+    const void* segk, const void* qsum, const void* ksum, const void* fm,
+    const void* fmsum, void* visits, int BH, int Sq, int Sk, int D, int H,
+    int fm_heads, int fm_cols, float scale, int causal, int fm_causal,
+    int mode, void* stream) {
+  const void* in[6] = {q, k, v, dout, lse, delta};
+  const Mask mk = make_mask(segq, segk, qsum, ksum, fm, fmsum, visits, H,
+                            fm_heads, fm_cols, fm_causal);
+  CUtensorMap imap;
+  if (refuse(in, 6, BH, Sq, Sk, D) || refuse_mask(mk, mode, BH, Sq, Sk) ||
+      !mask_map(&imap, mk, mode, mk.segq, BH, Sq,
+                mode == kSegment ? kSmall : kBig))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (mode == kSegment)
+    e = D <= 64 ? launch_dkv<64, kSegment>(q, k, v, dout, lse, delta, dk, dv,
+                                           BH, Sq, Sk, D, scale, causal, imap,
+                                           mk, s)
+                : launch_dkv<128, kSegment>(q, k, v, dout, lse, delta, dk,
+                                            dv, BH, Sq, Sk, D, scale, causal,
+                                            imap, mk, s);
+  else
+    e = D <= 64 ? launch_dkv<64, kFlashmask>(q, k, v, dout, lse, delta, dk,
+                                             dv, BH, Sq, Sk, D, scale,
+                                             causal, imap, mk, s)
+                : launch_dkv<128, kFlashmask>(q, k, v, dout, lse, delta, dk,
+                                              dv, BH, Sq, Sk, D, scale,
+                                              causal, imap, mk, s);
   return static_cast<int>(e);
 }

@@ -12,11 +12,15 @@ computed as a plain op outside the kernels, as in the reference.
 
 Each entry — `flash_fwd`, `flash_dq`, `flash_dkv` — launches its
 hand-written Hopper kernel from `csrc/flash_attention.cu` on a CUDA
-tensor (counted in `.launches`) or raises. `flash_route` picks the
-kernels of all three before the launch from (dtype, head_dim, mode)
-alone: bf16 in the plain mode at head_dim <= 128 takes the wgmma
-kernels — the forward of `csrc/flash_fwd_sm90.cu`, dQ and dK/dV of
-`csrc/flash_bwd_sm90.cu` (also counted in `.sm90_launches`). On a CPU
+tensor (counted in `.launches`) or raises. `flash_route` picks each
+entry's kernel before the launch from (dtype, head_dim, mode, kernel)
+alone: bf16 at head_dim <= 128 takes the wgmma kernels — the plain-mode
+forward of `csrc/flash_fwd_sm90.cu`, and dQ and dK/dV of
+`csrc/flash_bwd_sm90.cu` in every mode (counted in `.sm90_launches`;
+the wgmma dK/dV reads lse and delta, and the masked wgmma kernels their
+segment rows or bounds, with TMA in boxes that start 16-byte aligned, so
+the wrapper pads those rows to a multiple of 4 elements when S is not
+one, `_tma_rows`). On a CPU
 tensor each entry runs the plain PyTorch version beside it
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`: fp32 math, a masked
 score is NEG_INF and contributes exactly 0, the softmax sum clamped at
@@ -31,13 +35,17 @@ causal mask); or `fm=`, flashmask row bounds (B*Hm, C, Sk) int32 with Hm
 1 or H and C 1|2 (`fm_causal`) or 2|4, on top of the causal mask when
 `causal`. `H` is the number of heads per batch row. On a CUDA tensor
 they launch the segment or flashmask mode of the same kernels (counted
-in `.varlen_launches` / `.flashmask_launches`). The skip predicate reads
-per-32-row tile summaries that `tile_summary` builds with plain torch ops
-(`_segment_summary`: 3 launches a side, 4 when S is not a multiple of
-32; `_start_summary`, C == 1 with causal bounds only: 1 to 3); an entry
-takes them as `summary=` or builds them itself. `visits=`, a one-element
-int32 tensor on the card, gains the (q, k) tile pairs a masked kernel
-visits (`flash_visits_ref` is its plain version). `FlashAttentionVarlen` and `FlashMask` are the autograd Functions
+in `.varlen_launches` / `.flashmask_launches`, and never in `.launches`:
+the forward on flash_attention.cu, bf16 dQ and dK/dV at head_dim <= 128
+on the wgmma kernels, also in `.sm90_launches`). The skip predicate
+reads per-32-row tile summaries that `tile_summary` builds with plain
+torch ops (`_segment_summary`: 3 launches a side, 4 when S is not a
+multiple of 32; `_start_summary`, C == 1 with causal bounds only: 2 to
+4); an entry takes them as `summary=` or builds them itself. `visits=`,
+a one-element int32 tensor on the card, gains the (q, k) tile pairs a
+masked kernel visits (`flash_visits_ref` is its plain version;
+`masked_bwd_walk` is the wgmma backward's walk of its blocks in
+Python). `FlashAttentionVarlen` and `FlashMask` are the autograd Functions
 (`_flash_core_seg`, `_flash_core_fm`): they build the summaries once for
 the three kernels of a call; the integer inputs get no gradient.
 `flash_attention_varlen_bshd` and `flashmask_attention_bshd` are the
@@ -60,7 +68,7 @@ __all__ = ["flash_attention_bshd", "flash_attention_varlen_bshd",
            "FlashAttentionVarlen", "FlashMask", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
            "flash_delta", "tile_summary", "flash_visits_ref",
-           "check_supported", "flash_route",
+           "check_supported", "flash_route", "masked_bwd_walk",
            "NEG_INF", "KERNEL_SOURCE", "SM90_SOURCE", "SM90_BWD_SOURCE"]
 
 KERNEL_SOURCE = "flash_attention.cu"
@@ -216,26 +224,37 @@ C_ARGTYPES = {
 }
 # the wgmma entries: their tensors (fwd: q, k, v, out, lse; dq: q, k, v,
 # dout, lse, delta, dq; dkv: the same with dk, dv), then BH, Sq, Sk, D,
-# scale, causal, stream
+# scale, causal, stream; the masked dQ and dK/dV take `_TAIL` less dtype
 _SM90_TAIL = [_I] * 4 + [_F, _I, _P]
+_SM90_MASKED_TAIL = _TAIL[:-2] + _TAIL[-1:]
 SM90_C_ARGTYPES = {
     "flash_attention_fwd_sm90": (SM90_SOURCE, [_P] * 5 + _SM90_TAIL),
     "flash_attention_dq_sm90": (SM90_BWD_SOURCE, [_P] * 7 + _SM90_TAIL),
     "flash_attention_dkv_sm90": (SM90_BWD_SOURCE, [_P] * 8 + _SM90_TAIL),
+    "flash_attention_dq_sm90_masked": (SM90_BWD_SOURCE,
+                                       [_P] * 7 + _SM90_MASKED_TAIL),
+    "flash_attention_dkv_sm90_masked": (SM90_BWD_SOURCE,
+                                        [_P] * 8 + _SM90_MASKED_TAIL),
 }
 _MODE = {"plain": 0, "varlen": 1, "flashmask": 2}
 GROUP = 32      # rows of one tile-summary entry (csrc: kGroup)
 
 
-def flash_route(dtype, D, mode="plain") -> str:
-    """Which kernels a CUDA forward, dQ and dK/dV take, decided before the
-    launch: "sm90" (the forward of `csrc/flash_fwd_sm90.cu`, dQ and dK/dV
-    of `csrc/flash_bwd_sm90.cu`) for bf16 in the plain mode at head_dim <=
-    128, else "mma" (`csrc/flash_attention.cu`: fp32, head_dim > 128, the
-    varlen and flashmask modes)."""
-    if dtype == torch.bfloat16 and D <= 128 and mode == "plain":
-        return "sm90"
-    return "mma"
+FLASH_KERNELS = ("fwd", "dq", "dkv")
+
+
+def flash_route(dtype, D, mode="plain", kernel="fwd") -> str:
+    """Which kernel a CUDA forward ("fwd"), dQ ("dq") or dK/dV ("dkv")
+    takes, decided before the launch from (dtype, head_dim, mode, kernel)
+    alone: "sm90" for bf16 at head_dim <= 128 — the plain-mode forward of
+    `csrc/flash_fwd_sm90.cu`, dQ and dK/dV of `csrc/flash_bwd_sm90.cu` in
+    every mode — else "mma" (`csrc/flash_attention.cu`: fp32, head_dim >
+    128, and the forward of the varlen and flashmask modes)."""
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(f"kernel {kernel!r} is not one of {FLASH_KERNELS}")
+    if dtype != torch.bfloat16 or D > 128:
+        return "mma"
+    return "mma" if kernel == "fwd" and mode != "plain" else "sm90"
 
 
 def _entry(name):
@@ -328,9 +347,11 @@ def _segment_summary(seg):
 
 
 def _start_summary(fm):
-    """(N, C, Sk) bounds -> (N, ceil(Sk/32)) int32: the largest start
-    (bound 0) of each 32-column group."""
-    return _group_pad(fm[:, :1].contiguous()).amax(dim=-1)[:, 0].contiguous()
+    """(N, C, Sk) bounds -> (N, 2, ceil(Sk/32)) int32: the largest and the
+    smallest start (bound 0) of each 32-column group (the skip predicate
+    reads the first, the wgmma backward's whole-tile test the second)."""
+    x = _group_pad(fm[:, :1].contiguous())
+    return torch.cat([x.amax(dim=-1), x.amin(dim=-1)], dim=1).contiguous()
 
 
 def tile_summary(seg=None, fm=None, fm_causal=True):
@@ -376,6 +397,79 @@ def flash_visits_ref(BH, Sq, Sk, causal, seg=None, fm=None, fm_causal=True,
     return int(ok.sum()) * (BH // fm.shape[0])
 
 
+_IMAX, _IMIN = 2 ** 31 - 1, -2 ** 31
+
+
+def _seg_range(summ, r0, tile=64):
+    """csrc seg_range: (min id, max id, min pos, max pos) of rows [r0, r0 +
+    tile) from one batch row's (4, ng) summary (numpy), over its groups."""
+    g0, g1 = r0 // GROUP, min(summ.shape[1], (r0 + tile) // GROUP)
+    if g0 >= g1:
+        return _IMAX, _IMIN, _IMAX, _IMIN
+    x = summ[:, g0:g1]
+    return int(x[0].min()), int(x[1].max()), int(x[2].min()), int(x[3].max())
+
+
+def masked_bwd_walk(kernel, BH, Sq, Sk, causal, seg=None, fm=None,
+                    fm_causal=True, H=1, summary=None):
+    """The wgmma masked dQ ("dq") or dK/dV ("dkv") kernel's walk, the C
+    rule (`build_list` and `next_word` in csrc/flash_bwd_sm90.cu) in
+    Python, for the tests: {(bh, first fixed row): [(ring tile, (warpgroup
+    0 computes it, warpgroup 1 does), (the pair is whole: no score masked,
+    for each)), ...]}, the tiles in the order the ring carries them. A
+    block's fixed rows are 128 queries (dq) or keys (dkv), 64 a warpgroup;
+    a ring tile is 64 keys (dq) or queries (dkv). A pair is computed when
+    the reference's `_block_contributes` lets it through, read from the
+    summaries the kernels read (`tile_summary`). (The kernels keep the
+    whole bits up to 65536 ring tiles, more than these tests reach.)"""
+    qsum, ksum, fmsum = (None if x is None else x.cpu().numpy() for x in (
+        summary if summary is not None else tile_summary(seg, fm,
+                                                         fm_causal)))
+    dq = kernel == "dq"
+    fixed_rows, ring_rows = (Sq, Sk) if dq else (Sk, Sq)
+    off = Sk - Sq
+    doc = fm is not None and fm.shape[1] == 1 and fm_causal
+    Hm = fm.shape[0] * H // BH if fm is not None else 1
+    walk = {}
+    for bh in range(BH):
+        b = bh // H
+        fh = b if Hm == 1 else bh
+        for f0 in range(0, fixed_rows, 128):
+            tiles = []
+            for t in range(-(-ring_rows // 64)):
+                c, w = [False, False], [False, False]
+                for wg in range(2):
+                    r0 = f0 + 64 * wg
+                    if r0 >= fixed_rows:
+                        continue
+                    q0, k0 = (r0, 64 * t) if dq else (64 * t, r0)
+                    if seg is not None:
+                        qr, kr = _seg_range(qsum[b], q0), _seg_range(ksum[b],
+                                                                     k0)
+                        one = qr[0] == kr[1] and qr[1] == kr[0]
+                        c[wg] = (qr[0] <= kr[1] and qr[1] >= kr[0]
+                                 and not (causal and one and kr[2] > qr[3]))
+                        w[wg] = (qr[0] == qr[1] == kr[0] == kr[1]
+                                 and (not causal or kr[3] <= qr[2]))
+                    else:   # the largest and smallest start of the tile
+                        if doc:
+                            g = slice(k0 // GROUP, min(fmsum.shape[-1],
+                                                       (k0 + 64) // GROUP))
+                            smax = fmsum[fh, 0, g].max()
+                            smin = fmsum[fh, 1, g].min()
+                        c[wg] = ((not causal or k0 <= q0 + 63 + off)
+                                 and not (doc and q0 >= smax))
+                        w[wg] = (doc and (not causal or k0 + 63 <= q0 + off)
+                                 and q0 + 63 < smin)
+                    c[wg] = bool(c[wg])
+                    w[wg] = bool(c[wg] and w[wg] and q0 + 64 <= Sq
+                                 and k0 + 64 <= Sk)
+                if c[0] or c[1]:
+                    tiles.append((t, tuple(c), tuple(w)))
+            walk[(bh, f0)] = tiles
+    return walk
+
+
 def _device_kind(q, name):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
@@ -404,11 +498,24 @@ def _launch_sm90(fn, name, tensors, sm_scale, causal):
     fn.sm90_launches += 1
 
 
+def _tma_rows(t):
+    """t (..., S) as the wgmma backward's TMA reads it in 1-D boxes that
+    start 16-byte aligned: rows padded to a multiple of 4 elements and
+    16-byte aligned storage (t itself when it is so already)."""
+    if t is None:
+        return None
+    pad = -t.shape[-1] % 4
+    if pad:
+        return torch.nn.functional.pad(t, (0, pad))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(fn, name, q, k, outs, ins, sm_scale, causal, seg, fm,
-            fm_causal, H, summary, visits):
+            fm_causal, H, summary, visits, sm90=False):
     """One launch of `name` in the mode its masks ask for; counts it on
-    `fn`. `outs`/`ins` are the entry's tensor arguments after q, k (v,
-    dout, lse, delta; out, lse / dq / dk, dv)."""
+    `fn` (and in `.sm90_launches` for a masked wgmma entry, `sm90`, which
+    takes no dtype). `outs`/`ins` are the entry's tensor arguments after
+    q, k (v, dout, lse, delta; out, lse / dq / dk, dv)."""
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     mode, kind = _MODE["plain"], "launches"
@@ -417,23 +524,29 @@ def _launch(fn, name, q, k, outs, ins, sm_scale, causal, seg, fm,
         _check_masks(q, k, seg, fm, H, visits)
         if summary is None:
             summary = tile_summary(seg, fm, fm_causal)
+        if sm90:
+            seg = seg and tuple(map(_tma_rows, seg))
+            fm = _tma_rows(fm)
         mode = _MODE["varlen" if seg is not None else "flashmask"]
         kind = "varlen_launches" if seg is not None else "flashmask_launches"
         masks = (*(seg or (None, None)), *summary[:2], fm, summary[2],
                  visits)
     ptrs = [t.data_ptr() for t in (q, k) + ins + outs]
+    dtype = [] if sm90 else [_DTYPE_CODE[q.dtype]]
     with torch.cuda.device(q.device):
         err = _entry(name)(
             *ptrs, *(None if t is None else t.data_ptr() for t in masks),
             BH, Sq, Sk, D, int(H),
             fm.shape[0] * H // BH if fm is not None else 1,
             fm.shape[1] if fm is not None else 0, float(sm_scale),
-            int(bool(causal)), int(bool(fm_causal)), mode,
-            _DTYPE_CODE[q.dtype], _stream(q))
+            int(bool(causal)), int(bool(fm_causal)), mode, *dtype,
+            _stream(q))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed or refused its "
                            f"arguments: cudaError {err}")
     setattr(fn, kind, getattr(fn, kind) + 1)
+    if sm90:
+        fn.sm90_launches += 1
 
 
 def _mode(seg, fm):
@@ -452,7 +565,7 @@ def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32)
-    if flash_route(q.dtype, D, _mode(seg, fm)) == "sm90":
+    if flash_route(q.dtype, D, _mode(seg, fm), "fwd") == "sm90":
         _launch_sm90(flash_fwd, "flash_attention_fwd_sm90",
                      (q, k, v, out, lse), sm_scale, causal)
         return out, lse
@@ -469,13 +582,16 @@ def flash_dq(q, k, v, dout, lse, delta, sm_scale, causal, seg=None, fm=None,
                             fm, fm_causal, H)
     _check_cuda_args(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
-    if flash_route(q.dtype, q.shape[2], _mode(seg, fm)) == "sm90":
+    mode = _mode(seg, fm)
+    sm90 = flash_route(q.dtype, q.shape[2], mode, "dq") == "sm90"
+    if sm90 and mode == "plain":
         _launch_sm90(flash_dq, "flash_attention_dq_sm90",
                      (q, k, v, dout, lse, delta, dq), sm_scale, causal)
         return dq
-    _launch(flash_dq, "flash_attention_dq", q, k, (dq,),
+    _launch(flash_dq, "flash_attention_dq" + ("_sm90_masked" if sm90
+                                               else ""), q, k, (dq,),
             (v, dout, lse, delta), sm_scale, causal, seg, fm, fm_causal, H,
-            summary, visits)
+            summary, visits, sm90)
     return dq
 
 
@@ -487,13 +603,18 @@ def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
                              seg, fm, fm_causal, H)
     _check_cuda_args(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if flash_route(q.dtype, q.shape[2], _mode(seg, fm)) == "sm90":
+    mode = _mode(seg, fm)
+    sm90 = flash_route(q.dtype, q.shape[2], mode, "dkv") == "sm90"
+    if sm90:                            # the kernel reads them with TMA
+        lse, delta = _tma_rows(lse), _tma_rows(delta)
+    if sm90 and mode == "plain":
         _launch_sm90(flash_dkv, "flash_attention_dkv_sm90",
                      (q, k, v, dout, lse, delta, dk, dv), sm_scale, causal)
         return dk, dv
-    _launch(flash_dkv, "flash_attention_dkv", q, k, (dk, dv),
+    _launch(flash_dkv, "flash_attention_dkv" + ("_sm90_masked" if sm90
+                                                 else ""), q, k, (dk, dv),
             (v, dout, lse, delta), sm_scale, causal, seg, fm, fm_causal, H,
-            summary, visits)
+            summary, visits, sm90)
     return dk, dv
 
 

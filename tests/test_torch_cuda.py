@@ -814,11 +814,13 @@ def test_flash_forward_route_matches_plain_version(card, case):
 
 # the wgmma dQ and dK/dV (csrc/flash_bwd_sm90.cu) at the training shape
 # and ragged ones: every FLASH_CASE the route takes (D <= 128), a causal
-# Sq > Sk whose first 70 rows see no key, a causal multi-tile case at D 64
-# and a non-causal Sq < Sk with a ragged last key tile
+# Sq > Sk whose first 70 rows see no key, a causal multi-tile case at D 64,
+# a non-causal Sq < Sk with a ragged last key tile, and Sq not a multiple
+# of 4 (dK/dV's lse and delta rows padded for TMA)
 SM90_BWD_CASES = [c for c in FLASH_CASES if c[3] <= 128] + [
     (32, 4096, 4096, 128, True), (2, 200, 130, 128, True),
-    (2, 1024, 1024, 64, True), (2, 384, 520, 128, False)]
+    (2, 1024, 1024, 64, True), (2, 384, 520, 128, False),
+    (2, 130, 130, 64, True), (3, 70, 198, 128, False)]
 
 
 @pytest.mark.parametrize("case", SM90_BWD_CASES, ids=str)
@@ -1133,11 +1135,14 @@ def _fm_bounds(kind, B, Hm, S, seed):
 
 
 # (name, B, H, Sq, Sk, D, causal, masks): varlen with ragged non-uniform
-# q/k lengths (totals not tile multiples), flashmask in each bound count,
+# q/k lengths (totals not tile multiples), documents that a 128-row block
+# straddles (one shorter than 64 tokens: one warpgroup of a wgmma block
+# computes a tile the other skips), flashmask in each bound count,
 # per-head bounds (Hm = H)
 MASKED_CASES = [
     ("varlen_causal", 1, 2, 100, 148, 64, True, ([40, 9, 51], [60, 25, 63])),
     ("varlen", 2, 2, 200, 200, 128, False, ([70, 64, 66],)),
+    ("varlen_straddle", 1, 2, 300, 300, 128, True, ([40, 30, 100, 130],)),
     ("fm_doc", 2, 2, 200, 200, 64, True, ("doc", 1)),
     ("fm_band", 1, 2, 136, 136, 128, True, ("band", 1)),
     ("fm_nc2", 1, 2, 136, 136, 64, False, ("nc2", 1)),
@@ -1164,8 +1169,10 @@ def test_masked_flash_kernels_match_plain_versions(card, case):
     against the plain versions, with `flash_error`'s limits: fp32 within
     1e-4 of the largest value, bf16 a relative error of 1e-2, the lse
     1e-4. Each call launches its mode's kernel once and the plain mode's
-    never, and each counts the tile pairs it visits as the plain
-    predicate `flash_visits_ref` does."""
+    never; bf16 dQ and dK/dV at head_dim <= 128 take the wgmma kernels
+    (`sm90_launches`), the rest and every forward flash_attention.cu. Each
+    counts the tile pairs it visits as the plain predicate
+    `flash_visits_ref` does."""
     q, k, v, do, kw, causal = _masked_case(case, card)
     kind = "varlen_launches" if "seg" in kw else "flashmask_launches"
     fns = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
@@ -1176,7 +1183,11 @@ def test_masked_flash_kernels_match_plain_versions(card, case):
                 _close(got, want, 1e-4)
             else:
                 _close_rel(got, want, 1e-2)
-        n0 = [(getattr(f, kind), f.launches) for f in fns]
+        n0 = [(getattr(f, kind), f.launches, f.sm90_launches) for f in fns]
+        sm90 = int(dt == torch.bfloat16 and q.shape[-1] <= 128)
+        assert [fa.flash_route(dt, q.shape[-1], "masked", kern)
+                for kern in ("fwd", "dq", "dkv")] == \
+            ["mma"] + ["sm90" if sm90 else "mma"] * 2
         qq, kk, vv, dd = (t.to(dt) for t in (q, k, v, do))
         out, lse = fa.flash_fwd(qq, kk, vv, scale, causal, **kw)
         ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal, **kw)
@@ -1189,8 +1200,10 @@ def test_masked_flash_kernels_match_plain_versions(card, case):
                              fa.flash_dkv_ref(*args, **kw)):
             close(got, want)
         torch.cuda.synchronize()
-        assert [(getattr(f, kind), f.launches) for f in fns] == \
-            [(a + 1, b) for a, b in n0]
+        assert [(getattr(f, kind), f.launches, f.sm90_launches)
+                for f in fns] == \
+            [(a + 1, b, c + (sm90 if f is not fa.flash_fwd else 0))
+             for f, (a, b, c) in zip(fns, n0)]
         BH, Sq, D = q.shape
         tile = 32 if dt == torch.float32 and D > 128 else 64
         counts = torch.zeros(3, dtype=torch.int32, device=card)
@@ -1224,6 +1237,129 @@ def test_rows_that_see_no_key_give_zeros(card):
         delta = fa.flash_delta(out, do)
         dq = fa.flash_dq(q, k, v, do, lse, delta, 0.125, True, **kw)
         assert torch.all(dq[dead] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_masked_backward_zero_rows_and_keys_are_exact(card, dtype):
+    """Through either backward (bf16: the wgmma kernels; fp32:
+    flash_attention.cu): a query that sees no key gets dQ rows of exact
+    zeros, and a key that no query sees gets dK and dV rows of exact
+    zeros — a varlen query before its sequence's keys, flashmask columns
+    masked for every row."""
+    q, k, v, do = (t.to(dtype) for t in _flash_inputs(2, 192, 192, 64, 8,
+                                                      card))
+    seg = (torch.tensor([[0] * 192, [-3] * 8 + list(range(184))],
+                        dtype=torch.int32, device=card)[None],
+           torch.tensor([[0] * 192, list(range(192))], dtype=torch.int32,
+                        device=card)[None])
+    fm = torch.full((1, 1, 192), 192, dtype=torch.int32, device=card)
+    fm[0, 0, :40] = 0                   # keys 0-39: masked for every row
+    fm[0, 0, 100:130] = 0               # keys 100-129 too, mid-block
+    kinds = ("sm90_launches", "launches")
+    for kw in (dict(seg=seg, H=2), dict(fm=fm, fm_causal=True, H=2)):
+        out, lse = fa.flash_fwd_ref(q, k, v, 0.125, True, **kw)
+        args = (q, k, v, do, lse, fa.flash_delta(out, do), 0.125, True)
+        n0 = [getattr(fa.flash_dq, x) for x in kinds]
+        dq = fa.flash_dq(*args, **kw)
+        dk, dv = fa.flash_dkv(*args, **kw)
+        torch.cuda.synchronize()
+        assert [getattr(fa.flash_dq, x) for x in kinds] == \
+            [n0[0] + int(dtype == torch.bfloat16), n0[1]]
+        dead_q = lse < -1e29
+        _, keep = fa._apply_masks(torch.zeros(2, 192, 192, device=card),
+                                  True, **kw)
+        dead_k = ~keep.expand(2, 192, 192).any(dim=1)
+        assert dead_q.any() or dead_k.any()
+        assert torch.all(dq[dead_q] == 0)
+        assert torch.all(dk[dead_k] == 0) and torch.all(dv[dead_k] == 0)
+        want = (fa.flash_dq_ref(*args, **kw),) + fa.flash_dkv_ref(*args,
+                                                                 **kw)
+        for got, ref in zip((dq, dk, dv), want):
+            if dtype == torch.float32:
+                _close(got, ref, 1e-4)
+            else:
+                _close_rel(got, ref, 1e-2)
+
+
+def test_masked_flash_bwd_sm90_is_deterministic(card):
+    """No atomics in the masked modes either: two launches of each wgmma
+    backward kernel on the same varlen and flashmask inputs give bitwise
+    equal gradients."""
+    for case in (MASKED_CASES[2], MASKED_CASES[4]):
+        q, k, v, do, kw, causal = _masked_case(case, card)
+        q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+        out, lse = fa.flash_fwd(q, k, v, 0.09, causal, **kw)
+        args = (q, k, v, do, lse, fa.flash_delta(out, do), 0.09, causal)
+        first = (fa.flash_dq(*args, **kw), *fa.flash_dkv(*args, **kw))
+        again = (fa.flash_dq(*args, **kw), *fa.flash_dkv(*args, **kw))
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), case[0]
+
+
+def test_masked_flash_bwd_sm90_refuses_with_no_fallback(card, monkeypatch):
+    """The masked wgmma entries refuse (cudaErrorInvalidValue = 1) what
+    they do not take — mode 0, a missing summary, flashmask with Sq != Sk,
+    C 3 — and flash_attention.cu refuses the masked bf16 dQ and dK/dV at
+    head_dim <= 128 while still taking the masked forward. A refusal on
+    the route raises, counts nothing and never reaches flash_attention.cu
+    or the plain version."""
+    q, k, v, do = (t.bfloat16() for t in _flash_inputs(2, 64, 64, 64, 3,
+                                                       card))
+    lse = torch.zeros(2, 64, device=card)
+    delta = torch.zeros(2, 64, device=card)
+    segq, segk = (torch.from_numpy(x).to(card) for x in _segments(1, [30, 34]))
+    qsum, ksum, _ = fa.tile_summary((segq, segk))
+    fm = torch.full((1, 1, 64), 64, dtype=torch.int32, device=card)
+    fm2 = torch.full((1, 2, 64), 64, dtype=torch.int32, device=card)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stream = torch.cuda.current_stream().cuda_stream
+    ins = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    seg_ptrs = [segq.data_ptr(), segk.data_ptr(), qsum.data_ptr(),
+                ksum.data_ptr(), None, None, None]
+    fm_ptrs = [None] * 4 + [fm2.data_ptr(), None, None]
+    for name, outs in (("flash_attention_dq_sm90_masked", [dq.data_ptr()]),
+                       ("flash_attention_dkv_sm90_masked",
+                        [dk.data_ptr(), dv.data_ptr()])):
+        entry = fa._entry(name)
+
+        def call(ptrs, Sk, C, mode, fm_causal=1):
+            return entry(*ins, *outs, *ptrs, 2, 64, Sk, 64, 2, 1, C, 0.125,
+                         1, fm_causal, mode, stream)
+        assert call(seg_ptrs, 64, 0, 1) == 0
+        assert call(seg_ptrs, 64, 0, 0) == 1
+        assert call(seg_ptrs[:3] + [None] + seg_ptrs[4:], 64, 0, 1) == 1
+        assert call(fm_ptrs, 64, 2, 2) == 0
+        assert call(fm_ptrs, 64, 1, 2) == 1       # C 1 needs its summary
+        assert call(fm_ptrs, 64, 3, 2) == 1
+        assert call(fm_ptrs, 32, 2, 2) == 1
+        old = fa._entry(name.replace("_sm90_masked", ""))
+        assert old(*ins, *outs, *seg_ptrs, 2, 64, 64, 64, 2, 1, 0, 0.125, 1,
+                   1, 1, 1, stream) == 1
+    out = torch.empty_like(q)
+    assert fa._entry("flash_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *seg_ptrs, 2, 64, 64, 64, 2, 1, 0, 0.125, 1, 1, 1,
+        1, stream) == 0
+    torch.cuda.synchronize()
+
+    def refusing(name):
+        if not name.endswith("_sm90_masked"):
+            raise AssertionError(f"fell back to {name}")
+        return lambda *a: 1
+    monkeypatch.setattr(fa, "_entry", refusing)
+    args = (q, k, v, do, lse, delta, 0.125, True)
+    counters = ("launches", "sm90_launches", "varlen_launches",
+                "flashmask_launches")
+    n0 = [[getattr(f, c) for c in counters] for f in (fa.flash_dq,
+                                                       fa.flash_dkv)]
+    for kw in (dict(seg=(segq, segk), H=2), dict(fm=fm, H=2)):
+        with pytest.raises(RuntimeError, match="dq_sm90_masked"):
+            fa.flash_dq(*args, **kw)
+        with pytest.raises(RuntimeError, match="dkv_sm90_masked"):
+            fa.flash_dkv(*args, **kw)
+    assert n0 == [[getattr(f, c) for c in counters] for f in (fa.flash_dq,
+                                                               fa.flash_dkv)]
 
 
 def test_varlen_and_flashmask_autograd_run_the_kernels(card):

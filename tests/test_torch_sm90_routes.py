@@ -151,6 +151,13 @@ def test_quant_decode_split_at_the_serve_quant_shapes():
         assert (min(sizes), max(sizes)) == (fewest, most)
 
 
+# the rows below whose dQ and dK/dV take another kernel than their
+# forward: bf16 masked modes at head_dim <= 128 (the wgmma backward)
+BWD_ROUTE = {(BF16, 128, "masked"): "sm90", (BF16, 64, "varlen"): "sm90",
+             (BF16, 128, "varlen"): "sm90", (BF16, 64, "flashmask"): "sm90",
+             (BF16, 128, "flashmask"): "sm90"}
+
+
 @pytest.mark.parametrize("dtype,D,mode,route", [
     (BF16, 128, "plain", "sm90"), (BF16, 64, "plain", "sm90"),
     (BF16, 40, "plain", "sm90"), (BF16, 136, "plain", "mma"),
@@ -165,9 +172,15 @@ def test_quant_decode_split_at_the_serve_quant_shapes():
     (torch.float16, 64, "plain", "mma"),
 ])
 def test_flash_fwd_route(dtype, D, mode, route):
-    """The forward, dQ and dK/dV take the wgmma kernels on one rule: bf16,
-    plain mode (causal or none), head_dim <= 128."""
+    """The forward takes the wgmma kernel for bf16 in the plain mode
+    (causal or none) at head_dim <= 128 (`route`); dQ and dK/dV take
+    theirs for bf16 at head_dim <= 128 in every mode (`route`, or the
+    row's `BWD_ROUTE`)."""
+    bwd = BWD_ROUTE.get((dtype, D, mode), route)
     assert fa.flash_route(dtype, D, mode) == route
+    assert fa.flash_route(dtype, D, mode, "fwd") == route
+    assert fa.flash_route(dtype, D, mode, "dq") == bwd
+    assert fa.flash_route(dtype, D, mode, "dkv") == bwd
 
 
 @pytest.mark.parametrize("BH,Sq,Sk,D,causal", [
