@@ -72,15 +72,16 @@ Faults:
     fp32 delta to y without rounding it to bf16 first (y + d rounded
     once, not y + bf16(d));
   * seg_global_causal — the segment mode (flash_attention.cu's three
-    kernels and the wgmma dQ and dK/dV) applies the global causal mask
+    kernels and the wgmma forward, dQ and dK/dV) applies the global
+    causal mask
     (key j <= query i + Sk - Sq) instead of the per-sequence one (pos_k <=
     pos_q): equal for self-attention over whole documents, wrong once the
     sequences' q/k lengths differ unevenly (the ragged varlen case);
   * masked_break_at_gap — flash_attention.cu's masked fwd and dQ k-loops
     stop at the first tile that does not contribute (a `break` where a
     later tile can contribute again): every document after the first
-    loses its keys (the dQ of the fp32 pass: bf16 dQ is the wgmma
-    kernel's);
+    loses its keys (the fp32 pass: the bf16 forward and dQ are the wgmma
+    kernels');
   * rms_residual_after_square — rms_norm_rows takes the mean of squares of
     x before the residual is added (the residual joins only the output);
   * seg_visit_every_tile — the segment mode's skip predicate (in
@@ -94,7 +95,15 @@ Faults:
   * bwd_fm_dq_other_stage — the wgmma masked dQ reads its key tile's
     mask rows (flashmask bounds, segment ids) from stage (s + 1) % 3 of
     the ring (another key tile's): the full-width document mask and every
-    small flashmask case.
+    small flashmask case;
+  * fwd_mask_rows_other_stage — the wgmma masked forward reads its key
+    tile's mask rows from stage (s + 1) % 4 of its ring (another key
+    tile's, or one not yet filled): the full-width document mask and
+    every small flashmask case;
+  * fwd_whole_other_warpgroup — the wgmma masked forward takes the other
+    warpgroup's whole-pair bit for its own, so a pair that crosses the
+    causal diagonal (or a document's end) skips the per-score mask: the
+    full-width cases, whose long documents have whole pairs.
 
 The ring faults keep the ring's protocol (every stage is still waited for
 and released), so they give wrong numbers, never a hang. The unmodified
@@ -132,6 +141,9 @@ _BWD_SEG_CAUSAL_DKV = "(causal_b & (kpos[h] > qpos[e]))"
 _BWD_SEG_ID = "(kid != rid[h]) | "
 _BWD_MINE = "      const bool mine = (word >> (24 + wg)) & 1;\n"
 _BWD_COLS = "    const int* cols = m.ivec + s * kIvec;\n"
+_FWD_COLS = "    const int* cols = w.ivec + s * kIvec;\n"
+_FWD_WHOLE = "    const bool whole = (word >> (26 + wg)) & 1;\n"
+_FWD_SEG_CAUSAL = "(causal_b & (kpos > rpos[h]))"
 _RMS_PASS1 = "    load_row<T, kRes, V>(f, xr, rr, c);\n#pragma unroll\n" \
              "    for (int i = 0; i < V; ++i) ss = fmaf(f[i], f[i], ss);\n"
 _SM90_MASKED = "    const bool masked_tile =\n"
@@ -263,7 +275,11 @@ FAULTS = {
                             [(_BWD_SEG_CAUSAL_DQ,
                               "(causal_b & (col > row + off))", 1),
                              (_BWD_SEG_CAUSAL_DKV,
-                              "(causal_b & (key0 + 8 * h > q + off))", 1)])],
+                              "(causal_b & (key0 + 8 * h > q + off))", 1)]),
+                           ("flash_fwd_sm90.cu",
+                            [(_FWD_SEG_CAUSAL,
+                              "(causal_b & (col > row0 + 8 * h + off))",
+                              1)])],
                           "packed"),
     "masked_break_at_gap": (
         [("flash_attention.cu",
@@ -285,6 +301,15 @@ FAULTS = {
           [(_BWD_COLS, _BWD_COLS.replace("s * kIvec",
                                          "(s + 1) % kStages * kIvec"), 1)])],
         "packed"),
+    "fwd_mask_rows_other_stage": (
+        [("flash_fwd_sm90.cu",
+          [(_FWD_COLS, _FWD_COLS.replace("s * kIvec",
+                                         "(s + 1) % kStages * kIvec"), 1)])],
+        "packed"),
+    "fwd_whole_other_warpgroup": (
+        [("flash_fwd_sm90.cu",
+          [(_FWD_WHOLE, _FWD_WHOLE.replace("(26 + wg)", "(27 - wg)"), 1)])],
+        "packed"),
     "rms_residual_after_square": (
         [("fused_norm.cu",
           [(_RMS_PASS1, _RMS_PASS1.replace("kRes", "false"), 1)])], "norm"),
@@ -295,7 +320,8 @@ CHECK_SOURCES = {
     "quant": ("paged_attention.cu", "quant_matmul.cu",
               "quant_matmul_sm90.cu", "quant_decode_sm90.cu"),
     "lora": ("lora_matmul.cu",),
-    "packed": ("flash_attention.cu", "flash_bwd_sm90.cu"),
+    "packed": ("flash_attention.cu", "flash_fwd_sm90.cu",
+               "flash_bwd_sm90.cu"),
     "norm": ("fused_norm.cu",), "paged": ("paged_attention.cu",)}
 GPU_SLOTS = 4
 CHILD = """
@@ -407,10 +433,8 @@ def must_fail(name: str):
         # where the two masks coincide; the ragged case's do not
         return [("packed", o, "varlen_ragged_bfloat16")
                 for o in ("out", "lse", "dq", "dk", "dv")]
-    if name == "masked_break_at_gap":   # bf16 dQ is the wgmma kernel's
-        return [("packed", o, f"{c}_{dt}")
-                for o, dt in (("out", "bfloat16"), ("lse", "bfloat16"),
-                              ("dq", "float32"))
+    if name == "masked_break_at_gap":   # bf16 is the wgmma kernels'
+        return [("packed", o, f"{c}_float32") for o in ("out", "lse", "dq")
                 for c in ("varlen_full", "flashmask_doc_full")]
     if name == "bwd_seg_drop_id":
         return [("packed", "dq", f"{c}_bfloat16")
@@ -419,10 +443,15 @@ def must_fail(name: str):
         return [("packed", o, f"{c}_bfloat16") for o in ("dk", "dv")
                 for c in ("varlen_full", "varlen_ragged",
                           "flashmask_doc_full", "flashmask_band_c2")]
-    if name == "bwd_fm_dq_other_stage":
-        return [("packed", "dq", f"{c}_bfloat16")
+    if name in ("bwd_fm_dq_other_stage", "fwd_mask_rows_other_stage"):
+        o = "dq" if name.startswith("bwd") else "out"
+        return [("packed", o, f"{c}_bfloat16")
                 for c in ("flashmask_doc_full", "flashmask_band_c2",
                           "flashmask_nc2", "flashmask_nc4", "flashmask_heads")]
+    if name == "fwd_whole_other_warpgroup":
+        return [("packed", "out", f"{c}_bfloat16")
+                for c in ("varlen_full", "flashmask_doc_full",
+                          "flashmask_window_full")]
     if name == "seg_visit_every_tile":
         return [("packed", "tiles", f"{c}_{dt}")
                 for c in ("varlen_full", "varlen_ragged")

@@ -78,9 +78,9 @@ Phases, one JSON line each:
                flash_attn_varlen_qkvpacked, flashmask_attention with the
                causal document mask (C 1) and with window_size=1024: 2
                warm-up and 4 timed calls each. Checks every call launched
-               its variant's fwd, dQ and dK/dV kernels once (every dQ
-               and dK/dV on the wgmma kernels of flash_bwd_sm90.cu, every
-               forward on flash_attention.cu), finite
+               its variant's fwd, dQ and dK/dV kernels once (every one
+               on the wgmma kernels: the forward of flash_fwd_sm90.cu,
+               dQ and dK/dV of flash_bwd_sm90.cu), finite
                outputs and gradients, one document's change leaving every
                other row of outputs and gradients bitwise unchanged, the
                varlen and document-mask entries within flash_error's bf16
@@ -175,9 +175,10 @@ Phases, one JSON line each:
                  causal C 2, non-causal C 2 and C 4, per-head bounds — in
                  bf16 and fp32 with flash_error's limits, each kernel's
                  count of visited tile pairs equal to the plain
-                 predicate's (`check_packed_kernels`: bf16 dQ and
-                 dK/dV on flash_bwd_sm90.cu, the rest on
-                 flash_attention.cu); timed at full
+                 predicate's (`check_packed_kernels`: bf16 on the
+                 wgmma kernels of flash_fwd_sm90.cu and
+                 flash_bwd_sm90.cu, fp32 on flash_attention.cu); timed
+                 at full
                  width (tile summaries prebuilt, as the autograd
                  Functions pass them) beside SDPA with the equivalent
                  dense boolean mask and the bound of the allowed pairs;
@@ -230,13 +231,13 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/quant_matmul.py:162"),
            ("lora_apply", _CSRC + "lora_matmul.cu",
             "paddle_tpu/kernels/lora_matmul.py:176"),
-           ("flash_attention_varlen_fwd", _CSRC + "flash_attention.cu",
+           ("flash_attention_varlen_fwd", _CSRC + "flash_fwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
            ("flash_attention_varlen_dq", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:333"),
            ("flash_attention_varlen_dkv", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:386"),
-           ("flashmask_attention_fwd", _CSRC + "flash_attention.cu",
+           ("flashmask_attention_fwd", _CSRC + "flash_fwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:179"),
            ("flashmask_attention_dq", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:333"),
@@ -246,8 +247,9 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
             "paddle_tpu/kernels/fused_norm.py:36")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 # flash_attention.cu also holds the fp32 and head_dim > 128 routes of all
-# three flash kernels and the masked forward; the wgmma sources share
-# csrc/hopper.cuh, the two flash sources csrc/flash_mask.cuh
+# three flash kernels; the wgmma sources share csrc/hopper.cuh, the three
+# flash sources csrc/flash_mask.cuh, the two wgmma flash sources the masked
+# walk of csrc/flash_walk.cuh
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the design of each kernel of the redesigned routes, for the kernels line
 DESIGN = {
@@ -278,6 +280,23 @@ DESIGN = {
                            "dV += P^T dO and dK += dS^T Q, 2 consumer "
                            "warpgroups of 64 keys, thread 0 issuing the "
                            "loads",
+    "flash_attention_varlen_fwd": "sm90, segment mode: the plain forward's "
+                                  "block (128 query rows, a producer "
+                                  "warpgroup) over a 4-stage TMA ring of "
+                                  "64-key K/V tiles, walked as the masked dQ "
+                                  "walks them (flash_walk.cuh; the same "
+                                  "grid): the ring carries the key tiles "
+                                  "either warpgroup computes, each with its "
+                                  "(id, position) rows as 1-D TMA boxes; "
+                                  "wgmma m64n64k16 SS for S, the online "
+                                  "softmax and the branch-free mask on the "
+                                  "accumulator, skipped on pairs the "
+                                  "summaries show whole, P in registers as "
+                                  "the RS A operand of O += P V, issued "
+                                  "after the next tile's S",
+    "flashmask_attention_fwd": "sm90, flashmask mode: as the segment "
+                               "forward, the key tiles' C bound rows riding "
+                               "in the stage",
     "flash_attention_varlen_dq": "sm90, segment mode: the plain dQ's block "
                                  "and ring; before the roles split every "
                                  "warp ballots the skip predicate for 32 key "
@@ -2151,10 +2170,10 @@ def phase_packed_attention(seed: int):
     if set(launches.values()) != {calls} or any(plain.values()):
         raise AssertionError(f"packed_attention launches {launches} (want "
                              f"{calls} each), plain-mode {plain} (want 0)")
-    # every masked dQ and dK/dV on the wgmma kernels, no forward
-    if sm90 != {"fwd": 0, "dq": 2 * calls, "dkv": 2 * calls}:
+    # every masked forward, dQ and dK/dV on the wgmma kernels
+    if sm90 != {"fwd": 2 * calls, "dq": 2 * calls, "dkv": 2 * calls}:
         raise AssertionError(f"packed_attention wgmma launches {sm90} (want "
-                             f"fwd 0, dq and dkv {2 * calls})")
+                             f"{2 * calls} each)")
     for name, (out, grads) in results.items():
         if not all(torch.isfinite(t).all() for t in (out,) + grads):
             raise AssertionError(f"{name}: non-finite output or gradient")
@@ -2360,9 +2379,10 @@ def check_packed_kernels(seed: int, lens=None):
     """The six masked flash kernels (segment and flashmask modes of fwd,
     dQ, dK/dV) against their plain versions on `packed_cases`, in bf16
     and fp32, with `flash_error`'s limits, and the tile pairs each
-    visited against the plain predicate (`flash_visits_ref`): bf16 dQ and
-    dK/dV at head_dim <= 128 run the wgmma kernels (flash_bwd_sm90.cu),
-    fp32 and every forward flash_attention.cu. Returns
+    visited against the plain predicate (`flash_visits_ref`): bf16 at
+    head_dim <= 128 (every case here) runs the wgmma kernels — the
+    forward of flash_fwd_sm90.cu, dQ and dK/dV of flash_bwd_sm90.cu —
+    and fp32 flash_attention.cu's. Returns
     (errors, failures): errors[output][case], errors["tiles"][case];
     failures the (output, case) that missed or gave a non-finite value,
     ("tiles", case) where a kernel's count differs. Launches here are

@@ -5,11 +5,10 @@
 // `_fwd_kernel` (online-softmax attention; out and the fp32 logsumexp),
 // `_dq_kernel` and `_dkv_kernel` (the backward from the saved lse; delta =
 // rowsum(dO * O) arrives precomputed) where the wgmma kernels do not:
-// every kernel in fp32 and at head_dim > 128, and the forward of the
-// segment and flashmask modes in bf16 at head_dim <= 128. bf16 at
-// head_dim <= 128 runs the wgmma kernels of flash_fwd_sm90.cu (the plain
-// forward) and flash_bwd_sm90.cu (dQ and dK/dV in every mode), and these
-// entries refuse those shapes. Layout (B*H, S, D), contiguous;
+// every kernel in fp32 and at head_dim > 128. bf16 at head_dim <= 128 runs
+// the wgmma kernels of flash_fwd_sm90.cu (the forward) and
+// flash_bwd_sm90.cu (dQ and dK/dV), in every mode, and these entries
+// refuse those shapes. Layout (B*H, S, D), contiguous;
 // causal is bottom-right aligned: key j is visible to query i iff
 // j <= i + (Sk - Sq). A masked score is -1e30 and contributes exactly 0;
 // the softmax sum is clamped at 1e-30 at finalize, so a row that sees no
@@ -33,7 +32,7 @@
 // computes with plain torch ops, once for the three kernels of a call; a
 // caller may ask for the count of visited tile pairs (`Mask::visits`).
 // The predicate and the mask helpers live in flash_mask.cuh, shared with
-// flash_bwd_sm90.cu.
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu.
 // Under the masked modes a skipped tile can be followed by a contributing
 // one, so each warp evaluates the predicate for 32 tiles at once (one
 // lane per tile, every warp alike) and the loop visits the set bits of
@@ -66,9 +65,8 @@
 //     8 below the instantiated 64/128/256) are zero-filled in shared
 //     memory and masked; nothing past S or D is stored.
 // Not done here: wgmma/TMA (flash_fwd_sm90.cu and flash_bwd_sm90.cu have
-// them for bf16 at head_dim <= 128; the masked forward is still this
-// file's), cp.async double buffering, ldmatrix, a persistent causal
-// schedule.
+// them for bf16 at head_dim <= 128), cp.async double buffering, ldmatrix,
+// a persistent causal schedule.
 //
 // The kernels launch on the caller's stream and allocate nothing; each C
 // entry returns cudaGetLastError() of its launch.
@@ -802,9 +800,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// kFwdOnly: the forward alone (bf16 masked shapes at head_dim <= 128,
-// whose dQ and dK/dV are the wgmma kernels'): no backward instantiated
-template <bool kBf16, int DP, int kMode, bool kFwdOnly = false>
+template <bool kBf16, int DP, int kMode>
 cudaError_t launch(int kind, const Args& a) {
   using C = Cfg<kBf16, DP>;
   using T = typename Tr<kBf16>::T;
@@ -823,8 +819,6 @@ cudaError_t launch(int kind, const Args& a) {
         static_cast<const T*>(a.v), static_cast<T*>(a.out),
         static_cast<float*>(a.lse), a.Sq, a.Sk, a.D, a.scale, a.causal,
         a.mk);
-  } else if constexpr (kFwdOnly) {
-    return cudaErrorInvalidValue;
   } else if (kind == 1) {
     e = cudaFuncSetAttribute(flash_dq_kernel<kBf16, DP, kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -854,14 +848,8 @@ cudaError_t launch(int kind, const Args& a) {
 template <bool kBf16, int kMode>
 cudaError_t dispatch_d(int kind, const Args& a) {
   if constexpr (kBf16) {
-    // the wgmma kernels' shapes: every kernel of the plain mode, dQ and
-    // dK/dV of the masked modes
-    if (a.D <= 128 && (kMode == kPlain || kind != 0))
-      return cudaErrorInvalidValue;
-    if constexpr (kMode != kPlain) {
-      if (a.D <= 64) return launch<kBf16, 64, kMode, true>(kind, a);
-      if (a.D <= 128) return launch<kBf16, 128, kMode, true>(kind, a);
-    }
+    // the wgmma kernels' shapes: every kernel of every mode
+    if (a.D <= 128) return cudaErrorInvalidValue;
   } else {
     if (a.D <= 64) return launch<kBf16, 64, kMode>(kind, a);
     if (a.D <= 128) return launch<kBf16, 128, kMode>(kind, a);
@@ -940,8 +928,8 @@ Args make_args(const void* segq, const void* segk, const void* qsum,
 // per batch row. `visits`, if not null, gains the (q, k) tile pairs a
 // masked mode visits. Pointers a mode does not use may be null. Each
 // returns a cudaError_t: 0 on a successful launch, cudaErrorInvalidValue
-// for arguments it refuses (bf16 at D <= 128 in the plain mode, and dQ and
-// dK/dV of the masked modes, among them: the wgmma kernels' shapes).
+// for arguments it refuses (bf16 at D <= 128, among them: the wgmma
+// kernels' shapes).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     const void* segq, const void* segk, const void* qsum, const void* ksum,

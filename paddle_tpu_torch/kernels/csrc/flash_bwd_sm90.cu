@@ -74,9 +74,10 @@
 // flash_attention.cu; the plain instantiations keep their contiguous
 // causal range, grid order and registers) keep the block's shape and the
 // ring. What changes is which ring tiles a block walks and the mask:
-//   * the walk: before the roles split, every warp of the block evaluates
-//     the reference's `_block_contributes` (flash_mask.cuh, over the
-//     wrapper's per-32-row summaries) for 32 ring tiles at once, one lane
+//   * the walk (flash_walk.cuh, shared with the masked forward of
+//     flash_fwd_sm90.cu): before the roles split, every warp of the block
+//     evaluates the reference's `_block_contributes` (flash_mask.cuh, over
+//     the wrapper's per-32-row summaries) for 32 ring tiles at once, one lane
 //     a tile, for each warpgroup's 64 fixed rows, and keeps the ballots in
 //     shared memory: a word a warpgroup and group of 32 tiles (8 bytes a
 //     group: every length the grid takes fits). The ring carries, in
@@ -112,6 +113,7 @@
 #include <type_traits>
 
 #include "flash_mask.cuh"
+#include "flash_walk.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -120,21 +122,12 @@ using namespace hopper;
 using namespace flash_mask;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBig = 128;    // rows a block owns: queries (dQ), keys (dK/dV)
-constexpr int kSmall = 64;   // rows of a ring tile: keys (dQ), queries (dK/dV)
+// rows a block owns: queries (dQ), keys (dK/dV); rows of a ring tile:
+// keys (dQ), queries (dK/dV)
+constexpr int kBig = kFixedRows;
+constexpr int kSmall = kRingRows;
 constexpr int kStages = 3;
 constexpr int kConsumerWarps = 8;  // two consumer warpgroups
-// the masked modes: the int rows of a stage (a segment's id and position,
-// or up to 4 flashmask bound rows, 64 each), and the longest list (groups
-// of 32 ring tiles) that also keeps which pairs are whole
-constexpr int kIvec = 4 * kSmall;
-constexpr int kWholeGroups = 2048;
-
-// The length of a row that TMA reads in 1-D boxes (dK/dV's lse and delta,
-// the masked modes' segment rows and bounds): S rounded up to a multiple
-// of 4 elements, since a box must start 16-byte aligned. The wrapper pads
-// those rows to it.
-__host__ __device__ __forceinline__ int row4(int S) { return (S + 3) & ~3; }
 
 // DP: the head dim the tiles are laid out for (64 or 128; D <= DP).
 template <int DP>
@@ -152,29 +145,21 @@ struct Cfg {
            kStages * (2 * kSmallBytes + (vecs ? 2 * kVecBytes : 0)) +
            kBars * 8 + 1024;
   }
-  // the masked modes add (after the barriers, 128-byte aligned) each
-  // stage's int rows, the block's key bounds (4 rows of 128), the stage
-  // words and counters, and the list: 8 bytes a group of 32 ring tiles,
-  // 16 up to kWholeGroups groups
+  // the masked modes add the walk's region after the barriers
+  // (flash_walk.cuh)
   static constexpr int smem_masked(bool vecs, int groups) {
-    return smem(vecs) + 128 + kStages * kIvec * 4 + 4 * kBig * 4 + 32 +
-           (groups <= kWholeGroups ? 16 : 8) * groups;
+    return smem(vecs) + walk_bytes(kStages, groups);
   }
 };
 
 // The block's two fixed tiles (Q and dO in dQ, K and V in dK/dV), the
 // ring's two tiles a stage (K and V; Q and dO) with dK/dV's lse and delta,
-// and the barriers: `fixed`, then full0 / full1 / empty a stage. The
-// masked modes' region (`carve_masked`): each stage's int rows and word
-// (its ring tile and the warpgroups' bits, `next_word`), dK/dV's key
-// bounds, the counters (cnt[0] the ring's length, cnt[1] the computed
-// pairs, cnt[2..3] the loading thread's place in the list) and the list.
-struct Smem {
+// and the barriers: `fixed`, then full0 / full1 / empty a stage; in the
+// masked modes the walk's region after them (`Walk`, flash_walk.cuh).
+struct Smem : Walk {
   uint8_t *big0, *big1, *ring0, *ring1;
   float *vec0, *vec1;
   uint64_t *fixed, *full0, *full1, *empty;
-  int *ivec = nullptr, *kfm = nullptr, *word = nullptr, *cnt = nullptr;
-  uint32_t *list = nullptr, *whole = nullptr;
 };
 
 template <int DP>
@@ -194,19 +179,6 @@ __device__ __forceinline__ Smem carve(uint8_t* raw, bool vecs) {
   m.full1 = m.full0 + kStages;
   m.empty = m.full1 + kStages;
   return m;
-}
-
-// the masked modes' region for a list of `groups` groups of 32 ring
-// tiles; no `whole` words past kWholeGroups groups
-__device__ __forceinline__ void carve_masked(Smem& m, int groups) {
-  uint8_t* p = reinterpret_cast<uint8_t*>(m.empty + kStages);
-  p += (128 - (smem_u32(p) & 127)) & 127;
-  m.ivec = reinterpret_cast<int*>(p);
-  m.kfm = m.ivec + kStages * kIvec;
-  m.word = m.kfm + 4 * kBig;
-  m.cnt = m.word + 4;
-  m.list = reinterpret_cast<uint32_t*>(m.cnt + 4);
-  m.whole = groups <= kWholeGroups ? m.list + 2 * groups : nullptr;
 }
 
 __device__ __forceinline__ void init_barriers(const Smem& m) {
@@ -345,100 +317,6 @@ template <int R>
 __device__ __forceinline__ void zero(float (&x)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) x[i] = 0.f;
-}
-
-// ----------------------------------------------------- the masked walk
-// The block's list (masked modes), built by every thread (`warps` warps)
-// before the roles split: for each group of 32 ring tiles, a word a
-// warpgroup of the tiles it computes — the reference's
-// `_block_contributes` for the pair of its 64 fixed rows (queries from
-// `fixed0` in dQ, kDq; keys in dK/dV) and the 64-row ring tile — and,
-// with `m.whole`, a word of those whose pair has no masked score. A warp
-// takes a group at a time, a lane a tile. cnt[0] gains the tiles either
-// warpgroup computes (the ring's length), cnt[1] the pairs computed.
-template <int kMode, bool kDq>
-__device__ __forceinline__ void build_list(const Smem& m, const Mask& mk,
-                                           int fixed0, int Sq, int Sk,
-                                           int causal, int b, int fh,
-                                           int warps) {
-  const int off = Sk - Sq;
-  const int nqg = (Sq + kGroup - 1) / kGroup;
-  const int nkg = (Sk + kGroup - 1) / kGroup;
-  const int* qsum = mk.qsum + static_cast<size_t>(b) * 4 * nqg;
-  const int* ksum = mk.ksum + static_cast<size_t>(b) * 4 * nkg;
-  const int* fmsum = mk.fmsum + static_cast<size_t>(fh) * 2 * nkg;
-  const bool doc = mk.C == 1 && mk.fm_causal;  // the C == 1 causal skip
-  const int nt = ((kDq ? Sk : Sq) + kSmall - 1) / kSmall;
-  const int fixed_rows = kDq ? Sq : Sk;
-  const int lane = threadIdx.x & 31;
-  for (int gi = threadIdx.x >> 5; gi < (nt + 31) / 32; gi += warps) {
-    const int t = 32 * gi + lane;
-    bool c[2], w[2];
-#pragma unroll
-    for (int wg = 0; wg < 2; ++wg) {
-      const int r0 = fixed0 + 64 * wg;  // the warpgroup's first fixed row
-      const int q0 = kDq ? r0 : t * kSmall;
-      const int k0 = kDq ? t * kSmall : r0;
-      c[wg] = w[wg] = false;
-      if (t >= nt || r0 >= fixed_rows) continue;
-      if constexpr (kMode == kSegment) {
-        const SegRange qr = seg_range(qsum, nqg, q0, kSmall);
-        const SegRange kr = seg_range(ksum, nkg, k0, kSmall);
-        c[wg] = seg_contributes(qr, kr, causal);
-        w[wg] = seg_whole(qr, kr, causal);
-      } else {
-        c[wg] = fm_contributes(
-            q0, k0, kSmall, off, causal, mk,
-            doc ? fm_start_max(fmsum, nkg, k0, kSmall) : 0);
-        w[wg] = doc && (!causal || k0 + kSmall - 1 <= q0 + off) &&
-                q0 + kSmall - 1 < fm_start_min(fmsum, nkg, k0, kSmall);
-      }
-      w[wg] = c[wg] && w[wg] && q0 + kSmall <= Sq && k0 + kSmall <= Sk;
-    }
-    const uint32_t c0 = __ballot_sync(0xffffffffu, c[0]);
-    const uint32_t c1 = __ballot_sync(0xffffffffu, c[1]);
-    const uint32_t w0 = __ballot_sync(0xffffffffu, w[0]);
-    const uint32_t w1 = __ballot_sync(0xffffffffu, w[1]);
-    if (lane == 0) {
-      m.list[2 * gi] = c0;
-      m.list[2 * gi + 1] = c1;
-      if (m.whole) {
-        m.whole[2 * gi] = w0;
-        m.whole[2 * gi + 1] = w1;
-      }
-      atomicAdd(&m.cnt[0], __popc(c0 | c1));
-      atomicAdd(&m.cnt[1], __popc(c0) + __popc(c1));
-    }
-  }
-}
-
-// the list's counters before the build: nothing counted, the loading
-// thread before the first group
-__device__ __forceinline__ void init_list(const Smem& m) {
-  m.cnt[0] = m.cnt[1] = 0;
-  m.cnt[2] = -1;
-  m.cnt[3] = 0;
-}
-
-// The next ring tile of the list, for the one thread that loads the ring:
-// its stage word, the tile (bits 0-23), then bit 24 + wg when warpgroup wg
-// computes it and bit 26 + wg when that pair is whole.
-__device__ __forceinline__ int next_word(const Smem& m) {
-  int g = m.cnt[2];
-  uint32_t left = static_cast<uint32_t>(m.cnt[3]);
-  while (left == 0) {
-    ++g;
-    left = m.list[2 * g] | m.list[2 * g + 1];
-  }
-  const int bit = __ffs(left) - 1;
-  m.cnt[2] = g;
-  m.cnt[3] = static_cast<int>(left & (left - 1));
-  int word = (32 * g + bit) | (((m.list[2 * g] >> bit) & 1) << 24) |
-             (((m.list[2 * g + 1] >> bit) & 1) << 25);
-  if (m.whole)
-    word |= (((m.whole[2 * g] >> bit) & 1) << 26) |
-            (((m.whole[2 * g + 1] >> bit) & 1) << 27);
-  return word;
 }
 
 // ------------------------------------------------------------------- dQ
@@ -631,7 +509,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int nk_all = (Sk + kSmall - 1) / kSmall;
   int n = !causal ? nk_all : (last < 0 ? 0 : min(nk_all, last / kSmall + 1));
 
-  if constexpr (kMode != kPlain) carve_masked(m, (nk_all + 31) / 32);
+  if constexpr (kMode != kPlain)
+    carve_walk(m, m.empty + kStages, kStages, (nk_all + 31) / 32);
   if (threadIdx.x == 0) {
     init_barriers(m);
     if constexpr (kMode != kPlain) init_list(m);
@@ -913,7 +792,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int qt0 = !causal || first <= 0 ? 0 : (first + kSmall - 1) / kSmall;
   int n = max(0, nq_all - qt0);
 
-  if constexpr (kMode != kPlain) carve_masked(m, (nq_all + 31) / 32);
+  if constexpr (kMode != kPlain)
+    carve_walk(m, m.empty + kStages, kStages, (nq_all + 31) / 32);
   if (threadIdx.x == 0) {
     init_barriers(m);
     if constexpr (kMode != kPlain) init_list(m);
@@ -944,19 +824,6 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ------------------------------------------------------------- launches
-// the 3-D map of a (BH, S, D) bf16 tensor in boxes of 64 columns x `rows`
-bool map_rows(CUtensorMap* map, const void* base, int BH, int S, int D,
-              int rows) {
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t str[2] = {static_cast<cuuint64_t>(D) * 2,
-                             static_cast<cuuint64_t>(S) * D * 2};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, str,
-                  box);
-}
-
 // the 1-D map of n fp32 values (BH rows of row4(Sq)) in boxes of 64 (a box
 // that runs past a head's rows reads the next head's, which the kernel
 // masks)
@@ -966,18 +833,6 @@ bool map_vec(CUtensorMap* map, const void* base, int n) {
   const cuuint64_t str[1] = {4};  // unused at rank 1
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims, str,
                   box, CU_TENSOR_MAP_SWIZZLE_NONE);
-}
-
-// the 1-D map of n int32 mask values (a flattened (B, 2, row4(S)) segment
-// or (B*Hm, C, row4(Sk)) bound tensor) in boxes of `box`; a box that runs
-// past a row's S reads its padding or the next row's, which the kernels
-// mask (key or query >= S)
-bool map_ints(CUtensorMap* map, const void* base, long long n, int box) {
-  const cuuint32_t b[1] = {static_cast<cuuint32_t>(box)};
-  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
-  const cuuint64_t str[1] = {4};  // unused at rank 1
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, base, dims, str, b,
-                  CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int DP, int kMode>
@@ -1034,78 +889,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
       Sk, D, scale, causal, imap, mk);
   return cudaGetLastError();
-}
-
-// what both entries take: D a multiple of 8 up to 128, B*H <= 65535, the
-// tile rows within the grid's y limit, B*H*Sq addressable by the 1-D map,
-// 16-byte aligned inputs
-bool refuse(const void* const* ptrs, int n, int BH, int Sq, int Sk, int D) {
-  if (BH <= 0 || BH > 65535 || Sq <= 0 || Sk <= 0 || D <= 0 || D > 128 ||
-      D % 8 != 0 || (Sq + kBig - 1) / kBig > 65535 ||
-      (Sk + kBig - 1) / kBig > 65535 ||
-      static_cast<long long>(BH) * Sq >= (1ll << 31))
-    return true;
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return true;
-  return false;
-}
-
-// What the masked entries also take: mode 1 (segment: segq, segk and
-// their summaries) or 2 (flashmask: fm, Sq == Sk, Hm 1 or H, C 1|2 with
-// causal bounds or 2|4 without, the start summary for C == 1 causal), H
-// dividing B*H, and the tensors TMA reads (segq and segk, or fm) 16-byte
-// aligned and within reach of its 32-bit coordinates.
-bool refuse_mask(const Mask& mk, int mode, int BH, int Sq, int Sk) {
-  if (mk.H <= 0 || BH % mk.H != 0) return true;
-  const long long B = BH / mk.H;
-  long long n = 0;
-  const void* rows[2] = {nullptr, nullptr};
-  if (mode == kSegment) {
-    if (!mk.segq || !mk.segk || !mk.qsum || !mk.ksum) return true;
-    rows[0] = mk.segq;
-    rows[1] = mk.segk;
-    n = 2 * B * row4(Sq > Sk ? Sq : Sk);
-  } else if (mode == kFlashmask) {
-    if (!mk.fm || Sq != Sk || (mk.Hm != 1 && mk.Hm != mk.H)) return true;
-    if (mk.fm_causal ? (mk.C != 1 && mk.C != 2) : (mk.C != 2 && mk.C != 4))
-      return true;
-    if (mk.C == 1 && mk.fm_causal && !mk.fmsum) return true;
-    rows[0] = mk.fm;
-    n = B * mk.Hm * mk.C * row4(Sk);
-  } else {
-    return true;
-  }
-  for (const void* r : rows)
-    if (reinterpret_cast<uintptr_t>(r) % 16 != 0) return true;
-  return n >= (1ll << 31);
-}
-
-Mask make_mask(const void* segq, const void* segk, const void* qsum,
-               const void* ksum, const void* fm, const void* fmsum,
-               void* visits, int H, int fm_heads, int fm_cols,
-               int fm_causal) {
-  Mask mk{};
-  mk.segq = static_cast<const int*>(segq);
-  mk.segk = static_cast<const int*>(segk);
-  mk.qsum = static_cast<const int*>(qsum);
-  mk.ksum = static_cast<const int*>(ksum);
-  mk.fm = static_cast<const int*>(fm);
-  mk.fmsum = static_cast<const int*>(fmsum);
-  mk.visits = static_cast<int*>(visits);
-  mk.H = H;
-  mk.Hm = fm_heads;
-  mk.C = fm_cols;
-  mk.fm_causal = fm_causal;
-  return mk;
-}
-
-// the int map of a masked launch: the (B, 2, row4(S)) segment rows or the
-// (B*Hm, C, row4(S)) bounds, flattened, in boxes of `box`
-bool mask_map(CUtensorMap* map, const Mask& mk, int mode, const int* seg,
-              int BH, int S, int box) {
-  const long long B = BH / mk.H;
-  if (mode == kSegment) return map_ints(map, seg, 2 * B * row4(S), box);
-  return map_ints(map, mk.fm, B * mk.Hm * mk.C * row4(S), box);
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // The flash kernels' mask modes and skip predicate, shared by
-// flash_attention.cu (mma.sync: every masked forward; fp32 and head_dim >
-// 128 in every kernel) and flash_bwd_sm90.cu (wgmma: the bf16 masked dQ
-// and dK/dV at head_dim <= 128). Device helpers only; no kernel lives here.
+// flash_attention.cu (mma.sync: fp32 and head_dim > 128 in every kernel)
+// and the wgmma kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu (bf16
+// at head_dim <= 128: the masked forward, dQ and dK/dV; their walk of the
+// ring tiles is flash_walk.cuh's). Device helpers only; no kernel lives
+// here.
 //
 // They carry over the Pallas TPU kernels' `_block_contributes` and
 // `_flashmask_block_mask` (paddle_tpu/kernels/flash_attention.py): the

@@ -11,16 +11,16 @@ recomputes probabilities from that lse, with delta = rowsum(dO * O)
 computed as a plain op outside the kernels, as in the reference.
 
 Each entry — `flash_fwd`, `flash_dq`, `flash_dkv` — launches its
-hand-written Hopper kernel from `csrc/flash_attention.cu` on a CUDA
-tensor (counted in `.launches`) or raises. `flash_route` picks each
-entry's kernel before the launch from (dtype, head_dim, mode, kernel)
-alone: bf16 at head_dim <= 128 takes the wgmma kernels — the plain-mode
-forward of `csrc/flash_fwd_sm90.cu`, and dQ and dK/dV of
-`csrc/flash_bwd_sm90.cu` in every mode (counted in `.sm90_launches`;
-the wgmma dK/dV reads lse and delta, and the masked wgmma kernels their
-segment rows or bounds, with TMA in boxes that start 16-byte aligned, so
-the wrapper pads those rows to a multiple of 4 elements when S is not
-one, `_tma_rows`). On a CPU
+hand-written Hopper kernel on a CUDA tensor (counted in `.launches` in
+the plain mode) or raises. `flash_route` picks each entry's kernel
+before the launch from (dtype, head_dim, mode, kernel) alone: bf16 at
+head_dim <= 128 takes the wgmma kernels in every mode — the forward of
+`csrc/flash_fwd_sm90.cu`, dQ and dK/dV of `csrc/flash_bwd_sm90.cu`
+(counted in `.sm90_launches`; the wgmma dK/dV reads lse and delta, and
+the masked wgmma kernels their segment rows or bounds, with TMA in
+boxes that start 16-byte aligned, so the wrapper pads those rows to a
+multiple of 4 elements when S is not one, `_tma_rows`); fp32 and
+head_dim > 128 take `csrc/flash_attention.cu`. On a CPU
 tensor each entry runs the plain PyTorch version beside it
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`: fp32 math, a masked
 score is NEG_INF and contributes exactly 0, the softmax sum clamped at
@@ -36,20 +36,19 @@ causal mask); or `fm=`, flashmask row bounds (B*Hm, C, Sk) int32 with Hm
 `causal`. `H` is the number of heads per batch row. On a CUDA tensor
 they launch the segment or flashmask mode of the same kernels (counted
 in `.varlen_launches` / `.flashmask_launches`, and never in `.launches`:
-the forward on flash_attention.cu, bf16 dQ and dK/dV at head_dim <= 128
-on the wgmma kernels, also in `.sm90_launches`). The skip predicate
-reads per-32-row tile summaries that `tile_summary` builds with plain
-torch ops (`_segment_summary`: 3 launches a side, 4 when S is not a
-multiple of 32; `_start_summary`, C == 1 with causal bounds only: 2 to
-4); an entry takes them as `summary=` or builds them itself. `visits=`,
-a one-element int32 tensor on the card, gains the (q, k) tile pairs a
-masked kernel visits (`flash_visits_ref` is its plain version;
-`masked_bwd_walk` is the wgmma backward's walk of its blocks in
-Python). `FlashAttentionVarlen` and `FlashMask` are the autograd Functions
-(`_flash_core_seg`, `_flash_core_fm`): they build the summaries once for
-the three kernels of a call; the integer inputs get no gradient.
-`flash_attention_varlen_bshd` and `flashmask_attention_bshd` are the
-reference's public entries.
+bf16 at head_dim <= 128 on the wgmma kernels, also in `.sm90_launches`).
+The skip predicate reads per-32-row tile summaries that `tile_summary`
+builds with plain torch ops (`_segment_summary`: 3 launches a side, 4
+when S is not a multiple of 32; `_start_summary`, C == 1 with causal
+bounds only: 2 to 4); an entry takes them as `summary=` or builds them
+itself. `visits=`, a one-element int32 tensor on the card, gains the
+(q, k) tile pairs a masked kernel visits (`flash_visits_ref` is its
+plain version; `masked_walk` is the masked wgmma kernels' walk of their
+blocks in Python). `FlashAttentionVarlen` and `FlashMask` are the
+autograd Functions (`_flash_core_seg`, `_flash_core_fm`): they build the
+summaries once for the three kernels of a call; the integer inputs get
+no gradient. `flash_attention_varlen_bshd` and
+`flashmask_attention_bshd` are the reference's public entries.
 
 Not ported: the reference's TPU block autotuner (the CUDA kernels pick
 their own tiles).
@@ -68,7 +67,7 @@ __all__ = ["flash_attention_bshd", "flash_attention_varlen_bshd",
            "FlashAttentionVarlen", "FlashMask", "flash_fwd", "flash_dq",
            "flash_dkv", "flash_fwd_ref", "flash_dq_ref", "flash_dkv_ref",
            "flash_delta", "tile_summary", "flash_visits_ref",
-           "check_supported", "flash_route", "masked_bwd_walk",
+           "check_supported", "flash_route", "masked_walk",
            "NEG_INF", "KERNEL_SOURCE", "SM90_SOURCE", "SM90_BWD_SOURCE"]
 
 KERNEL_SOURCE = "flash_attention.cu"
@@ -224,11 +223,13 @@ C_ARGTYPES = {
 }
 # the wgmma entries: their tensors (fwd: q, k, v, out, lse; dq: q, k, v,
 # dout, lse, delta, dq; dkv: the same with dk, dv), then BH, Sq, Sk, D,
-# scale, causal, stream; the masked dQ and dK/dV take `_TAIL` less dtype
+# scale, causal, stream; the masked entries take `_TAIL` less dtype
 _SM90_TAIL = [_I] * 4 + [_F, _I, _P]
 _SM90_MASKED_TAIL = _TAIL[:-2] + _TAIL[-1:]
 SM90_C_ARGTYPES = {
     "flash_attention_fwd_sm90": (SM90_SOURCE, [_P] * 5 + _SM90_TAIL),
+    "flash_attention_fwd_sm90_masked": (SM90_SOURCE,
+                                        [_P] * 5 + _SM90_MASKED_TAIL),
     "flash_attention_dq_sm90": (SM90_BWD_SOURCE, [_P] * 7 + _SM90_TAIL),
     "flash_attention_dkv_sm90": (SM90_BWD_SOURCE, [_P] * 8 + _SM90_TAIL),
     "flash_attention_dq_sm90_masked": (SM90_BWD_SOURCE,
@@ -245,16 +246,15 @@ FLASH_KERNELS = ("fwd", "dq", "dkv")
 
 def flash_route(dtype, D, mode="plain", kernel="fwd") -> str:
     """Which kernel a CUDA forward ("fwd"), dQ ("dq") or dK/dV ("dkv")
-    takes, decided before the launch from (dtype, head_dim, mode, kernel)
-    alone: "sm90" for bf16 at head_dim <= 128 — the plain-mode forward of
-    `csrc/flash_fwd_sm90.cu`, dQ and dK/dV of `csrc/flash_bwd_sm90.cu` in
-    every mode — else "mma" (`csrc/flash_attention.cu`: fp32, head_dim >
-    128, and the forward of the varlen and flashmask modes)."""
+    takes, decided before the launch from (dtype, head_dim, kernel)
+    alone: "sm90" for bf16 at head_dim <= 128 in every mode — the forward
+    of `csrc/flash_fwd_sm90.cu`, dQ and dK/dV of
+    `csrc/flash_bwd_sm90.cu` — else "mma" (`csrc/flash_attention.cu`:
+    fp32 and head_dim > 128). `mode` names the call's mask mode; no mode
+    changes the route."""
     if kernel not in FLASH_KERNELS:
         raise ValueError(f"kernel {kernel!r} is not one of {FLASH_KERNELS}")
-    if dtype != torch.bfloat16 or D > 128:
-        return "mma"
-    return "mma" if kernel == "fwd" and mode != "plain" else "sm90"
+    return "sm90" if dtype == torch.bfloat16 and D <= 128 else "mma"
 
 
 def _entry(name):
@@ -410,22 +410,26 @@ def _seg_range(summ, r0, tile=64):
     return int(x[0].min()), int(x[1].max()), int(x[2].min()), int(x[3].max())
 
 
-def masked_bwd_walk(kernel, BH, Sq, Sk, causal, seg=None, fm=None,
-                    fm_causal=True, H=1, summary=None):
-    """The wgmma masked dQ ("dq") or dK/dV ("dkv") kernel's walk, the C
-    rule (`build_list` and `next_word` in csrc/flash_bwd_sm90.cu) in
-    Python, for the tests: {(bh, first fixed row): [(ring tile, (warpgroup
-    0 computes it, warpgroup 1 does), (the pair is whole: no score masked,
-    for each)), ...]}, the tiles in the order the ring carries them. A
-    block's fixed rows are 128 queries (dq) or keys (dkv), 64 a warpgroup;
-    a ring tile is 64 keys (dq) or queries (dkv). A pair is computed when
-    the reference's `_block_contributes` lets it through, read from the
-    summaries the kernels read (`tile_summary`). (The kernels keep the
-    whole bits up to 65536 ring tiles, more than these tests reach.)"""
+def masked_walk(kernel, BH, Sq, Sk, causal, seg=None, fm=None,
+                fm_causal=True, H=1, summary=None):
+    """The wgmma masked forward ("fwd"), dQ ("dq") or dK/dV ("dkv")
+    kernel's walk, the C rule (`build_list` and `next_word` in
+    csrc/flash_walk.cuh) in Python, for the tests: {(bh, first fixed
+    row): [(ring tile, (warpgroup 0 computes it, warpgroup 1 does), (the
+    pair is whole: no score masked, for each)), ...]}, the tiles in the
+    order the ring carries them. A block's fixed rows are 128 queries
+    (fwd, dq) or keys (dkv), 64 a warpgroup; a ring tile is 64 keys (fwd,
+    dq) or queries (dkv): the forward walks as dQ does. A pair is
+    computed when the reference's `_block_contributes` lets it through,
+    read from the summaries the kernels read (`tile_summary`). (The
+    kernels keep the whole bits up to 65536 ring tiles, more than these
+    tests reach.)"""
     qsum, ksum, fmsum = (None if x is None else x.cpu().numpy() for x in (
         summary if summary is not None else tile_summary(seg, fm,
                                                          fm_causal)))
-    dq = kernel == "dq"
+    if kernel not in FLASH_KERNELS:
+        raise ValueError(f"kernel {kernel!r} is not one of {FLASH_KERNELS}")
+    dq = kernel != "dkv"        # the forward's walk is dQ's
     fixed_rows, ring_rows = (Sq, Sk) if dq else (Sk, Sq)
     off = Sk - Sq
     doc = fm is not None and fm.shape[1] == 1 and fm_causal
@@ -565,12 +569,16 @@ def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
     BH, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, device=q.device, dtype=torch.float32)
-    if flash_route(q.dtype, D, _mode(seg, fm), "fwd") == "sm90":
+    mode = _mode(seg, fm)
+    sm90 = flash_route(q.dtype, D, mode, "fwd") == "sm90"
+    if sm90 and mode == "plain":
         _launch_sm90(flash_fwd, "flash_attention_fwd_sm90",
                      (q, k, v, out, lse), sm_scale, causal)
         return out, lse
-    _launch(flash_fwd, "flash_attention_fwd", q, k, (out, lse), (v,),
-            sm_scale, causal, seg, fm, fm_causal, H, summary, visits)
+    _launch(flash_fwd, "flash_attention_fwd" + ("_sm90_masked" if sm90
+                                                 else ""), q, k, (out, lse),
+            (v,), sm_scale, causal, seg, fm, fm_causal, H, summary, visits,
+            sm90)
     return out, lse
 
 

@@ -1169,9 +1169,9 @@ def test_masked_flash_kernels_match_plain_versions(card, case):
     against the plain versions, with `flash_error`'s limits: fp32 within
     1e-4 of the largest value, bf16 a relative error of 1e-2, the lse
     1e-4. Each call launches its mode's kernel once and the plain mode's
-    never; bf16 dQ and dK/dV at head_dim <= 128 take the wgmma kernels
-    (`sm90_launches`), the rest and every forward flash_attention.cu. Each
-    counts the tile pairs it visits as the plain predicate
+    never; bf16 at head_dim <= 128 takes the wgmma kernels for the
+    forward, dQ and dK/dV (`sm90_launches`), the rest flash_attention.cu.
+    Each counts the tile pairs it visits as the plain predicate
     `flash_visits_ref` does."""
     q, k, v, do, kw, causal = _masked_case(case, card)
     kind = "varlen_launches" if "seg" in kw else "flashmask_launches"
@@ -1187,7 +1187,7 @@ def test_masked_flash_kernels_match_plain_versions(card, case):
         sm90 = int(dt == torch.bfloat16 and q.shape[-1] <= 128)
         assert [fa.flash_route(dt, q.shape[-1], "masked", kern)
                 for kern in ("fwd", "dq", "dkv")] == \
-            ["mma"] + ["sm90" if sm90 else "mma"] * 2
+            ["sm90" if sm90 else "mma"] * 3
         qq, kk, vv, dd = (t.to(dt) for t in (q, k, v, do))
         out, lse = fa.flash_fwd(qq, kk, vv, scale, causal, **kw)
         ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal, **kw)
@@ -1202,8 +1202,7 @@ def test_masked_flash_kernels_match_plain_versions(card, case):
         torch.cuda.synchronize()
         assert [(getattr(f, kind), f.launches, f.sm90_launches)
                 for f in fns] == \
-            [(a + 1, b, c + (sm90 if f is not fa.flash_fwd else 0))
-             for f, (a, b, c) in zip(fns, n0)]
+            [(a + 1, b, c + sm90) for a, b, c in n0]
         BH, Sq, D = q.shape
         tile = 32 if dt == torch.float32 and D > 128 else 64
         counts = torch.zeros(3, dtype=torch.int32, device=card)
@@ -1300,10 +1299,9 @@ def test_masked_flash_bwd_sm90_is_deterministic(card):
 def test_masked_flash_bwd_sm90_refuses_with_no_fallback(card, monkeypatch):
     """The masked wgmma entries refuse (cudaErrorInvalidValue = 1) what
     they do not take — mode 0, a missing summary, flashmask with Sq != Sk,
-    C 3 — and flash_attention.cu refuses the masked bf16 dQ and dK/dV at
-    head_dim <= 128 while still taking the masked forward. A refusal on
-    the route raises, counts nothing and never reaches flash_attention.cu
-    or the plain version."""
+    C 3 — and flash_attention.cu refuses the masked bf16 forward, dQ and
+    dK/dV at head_dim <= 128. A refusal on the route raises, counts
+    nothing and never reaches flash_attention.cu or the plain version."""
     q, k, v, do = (t.bfloat16() for t in _flash_inputs(2, 64, 64, 64, 3,
                                                        card))
     lse = torch.zeros(2, 64, device=card)
@@ -1340,7 +1338,7 @@ def test_masked_flash_bwd_sm90_refuses_with_no_fallback(card, monkeypatch):
     assert fa._entry("flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *seg_ptrs, 2, 64, 64, 64, 2, 1, 0, 0.125, 1, 1, 1,
-        1, stream) == 0
+        1, stream) == 1
     torch.cuda.synchronize()
 
     def refusing(name):
@@ -1360,6 +1358,123 @@ def test_masked_flash_bwd_sm90_refuses_with_no_fallback(card, monkeypatch):
             fa.flash_dkv(*args, **kw)
     assert n0 == [[getattr(f, c) for c in counters] for f in (fa.flash_dq,
                                                                fa.flash_dkv)]
+
+
+# (name, B, H, Sq, Sk, D, causal, masks) of the wgmma masked forward on
+# top of MASKED_CASES' bf16 ones: S 70 (one ring tile and a bit), C 4 and
+# per-head C 2 at head_dim 128, one document spanning the row (every pair
+# below the diagonal whole), causal C 1 documents at S 130 with short
+# documents between long ones
+SM90_FWD_MASKED_CASES = [
+    ("varlen_s70", 1, 2, 70, 70, 128, True, ([30, 40],)),
+    ("varlen_one_document", 1, 2, 320, 320, 128, True, ([320],)),
+    ("fm_nc4_d128", 1, 2, 136, 136, 128, False, ("nc4", 1)),
+    ("fm_doc_s130", 2, 2, 130, 130, 128, True, ("doc", 1)),
+    ("fm_heads_d128", 1, 3, 200, 200, 128, True, ("band", 3)),
+]
+
+
+@pytest.mark.parametrize("case", [c for c in MASKED_CASES if c[5] <= 128]
+                         + SM90_FWD_MASKED_CASES, ids=lambda c: c[0])
+def test_masked_flash_fwd_sm90_matches_plain_version(card, case):
+    """The wgmma masked forward (bf16, head_dim <= 128) against
+    flash_fwd_ref: out within a relative error of 1e-2, the lse within
+    1e-4 on rows that see a key, rows that see none exactly zero with the
+    lse at -1e30. Each launch counts once in `sm90_launches` and its
+    mode's counter and never in `launches`; `visits` equals
+    `flash_visits_ref`; a second launch is bitwise equal."""
+    q, k, v, _, kw, causal = _masked_case(case, card)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    kind = "varlen_launches" if "seg" in kw else "flashmask_launches"
+    names = ("launches", "sm90_launches", kind)
+    assert fa.flash_route(torch.bfloat16, q.shape[-1], "masked") == "sm90"
+    n0 = [getattr(fa.flash_fwd, n) for n in names]
+    visits = torch.zeros(1, dtype=torch.int32, device=card)
+    out, lse = fa.flash_fwd(q, k, v, 0.1, causal, visits=visits, **kw)
+    again = fa.flash_fwd(q, k, v, 0.1, causal, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(fa.flash_fwd, n) for n in names] == \
+        [n0[0], n0[1] + 2, n0[2] + 2]
+    ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, 0.1, causal, **kw)
+    _close_rel(out, ref_out, 1e-2)
+    live = ref_lse > -1e29
+    assert (lse[live] - ref_lse[live]).abs().max().item() <= 1e-4
+    assert torch.all(out[~live] == 0) and torch.all(lse[~live] < -1e29)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    BH, Sq, _ = q.shape
+    assert visits.item() == fa.flash_visits_ref(BH, Sq, k.shape[1], causal,
+                                                tile=64, **kw)
+
+
+def test_masked_flash_fwd_sm90_rows_that_see_no_key(card):
+    """bf16 through the wgmma forward: a varlen query before its
+    sequence's keys and flashmask rows masked everywhere give output rows
+    of exact zeros and the lse at -1e30, the rest as flash_fwd_ref."""
+    q, k, v, _ = (t.bfloat16() for t in _flash_inputs(2, 192, 192, 64, 9,
+                                                      card))
+    seg = (torch.tensor([[0] * 192, [-3] * 8 + list(range(184))],
+                        dtype=torch.int32, device=card)[None],
+           torch.tensor([[0] * 192, list(range(192))], dtype=torch.int32,
+                        device=card)[None])
+    fm = torch.zeros(1, 1, 192, dtype=torch.int32, device=card)
+    fm[0, 0, 40:] = 192                 # rows 0-39 see nothing at all
+    for kw in (dict(seg=seg, H=2), dict(fm=fm, fm_causal=True, H=2)):
+        n0 = fa.flash_fwd.sm90_launches
+        out, lse = fa.flash_fwd(q, k, v, 0.125, True, **kw)
+        torch.cuda.synchronize()
+        assert fa.flash_fwd.sm90_launches == n0 + 1
+        ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, 0.125, True, **kw)
+        dead = ref_lse < -1e29
+        assert dead.any() and torch.all(out[dead] == 0)
+        assert torch.all(lse[dead] < -1e29)
+        _close_rel(out, ref_out, 1e-2)
+        assert (lse[~dead] - ref_lse[~dead]).abs().max().item() <= 1e-4
+
+
+def test_masked_flash_fwd_sm90_refuses_with_no_fallback(card, monkeypatch):
+    """The masked wgmma forward refuses (cudaErrorInvalidValue = 1) what
+    it does not take — mode 0, a missing summary, flashmask with Sq !=
+    Sk, C 3, D 136 — and a refusal on the route raises, counts nothing
+    and never reaches flash_attention.cu or the plain version."""
+    q, k, v, _ = (t.bfloat16() for t in _flash_inputs(2, 64, 64, 64, 3,
+                                                      card))
+    out, lse = torch.empty_like(q), torch.empty(2, 64, device=card)
+    segq, segk = (torch.from_numpy(x).to(card) for x in _segments(1, [30, 34]))
+    qsum, ksum, _ = fa.tile_summary((segq, segk))
+    fm2 = torch.full((1, 2, 64), 64, dtype=torch.int32, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    entry = fa._entry("flash_attention_fwd_sm90_masked")
+    seg_ptrs = [segq.data_ptr(), segk.data_ptr(), qsum.data_ptr(),
+                ksum.data_ptr(), None, None, None]
+    fm_ptrs = [None] * 4 + [fm2.data_ptr(), None, None]
+
+    def call(ptrs, Sk, C, mode, D=64):
+        return entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), *ptrs, 2, 64, Sk, D, 2,
+                     1, C, 0.125, 1, 1, mode, stream)
+    assert call(seg_ptrs, 64, 0, 1) == 0
+    assert call(seg_ptrs, 64, 0, 0) == 1
+    assert call(seg_ptrs[:3] + [None] + seg_ptrs[4:], 64, 0, 1) == 1
+    assert call(fm_ptrs, 64, 2, 2) == 0
+    assert call(fm_ptrs, 64, 1, 2) == 1       # C 1 needs its summary
+    assert call(fm_ptrs, 64, 3, 2) == 1
+    assert call(fm_ptrs, 32, 2, 2) == 1
+    assert call(seg_ptrs, 64, 0, 1, D=136) == 1
+    torch.cuda.synchronize()
+
+    def refusing(name):
+        if name != "flash_attention_fwd_sm90_masked":
+            raise AssertionError(f"fell back to {name}")
+        return lambda *a: 1
+    monkeypatch.setattr(fa, "_entry", refusing)
+    counters = ("launches", "sm90_launches", "varlen_launches",
+                "flashmask_launches")
+    n0 = [getattr(fa.flash_fwd, c) for c in counters]
+    for kw in (dict(seg=(segq, segk), H=2), dict(fm=fm2, fm_causal=True,
+                                                 H=2)):
+        with pytest.raises(RuntimeError, match="fwd_sm90_masked"):
+            fa.flash_fwd(q, k, v, 0.125, True, **kw)
+    assert n0 == [getattr(fa.flash_fwd, c) for c in counters]
 
 
 def test_varlen_and_flashmask_autograd_run_the_kernels(card):

@@ -1,10 +1,12 @@
-"""The wgmma backward's segment and flashmask modes
-(csrc/flash_bwd_sm90.cu) on the CPU: which kernel each flash entry takes
-(`flash_route`), the blocks' walk of their ring tiles (`masked_bwd_walk`,
-the C rule in Python) against the reference's `_block_contributes` over
-64 x 64 tiles, the whole-pair shortcut against the dense mask, the start
-summary the shortcut reads, the C prototypes against their ctypes
-argtypes, and that CPU tensors still take the plain versions bitwise.
+"""The wgmma kernels' segment and flashmask modes (the forward of
+csrc/flash_fwd_sm90.cu, dQ and dK/dV of csrc/flash_bwd_sm90.cu) on the
+CPU: which kernel each flash entry takes (`flash_route`), the blocks'
+walk of their ring tiles (`masked_walk`, the C rule of
+csrc/flash_walk.cuh in Python) against the reference's
+`_block_contributes` over 64 x 64 tiles, the whole-pair shortcut against
+the dense mask, the start summary the shortcut reads, the C prototypes
+against their ctypes argtypes, and that CPU tensors still take the plain
+versions bitwise.
 The kernels themselves run only on the card: tests/test_torch_cuda.py
 holds them against the plain versions there. No interpret-mode kernel
 runs here; the reference's predicate is evaluated eagerly on small
@@ -31,10 +33,10 @@ BF16, FP32 = torch.bfloat16, torch.float32
     (BF16, 256, "flashmask"), (FP32, 64, "varlen"), (FP32, 128, "flashmask"),
     (torch.float16, 64, "varlen")])
 def test_flash_route_per_kernel(dtype, D, mode, kernel):
-    """bf16 at head_dim <= 128 takes the wgmma kernels for dQ and dK/dV in
-    every mode and for the forward in the plain mode only; fp32, head_dim
-    > 128 and other types take flash_attention.cu."""
-    sm90 = dtype == BF16 and D <= 128 and (kernel != "fwd" or mode == "plain")
+    """bf16 at head_dim <= 128 takes the wgmma kernels for the forward, dQ
+    and dK/dV in every mode; fp32, head_dim > 128 and other types take
+    flash_attention.cu."""
+    sm90 = dtype == BF16 and D <= 128
     assert fa.flash_route(dtype, D, mode, kernel) == ("sm90" if sm90
                                                       else "mma")
 
@@ -145,7 +147,7 @@ def _reference_pairs(B, H, kw, Sq, Sk, causal):
     return {bh: rows[bh // per] for bh in range(B * H)}
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_walk_computes_the_reference_pairs(name, kernel):
     """The pairs the warpgroups compute are the reference's
@@ -154,9 +156,10 @@ def test_walk_computes_the_reference_pairs(name, kernel):
     count is `flash_visits_ref`'s (the kernels' `visits`)."""
     B, H, kw, Sq, Sk, causal = _case(name)
     BH = B * H
-    walk = fa.masked_bwd_walk(kernel, BH, Sq, Sk, causal, H=H, **kw)
+    walk = fa.masked_walk(kernel, BH, Sq, Sk, causal, H=H, **kw)
     want = _reference_pairs(B, H, kw, Sq, Sk, causal)
-    fixed = -(-(Sq if kernel == "dq" else Sk) // 128)
+    queries = kernel != "dkv"       # the forward's blocks fix queries too
+    fixed = -(-(Sq if queries else Sk) // 128)
     assert sorted(walk) == [(bh, 128 * i) for bh in range(BH)
                             for i in range(fixed)]
     got = {bh: [] for bh in range(BH)}
@@ -168,7 +171,7 @@ def test_walk_computes_the_reference_pairs(name, kernel):
             for wg, c in enumerate(computes):
                 if c:
                     r = (f0 + 64 * wg) // 64
-                    got[bh].append((r, t) if kernel == "dq" else (t, r))
+                    got[bh].append((r, t) if queries else (t, r))
     for bh in range(BH):
         assert len(got[bh]) == len(set(got[bh]))
         assert set(got[bh]) == want[bh], bh
@@ -176,7 +179,7 @@ def test_walk_computes_the_reference_pairs(name, kernel):
         BH, Sq, Sk, causal, H=H, tile=64, **kw)
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_whole_pairs_have_no_masked_score(name, kernel):
     """A pair the walk marks whole (the kernels skip its per-element mask)
@@ -188,15 +191,15 @@ def test_whole_pairs_have_no_masked_score(name, kernel):
     _, keep = fa._apply_masks(torch.zeros(BH, Sq, Sk), causal, H=H, **kw)
     keep = keep.expand(BH, Sq, Sk)
     whole = 0
-    for (bh, f0), tiles in fa.masked_bwd_walk(kernel, BH, Sq, Sk, causal,
-                                              H=H, **kw).items():
+    for (bh, f0), tiles in fa.masked_walk(kernel, BH, Sq, Sk, causal,
+                                          H=H, **kw).items():
         for t, computes, wholes in tiles:
             for wg in range(2):
                 if not wholes[wg]:
                     continue
                 assert computes[wg]
                 r = f0 + 64 * wg
-                q0, k0 = (r, 64 * t) if kernel == "dq" else (64 * t, r)
+                q0, k0 = (r, 64 * t) if kernel != "dkv" else (64 * t, r)
                 assert q0 + 64 <= Sq and k0 + 64 <= Sk
                 assert bool(keep[bh, q0:q0 + 64, k0:k0 + 64].all())
                 whole += 1
@@ -252,6 +255,30 @@ def test_cpu_masked_backward_takes_the_plain_versions_bitwise(name, D):
                       for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)]
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_cpu_masked_forward_takes_the_plain_version_bitwise(name):
+    """Masked shapes the card sends to the wgmma forward (bf16, head_dim
+    <= 128) run flash_fwd_ref on CPU tensors, bitwise (out and lse), and
+    count no launch."""
+    B, H, kw, Sq, Sk, causal = _case(name)
+    rng = np.random.RandomState(Sq + Sk)
+    q = torch.from_numpy(rng.randn(B * H, Sq, 64).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(B * H, Sk, 64).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    assert fa.flash_route(BF16, 64, "varlen" if "seg" in kw
+                          else "flashmask", "fwd") == "sm90"
+    names = ("launches", "sm90_launches", "varlen_launches",
+             "flashmask_launches")
+    count = [getattr(fa.flash_fwd, n) for n in names]
+    got = fa.flash_fwd(q, k, v, 0.125, causal, H=H, **kw)
+    want = fa.flash_fwd_ref(q, k, v, 0.125, causal, H=H, **kw)
+    assert got[0].dtype == BF16 and got[1].dtype == FP32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert count == [getattr(fa.flash_fwd, n) for n in names]
+
+
 def _c_kinds(source, name):
     """The ctypes kinds of `name`'s prototype in csrc/`source`."""
     expect = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
@@ -263,34 +290,38 @@ def _c_kinds(source, name):
                    .replace(" ", "")] for p in proto.split(",")]
 
 
-@pytest.mark.parametrize("name", ["flash_attention_dq_sm90_masked",
+@pytest.mark.parametrize("name", ["flash_attention_fwd_sm90_masked",
+                                  "flash_attention_dq_sm90_masked",
                                   "flash_attention_dkv_sm90_masked"])
 def test_masked_sm90_ctypes_signatures_match_the_cuda_source(name):
     """The masked wgmma entries' argtypes mirror their prototypes: the
     tensors, then flash_attention.cu's masked tail less its dtype."""
     source, types = fa.SM90_C_ARGTYPES[name]
-    assert source == fa.SM90_BWD_SOURCE
+    assert source == (fa.SM90_SOURCE if "_fwd_" in name
+                      else fa.SM90_BWD_SOURCE)
     assert _c_kinds(source, name) == types
     mma = fa.C_ARGTYPES[name.replace("_sm90_masked", "")]
     assert types == mma[:-2] + mma[-1:]
 
 
 def test_both_flash_sources_include_the_mask_header(tmp_path, monkeypatch):
-    """flash_attention.cu and flash_bwd_sm90.cu include csrc/flash_mask.cuh:
-    a change to it rebuilds both, and the wgmma forward's source does
-    not include it."""
+    """The three flash sources include csrc/flash_mask.cuh: a change to it
+    rebuilds each. The two wgmma sources (the forward, dQ and dK/dV) also
+    include the walk, csrc/flash_walk.cuh: a change to it rebuilds both
+    and not flash_attention.cu."""
     import shutil
     sources = (fa.KERNEL_SOURCE, fa.SM90_BWD_SOURCE, fa.SM90_SOURCE)
-    for f in ("flash_mask.cuh", "hopper.cuh") + sources:
+    for f in ("flash_mask.cuh", "flash_walk.cuh", "hopper.cuh") + sources:
         shutil.copy(build.CSRC / f, tmp_path / f)
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    before = {f: build.library_path(f) for f in sources}
-    with open(tmp_path / "flash_mask.cuh", "a") as fh:
-        fh.write("// changed\n")
-    after = {f: build.library_path(f) for f in sources}
-    assert after[fa.KERNEL_SOURCE] != before[fa.KERNEL_SOURCE]
-    assert after[fa.SM90_BWD_SOURCE] != before[fa.SM90_BWD_SOURCE]
-    assert after[fa.SM90_SOURCE] == before[fa.SM90_SOURCE]
+    for header, rebuilt in (("flash_mask.cuh", set(sources)),
+                            ("flash_walk.cuh", {fa.SM90_BWD_SOURCE,
+                                                fa.SM90_SOURCE})):
+        before = {f: build.library_path(f) for f in sources}
+        with open(tmp_path / header, "a") as fh:
+            fh.write("// changed\n")
+        after = {f: build.library_path(f) for f in sources}
+        assert {f for f in sources if after[f] != before[f]} == rebuilt
 
 
 @pytest.mark.parametrize("S", [128, 130, 131, 129])

@@ -151,36 +151,26 @@ def test_quant_decode_split_at_the_serve_quant_shapes():
         assert (min(sizes), max(sizes)) == (fewest, most)
 
 
-# the rows below whose dQ and dK/dV take another kernel than their
-# forward: bf16 masked modes at head_dim <= 128 (the wgmma backward)
-BWD_ROUTE = {(BF16, 128, "masked"): "sm90", (BF16, 64, "varlen"): "sm90",
-             (BF16, 128, "varlen"): "sm90", (BF16, 64, "flashmask"): "sm90",
-             (BF16, 128, "flashmask"): "sm90"}
-
-
 @pytest.mark.parametrize("dtype,D,mode,route", [
     (BF16, 128, "plain", "sm90"), (BF16, 64, "plain", "sm90"),
     (BF16, 40, "plain", "sm90"), (BF16, 136, "plain", "mma"),
     (BF16, 256, "plain", "mma"), (FP32, 128, "plain", "mma"),
-    (BF16, 128, "masked", "mma"), (FP32, 64, "plain", "mma"),
-    (FP32, 256, "plain", "mma"), (BF16, 64, "varlen", "mma"),
-    (BF16, 128, "varlen", "mma"), (BF16, 256, "varlen", "mma"),
-    (BF16, 64, "flashmask", "mma"), (BF16, 128, "flashmask", "mma"),
+    (BF16, 128, "masked", "sm90"), (FP32, 64, "plain", "mma"),
+    (FP32, 256, "plain", "mma"), (BF16, 64, "varlen", "sm90"),
+    (BF16, 128, "varlen", "sm90"), (BF16, 256, "varlen", "mma"),
+    (BF16, 64, "flashmask", "sm90"), (BF16, 128, "flashmask", "sm90"),
     (BF16, 256, "flashmask", "mma"), (FP32, 128, "varlen", "mma"),
     (FP32, 128, "flashmask", "mma"), (BF16, 8, "plain", "sm90"),
     (BF16, 120, "plain", "sm90"), (BF16, 129, "plain", "mma"),
     (torch.float16, 64, "plain", "mma"),
 ])
 def test_flash_fwd_route(dtype, D, mode, route):
-    """The forward takes the wgmma kernel for bf16 in the plain mode
-    (causal or none) at head_dim <= 128 (`route`); dQ and dK/dV take
-    theirs for bf16 at head_dim <= 128 in every mode (`route`, or the
-    row's `BWD_ROUTE`)."""
-    bwd = BWD_ROUTE.get((dtype, D, mode), route)
+    """The forward, dQ and dK/dV take the wgmma kernels for bf16 at
+    head_dim <= 128 in every mode (plain, causal or none; the segment and
+    flashmask modes): `route` for all three."""
     assert fa.flash_route(dtype, D, mode) == route
-    assert fa.flash_route(dtype, D, mode, "fwd") == route
-    assert fa.flash_route(dtype, D, mode, "dq") == bwd
-    assert fa.flash_route(dtype, D, mode, "dkv") == bwd
+    for kernel in ("fwd", "dq", "dkv"):
+        assert fa.flash_route(dtype, D, mode, kernel) == route
 
 
 @pytest.mark.parametrize("BH,Sq,Sk,D,causal", [
