@@ -23,6 +23,22 @@ Phases, one JSON line each:
                max_new_tokens with finite logits, that the paged-decode
                kernel ran once per layer per decode launch, and that all
                pages return after reset_prefix_cache().
+  3b. generate — `LlamaForCausalLM.generate` on the same bf16 model: 4
+               prompts of 512 tokens (the first 512 of the first 4 serve
+               prompts that long), 32 new tokens; greedy eager, greedy
+               use_jit=True (the preallocated cache written in place),
+               and a sampled run (temperature 0.8, top_p 0.9, seed 0)
+               twice. Checks that every forward pass launched the wgmma
+               flash forward once per layer (the prefill causal at Sq =
+               Sk = 512, each decode step at Sq 1 against the cache) and
+               nothing else attended (no varlen, flashmask, paged or
+               `sdpa_ref` call), use_jit tokens == eager, the two sampled
+               runs bitwise equal, tokens in the vocabulary, finite
+               logits, and a full forward over each returned sequence
+               within a relative error of 5e-2 of the logits generate
+               used. Reports prefill ms, decode-step ms, tokens/s, peak
+               memory and where each row's greedy tokens first leave a
+               ServingEngine drain of the same prompts (not gated).
   4. serve_lora — on the same bf16 model object, multi-LoRA serving: an
                `AdapterRegistry` (rank buckets 8 and 16, 4 slots each,
                all 7 target modules) holding a1 (rank 8), a2 (rank 16)
@@ -70,6 +86,24 @@ Phases, one JSON line each:
                flash_bwd_sm90.cu, and the AdamW kernel once per bucket.
                Reports step ms, tokens/s, MFU (bench.py's FLOP reckoning
                over 989 TFLOP/s) and peak memory.
+  6b. train_loop — the AdamW kernel's check on the train phase's bucket
+               runs first (phase 8's row), so the bucket is freed; then
+               the train phase's configuration again with recompute=True
+               (one checkpoint per decoder layer): one forward + backward
+               without and with recompute from the same weights (loss
+               and pre-clip gradient norm within 1e-3, the peak memory
+               of each, recompute's lower), then AdamW with
+               LinearWarmup(CosineAnnealingDecay(3e-4, T_max=6), 2 warm-up
+               steps), ClipGradByGlobalNorm(1.0) and lr_ratio 0.5 for the
+               embedding and the head (two fused buckets), 2 warm-up and
+               4 timed steps. Checks every step: the flash forward 16
+               times (8 + 8 replays), dQ and dK/dV 8 times, all on the
+               wgmma kernels; AdamW once per bucket, each bucket's lr the
+               schedule's times its ratio; the clipped gradients' global
+               norm <= 1.0 within 1e-2; finite losses, the last below the
+               first. Reports step ms (less the phase's norm observer),
+               tokens/s, MFU as the train phase counts it (the replay is
+               not useful work) and peak memory.
   7. packed_attention — Llama-3-8B's attention widths (32 heads, the 8
                KV heads repeated, head_dim 128, bf16) over one packed row
                of 8192 tokens, seeded documents of 128-2048 tokens (the
@@ -125,6 +159,11 @@ Phases, one JSON line each:
                  (`flash_error`), the dQ rows of queries that see no key
                  exactly zero (chip_fault_check.py shows that a kernel
                  with a planted fault fails these checks);
+               * the flash forward at generate's decode shape (B*H 128,
+                 Sq 1, D 128, bf16, not causal) at cache lengths 1, 7,
+                 64, 513, 544 and 1025 within flash_error's limits, timed
+                 at 513 and 544 beside SDPA on the same q, k, v and its
+                 byte bound (the K/V read);
                * fused AdamW: the train phase's own bucket (fp32 master,
                  bf16 moments, ~2.8e9 elements) with a seeded bf16
                  gradient, and fp32 state on a slice of it: bitwise;
@@ -189,8 +228,9 @@ Phases, one JSON line each:
                  (`check_norm_kernel`); timed beside
                  torch.nn.functional.rms_norm and its byte bound (no
                  main path calls it: 0 launches).
-Then the `{"kernels": [...]}` line, the raw nvidia-smi line, and as the
-last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
+Then the `{"kernels": [...]}` line (each row's `launches` its main path's
+count; the flash and AdamW rows also `launches_by_phase` for train,
+train_loop and generate), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
 with status 2 and prints no result.
 """
@@ -244,7 +284,9 @@ KERNELS = [("paged_attention_decode", _CSRC + "paged_attention.cu",
            ("flashmask_attention_dkv", _CSRC + "flash_bwd_sm90.cu",
             "paddle_tpu/kernels/flash_attention.py:386"),
            ("rms_norm_rows", _CSRC + "fused_norm.cu",
-            "paddle_tpu/kernels/fused_norm.py:36")]
+            "paddle_tpu/kernels/fused_norm.py:36"),
+           ("flash_attention_fwd_decode", _CSRC + "flash_fwd_sm90.cu",
+            "paddle_tpu/kernels/flash_attention.py:179")]
 KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 # flash_attention.cu also holds the fp32 and head_dim > 128 routes of all
 # three flash kernels; the wgmma sources share csrc/hopper.cuh, the three
@@ -267,6 +309,11 @@ DESIGN = {
                            "mbarriers), wgmma m64n128k16 SS for QK^T and RS "
                            "for PV (P in registers), 2 consumer warpgroups "
                            "of 64 rows + 1 producer",
+    "flash_attention_fwd_decode": "the plain sm90 forward at one query row "
+                                  "(generate's decode step): a block of 128 "
+                                  "query rows, 127 of them past Sq, streams "
+                                  "the head's K/V through the 128-key TMA "
+                                  "ring",
     "flash_attention_dq": "sm90: 128 query rows a block, Q and dO once, a "
                           "TMA ring of 64-key K/V tiles (3 stages, "
                           "mbarriers), wgmma m64n64k16 SS for S and dP, dS "
@@ -345,6 +392,21 @@ DESIGN = {
 # the train phase: Llama-3-8B widths, depth cut to fit one card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 1, 4096
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 2, 4, 3e-4
+# train_loop: the train phase's model and batch under recompute, with a
+# warm-up + cosine schedule, the global-norm clip and half the lr for the
+# embedding and the head (two AdamW buckets)
+LOOP_WARMUP_STEPS, LOOP_T_MAX, LOOP_CLIP, LOOP_RATIO = 2, 6, 1.0, 0.5
+# generate: the serve model, 4 prompts of 512 tokens cut from the serve
+# phase's prompts, 32 new tokens; the sampled runs' settings
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 512, 32
+GEN_TEMPERATURE, GEN_TOP_P, GEN_SEED = 0.8, 0.9, 0
+GEN_LOGIT_LIMIT = 5e-2
+# the flash forward at generate's decode shape: B*H 128 (4 x 32 heads),
+# one query row, D 128; checked at these cache lengths and timed at the
+# first and last decode step's
+DECODE_BH, DECODE_D = GEN_BATCH * 32, 128
+DECODE_CHECK_SK = (1, 7, 64, GEN_PROMPT + 1, GEN_PROMPT + GEN_NEW, 1025)
+DECODE_TIME_SK = (GEN_PROMPT + 1, GEN_PROMPT + GEN_NEW)
 # flash kernel checks (B*H, Sq, Sk, D, causal): the training shape, and
 # ragged ones: S not a tile multiple with D 64 and Sq < Sk; Sq > Sk, whose
 # first 70 query rows see no key under causal; non-causal Sq > Sk, Sq < Sk
@@ -1732,6 +1794,402 @@ def phase_train(seed: int):
     return launches, bucket
 
 
+# ------------------------------------------------------------- generate
+def generate_prompts(prompts):
+    """generate's B prompts: the first GEN_PROMPT tokens of the first
+    GEN_BATCH serve prompts at least that long (the serve phase's seeded
+    draw)."""
+    rows = [p[:GEN_PROMPT] for p, _ in prompts if len(p) >= GEN_PROMPT]
+    if len(rows) < GEN_BATCH:
+        raise AssertionError(f"only {len(rows)} serve prompts of >= "
+                             f"{GEN_PROMPT} tokens")
+    return rows[:GEN_BATCH]
+
+
+def _first_divergence(a, b):
+    """Index of the first position where token lists a and b differ, or
+    None when they agree over the shorter one."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_generate(served, seed: int):
+    """`LlamaForCausalLM.generate` on the serve phase's bf16 model: 4
+    prompts of 512 tokens, 32 new tokens, greedy eager, greedy
+    use_jit=True and one sampled run twice. Every forward pass launches
+    the wgmma flash forward once per layer (the prefill causal at Sq = Sk
+    = 512, each decode step at Sq 1 against the cache), and no other
+    attention path runs. Checks the launches, jit == eager, the two
+    sampled runs bitwise equal, tokens in the vocabulary and finite
+    logits, and one full forward over each returned sequence against
+    the logits generate used. Reports where each row's greedy tokens
+    first leave a ServingEngine drain of the same prompts (paged decode
+    against flash: different rounding), prefill ms, the median decode
+    step, tokens/s and peak memory."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+    from paddle_tpu_torch.models import generation
+    from paddle_tpu_torch.nn.functional import flash_attention as tfa
+    from paddle_tpu_torch.serving import ServingEngine
+
+    model = served["model"]
+    cfg = model.cfg
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    rows = generate_prompts(served["prompts"])
+    ids = torch.tensor(rows, dtype=torch.long, device="cuda")
+    seen, stamps = [], []
+    real_sample, real_ref = generation._sample, tfa.sdpa_ref
+    plain_calls = [0]
+
+    def observed_sample(logits, *args, **kw):
+        tok = real_sample(logits, *args, **kw)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        seen.append((logits.clone(), tok.clone()))
+        return tok
+
+    def counted_ref(*a, **kw):
+        plain_calls[0] += 1
+        return real_ref(*a, **kw)
+
+    def run(**kw):
+        """One generate call; returns (tokens, its logits (N, B, V), the
+        step stamps, wall s, flash / other-path launch deltas)."""
+        seen.clear()
+        stamps.clear()
+        n0 = (fa.flash_fwd.launches, fa.flash_fwd.sm90_launches,
+              fa.flash_fwd.decode_launches, fa.flash_fwd.varlen_launches,
+              fa.flash_fwd.flashmask_launches,
+              paged_attention_decode.launches, plain_calls[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_NEW, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d = [a - b for a, b in zip(
+            (fa.flash_fwd.launches, fa.flash_fwd.sm90_launches,
+             fa.flash_fwd.decode_launches, fa.flash_fwd.varlen_launches,
+             fa.flash_fwd.flashmask_launches,
+             paged_attention_decode.launches, plain_calls[0]), n0)]
+        passes = len(seen)
+        # the prefill at Sq = 512, then one decode step at Sq 1 a pass
+        want = [L * passes, L * passes, L * (passes - 1), 0, 0, 0, 0]
+        if passes != GEN_NEW or d != want:
+            raise AssertionError(f"generate({kw}): {passes} forward passes, "
+                                 f"launches (flash, wgmma, wgmma at Sq 1, "
+                                 f"varlen, flashmask, paged, sdpa_ref) {d} "
+                                 f"!= {want}")
+        logits = torch.stack([x for x, _ in seen])
+        toks = torch.stack([t for _, t in seen], dim=1)
+        if not (torch.equal(toks, out[:, GEN_PROMPT:])
+                and bool(torch.isfinite(logits).all())
+                and int(out.min()) >= 0 and int(out.max()) < V):
+            raise AssertionError(f"generate({kw}): tokens outside the "
+                                 f"vocabulary or non-finite logits")
+        return out, logits, [t0] + list(stamps), wall, passes
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    generation._sample, tfa.sdpa_ref = observed_sample, counted_ref
+    fa.flash_fwd.launches = fa.flash_fwd.sm90_launches = 0  # path starts
+    fa.flash_fwd.decode_launches = 0
+    try:
+        greedy, logits, stamps_e, wall_e, passes_e = run()
+        jit, _, _, wall_j, passes_j = run(use_jit=True)
+        sampled = [run(temperature=GEN_TEMPERATURE, top_p=GEN_TOP_P,
+                       seed=GEN_SEED) for _ in range(2)]
+    finally:
+        generation._sample, tfa.sdpa_ref = real_sample, real_ref
+    launches = fa.flash_fwd.sm90_launches     # the main path ended
+    decode_launches = fa.flash_fwd.decode_launches
+    peak = torch.cuda.max_memory_allocated()
+    passes = passes_e + passes_j + sum(r[4] for r in sampled)
+    sampled = [r[0] for r in sampled]
+    if launches != L * passes or decode_launches != L * (passes - 4):
+        raise AssertionError(f"wgmma flash forward launches {launches}, at "
+                             f"Sq 1 {decode_launches} != {L} x {passes} "
+                             f"forward passes, {L} x {passes - 4} decode "
+                             f"steps")
+    if not torch.equal(jit, greedy):
+        raise AssertionError("use_jit tokens differ from the eager loop's")
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError("two sampled runs with one seed differ")
+    # one full forward over each returned sequence: its logits at the
+    # positions that produced the new tokens against generate's
+    with torch.no_grad():
+        full = model(greedy)[:, GEN_PROMPT - 1:-1].float()
+    got = logits.transpose(0, 1).float()
+    rel = ((got - full).norm() / full.norm()).item()
+    if not rel <= GEN_LOGIT_LIMIT:
+        raise AssertionError(f"generate's logits {rel} from a full forward "
+                             f"(limit {GEN_LOGIT_LIMIT})")
+    greedy_rows_agree = (greedy[:, GEN_PROMPT:] == full.argmax(-1)).float() \
+        .mean().item()
+    del full, got, logits
+    # the serve path on the same prompts (not gated)
+    eng = ServingEngine(model, page_size=16, num_pages=256,
+                        batch_buckets=[GEN_BATCH], seed=seed)
+    rids = [eng.add_request(r, max_new_tokens=GEN_NEW) for r in rows]
+    eng.run()
+    served_toks = [eng.requests[r].output_ids for r in rids]
+    del eng
+    steps = [b - a for a, b in zip(stamps_e[1:-1], stamps_e[2:])]
+    emit({"phase": "generate", "model": "llama_3_8b", "dtype": "bfloat16",
+          "layers": L, "batch": GEN_BATCH, "prompt_tokens": GEN_PROMPT,
+          "new_tokens": GEN_NEW,
+          "runs": ["greedy", "greedy use_jit", "sampled seed 0",
+                   "sampled seed 0"],
+          "sampling": {"temperature": GEN_TEMPERATURE, "top_p": GEN_TOP_P,
+                       "seed": GEN_SEED},
+          "forward_passes": passes,
+          "flash_fwd_sm90_launches": launches,
+          "flash_fwd_decode_launches": decode_launches,
+          "jit_equals_eager": True, "sampled_bitwise_equal": True,
+          "sampled_equals_greedy": bool(torch.equal(sampled[0], greedy)),
+          "logits_rel_err_vs_full_forward": rel,
+          "logits_limit": GEN_LOGIT_LIMIT,
+          "full_forward_argmax_agreement": greedy_rows_agree,
+          "first_divergence_from_serve_path": [
+              _first_divergence(g, s_) for g, s_ in zip(
+                  greedy[:, GEN_PROMPT:].tolist(), served_toks)],
+          "prefill_ms": (stamps_e[1] - stamps_e[0]) * 1e3,
+          "decode_step_ms_median": statistics.median(steps) * 1e3,
+          "decode_step_ms": [t * 1e3 for t in steps],
+          "eager_wall_s": wall_e, "jit_wall_s": wall_j,
+          "tokens_per_s": GEN_BATCH * GEN_NEW / wall_e,
+          "tokens_per_s_jit": GEN_BATCH * GEN_NEW / wall_j,
+          "note": "walls include a device sync and a logits copy after "
+                  "every step (the phase's observer)",
+          "max_memory_allocated": peak,
+          "max_memory_above_start": peak - base})
+    return {"flash_attention_fwd": launches,
+            "flash_attention_fwd_decode": decode_launches}
+
+
+# ------------------------------------------------------------ train loop
+def _grad_norm(grads) -> float:
+    """The fp32 global norm of a list of gradients, one tensor at a
+    time."""
+    import torch
+    total = torch.zeros((), dtype=torch.float32, device="cuda")
+    for g in grads:
+        f = g.reshape(-1).float()
+        total += torch.dot(f, f)
+        del f
+    return total.sqrt().item()
+
+
+def phase_train_loop(seed: int):
+    """The training loop's pieces on the train phase's configuration
+    (8 layers at full width, 1 x 4096 seeded tokens, bf16) with
+    recompute: first one forward + backward from the same weights with
+    recompute off and on (loss and pre-clip gradient norm within 1e-3,
+    peak memory of each); then AdamW(LinearWarmup(CosineAnnealingDecay),
+    ClipGradByGlobalNorm(1.0), lr_ratio 0.5 for the embedding and the
+    head, fp32 master, bf16 moments, fused), 2 warm-up and 4 timed steps,
+    the scheduler stepped after each. Gated every step: the flash
+    forward 16 times (8 + 8 replays), dQ and dK/dV 8 times, all on the
+    wgmma kernels; AdamW once per bucket (2); each bucket's lr the
+    schedule's value times its ratio; the clipped gradients' global norm
+    <= 1.0 within 1e-2; finite losses, the last below the first."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_3_8b,
+                                               llama_step_flops)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import optimizer as optim_mod
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    cfg = llama_3_8b(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
+                     max_position_embeddings=8192, recompute=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=gen)
+    rng = np.random.RandomState(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    params = list(model.parameters())
+    L = cfg.num_hidden_layers
+
+    # recompute against no recompute: one forward + backward each
+    compare = {}
+    for rc in (False, True):
+        cfg.recompute = rc
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model(ids, labels=labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        compare[rc] = {"loss": loss.item(),
+                       "grad_norm": _grad_norm([p.grad for p in params]),
+                       "peak_above_start": torch.cuda.max_memory_allocated()
+                       - start}
+        if not rc:
+            saved = [p.grad for p in params]
+        else:
+            compare["grads_bitwise_equal"] = all(
+                torch.equal(a, p.grad) for a, p in zip(saved, params))
+        for p in params:
+            p.grad = None
+        del loss
+    del saved
+    a, b = compare[False], compare[True]
+    rel = {k: abs(b[k] - a[k]) / abs(a[k]) for k in ("loss", "grad_norm")}
+    if not (max(rel.values()) <= 1e-3
+            and b["peak_above_start"] < a["peak_above_start"]):
+        raise AssertionError(f"recompute against none: relative {rel}, "
+                             f"peaks {b['peak_above_start']} vs "
+                             f"{a['peak_above_start']}")
+
+    emb, head = model.model.embed_tokens.weight, model.lm_head.weight
+    sched = LinearWarmup(CosineAnnealingDecay(TRAIN_LR, T_max=LOOP_T_MAX),
+                         warmup_steps=LOOP_WARMUP_STEPS, start_lr=0.0,
+                         end_lr=TRAIN_LR)
+
+    class ObservedClip(ClipGradByGlobalNorm):
+        """The clip, timed, with the global norms of its input and output
+        recorded (and the time that costs)."""
+        norms, seconds, clip_seconds = [], [], []
+
+        def __call__(self, params_grads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().__call__(params_grads)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.norms.append((_grad_norm([g for _, g in params_grads]),
+                               _grad_norm([g for _, g in out])))
+            self.clip_seconds.append(t1 - t0)
+            self.seconds.append(time.perf_counter() - t1)
+            return out
+
+    def ratio(p):
+        return LOOP_RATIO if p is emb or p is head else 1.0
+    clip = ObservedClip(LOOP_CLIP)
+    opt = AdamW(learning_rate=sched, parameters=params, grad_clip=clip,
+                lr_ratio=ratio, multi_precision=True,
+                moment_dtype="bfloat16", fused=True)
+    bucket_lrs = []
+    real_bucket = optim_mod.fused_adamw_bucket
+
+    def observed_bucket(grads, weights, m, v, scalars, param_dtype=None):
+        bucket_lrs.append(float(scalars[0]))
+        return real_bucket(grads, weights, m, v, scalars, param_dtype)
+
+    counters = {"flash_attention_fwd": fa.flash_fwd,
+                "flash_attention_dq": fa.flash_dq,
+                "flash_attention_dkv": fa.flash_dkv}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():                # the main path starts
+        fn.launches = fn.sm90_launches = 0
+    fo.fused_adamw_bucket.launches = 0
+    optim_mod.fused_adamw_bucket = observed_bucket
+    losses, step_s, lrs, profiled = [], [], [], None
+    try:
+        for step in range(TRAIN_WARMUP + TRAIN_TIMED):
+            before = {k: (fn.launches, fn.sm90_launches)
+                      for k, fn in counters.items()}
+            adamw0 = fo.fused_adamw_bucket.launches
+            lr = sched()
+            prof_step = step == TRAIN_WARMUP - 1
+            ctx = (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+                if prof_step else contextlib.nullcontext())
+            del bucket_lrs[:]
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            with ctx as prof:
+                loss = model(ids, labels=labels)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                sched.step()
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - ts
+            losses.append(loss.item())
+            lrs.append(lr)
+            if prof_step:
+                profiled = profile_summary(prof, dt)
+            if step >= TRAIN_WARMUP:
+                step_s.append(dt - clip.seconds[-1])
+            got = {k: (fn.launches - before[k][0],
+                       fn.sm90_launches - before[k][1])
+                   for k, fn in counters.items()}
+            want = {"flash_attention_fwd": (2 * L, 2 * L),
+                    "flash_attention_dq": (L, L),
+                    "flash_attention_dkv": (L, L)}
+            n_adamw = fo.fused_adamw_bucket.launches - adamw0
+            want_lrs = sorted(float(np.float32(lr * r))
+                              for r in (LOOP_RATIO, 1.0))
+            if got != want or n_adamw != 2 or len(opt._fused_buckets) != 2:
+                raise AssertionError(f"step {step}: flash (launches, "
+                                     f"wgmma) {got} != {want}, AdamW "
+                                     f"{n_adamw} launches, "
+                                     f"{len(opt._fused_buckets)} buckets")
+            if sorted(bucket_lrs) != want_lrs:
+                raise AssertionError(f"step {step}: bucket lrs "
+                                     f"{bucket_lrs} != {want_lrs}")
+            if not clip.norms[-1][1] <= LOOP_CLIP * (1 + 1e-2):
+                raise AssertionError(f"step {step}: clipped norm "
+                                     f"{clip.norms[-1][1]}")
+    finally:
+        optim_mod.fused_adamw_bucket = real_bucket
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["fused_adamw"] = fo.fused_adamw_bucket.launches
+    peak = torch.cuda.max_memory_allocated()   # the main path ended
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    step_med = statistics.median(step_s)
+    flops, _, attn_flops = llama_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    emit({"phase": "train_loop", "model": "llama_3_8b", "dtype": "bfloat16",
+          "reduced": {"num_hidden_layers": [32, L]}, "layers": L,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "recompute": True,
+          "optimizer": {"name": "AdamW", "lr": "LinearWarmup("
+                        f"CosineAnnealingDecay({TRAIN_LR}, T_max="
+                        f"{LOOP_T_MAX}), warmup_steps={LOOP_WARMUP_STEPS}, "
+                        f"start_lr=0.0, end_lr={TRAIN_LR})",
+                        "grad_clip": f"ClipGradByGlobalNorm({LOOP_CLIP})",
+                        "lr_ratio": {"embed_tokens, lm_head": LOOP_RATIO,
+                                     "rest": 1.0},
+                        "multi_precision": True, "fused": True,
+                        "moment_dtype": "bfloat16",
+                        "buckets": len(opt._fused_buckets)},
+          "recompute_vs_none": {"loss": [a["loss"], b["loss"]],
+                                "grad_norm": [a["grad_norm"],
+                                              b["grad_norm"]],
+                                "relative": rel,
+                                "loss_bitwise_equal": a["loss"] == b["loss"],
+                                "grad_norm_bitwise_equal":
+                                    a["grad_norm"] == b["grad_norm"],
+                                "grads_bitwise_equal":
+                                    compare["grads_bitwise_equal"],
+                                "peak_above_start_bytes": [
+                                    a["peak_above_start"],
+                                    b["peak_above_start"]]},
+          "losses": losses, "lrs": lrs,
+          "grad_norms_pre_post_clip": clip.norms,
+          "clip_ms": [t * 1e3 for t in clip.clip_seconds],
+          "clip_observer_ms": [t * 1e3 for t in clip.seconds],
+          "timed_step_ms": [t * 1e3 for t in step_s],
+          "step_ms": step_med * 1e3,
+          "step_ms_note": "wall less the phase's norm observer",
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_med,
+          "flops_per_step": flops, "attention_flops_per_step": attn_flops,
+          "mfu_vs_989tflops": flops / step_med / PEAK_FLOPS["bfloat16"],
+          "kernel_launches": launches, "profiled_step": profiled,
+          "max_memory_allocated": peak})
+    return launches
+
+
 def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -1903,6 +2361,87 @@ def phase_flash_kernels(launches, seed: int, card: str):
                       "dtype": "bfloat16"},
             "bytes": nbytes, "flops": flops, "card": card})
     return rows
+
+
+def phase_decode_flash_kernel(launches, seed: int, card: str):
+    """The wgmma flash forward at generate's decode shape (B*H 128, one
+    query row, D 128, bf16, not causal) against its plain version at
+    cache lengths from 1 to 1025 (`flash_error`'s limits), then timed at
+    the first and the last decode step's cache beside the plain version,
+    SDPA on the same q, k, v, and the bound: the bytes of q, K, V, out
+    and lse once (the K/V read) over 3.35 TB/s."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    scale = 1.0 / math.sqrt(DECODE_D)
+    errs, failures = {}, []
+    for sk in DECODE_CHECK_SK:
+        q, k, v = (torch.randn(DECODE_BH, s_, DECODE_D, generator=gen,
+                               device="cuda", dtype=torch.bfloat16)
+                   for s_ in (1, sk, sk))
+        out, lse = fa.flash_fwd(q, k, v, scale, False)
+        ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, scale, False)
+        torch.cuda.synchronize()
+        for output, (got, want) in (("out", (out, ref_out)),
+                                    ("lse", (lse, ref_lse))):
+            err, lim = flash_error(got, want, output, "bfloat16")
+            errs.setdefault(output, {})[f"Sk{sk}"] = {
+                "err": err, "limit": lim, "max_abs": _max_err(got, want)}
+            if not (err <= lim and torch.isfinite(got).all()):
+                failures.append((output, sk))
+    emit({"phase": "kernel_check", "kernel": "flash_attention_fwd_decode",
+          "shape": {"BH": DECODE_BH, "Sq": 1, "D": DECODE_D,
+                    "causal": False, "dtype": "bfloat16"},
+          "errors": errs})
+    if failures:
+        raise AssertionError(f"the flash forward at Sq 1 disagrees with its "
+                             f"plain version: {failures}")
+
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    times = {}
+    for sk in DECODE_TIME_SK:
+        q, k, v = (torch.randn(DECODE_BH, s_, DECODE_D, generator=gen,
+                               device="cuda", dtype=torch.bfloat16)
+                   for s_ in (1, sk, sk))
+        q4, k4, v4 = (t.view(1, DECODE_BH, -1, DECODE_D) for t in (q, k, v))
+        nbytes = (2 * DECODE_BH * sk * DECODE_D * 2
+                  + 2 * DECODE_BH * DECODE_D * 2 + DECODE_BH * 4)
+        flops = 4 * DECODE_BH * sk * DECODE_D
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        times[sk] = {
+            "ms": time_ms(lambda: fa.flash_fwd(q, k, v, scale, False),
+                          flush_buf.zero_),
+            "plain_ms": time_ms(lambda: fa.flash_fwd_ref(q, k, v, scale,
+                                                         False),
+                                flush_buf.zero_),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4), flush_buf.zero_),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+        times[sk]["gb_per_s"] = nbytes / times[sk]["ms"] / 1e6
+    last = times[DECODE_TIME_SK[-1]]
+    name, source, replaces = KERNEL["flash_attention_fwd_decode"]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "design": DESIGN[name],
+            "launches": launches,
+            "max_abs_err": max(e["max_abs"] for e in errs["out"].values()),
+            "rel_err": max(e["err"] for e in errs["out"].values()),
+            "lse_max_abs_err": max(e["max_abs"]
+                                   for e in errs["lse"].values()),
+            "ms": last["ms"], "kernel_ms": last["ms"],
+            "plain_ms": last["plain_ms"], "bound_ms": last["bound_ms"],
+            "bound_by": last["bound_by"], "library_ms": last["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "(q (1, 128, 1, 128), not causal)",
+            "by_cache_length": {f"Sk{sk}": t for sk, t in times.items()},
+            "shape": {"BH": DECODE_BH, "Sq": 1, "Sk": DECODE_TIME_SK[-1],
+                      "D": DECODE_D, "causal": False, "dtype": "bfloat16"},
+            "bytes": last["bytes"], "flops": last["flops"], "card": card}
 
 
 def phase_adamw_kernel(launches, bucket, seed: int, card: str):
@@ -2707,6 +3246,9 @@ def main(argv=None) -> int:
     launches, capture, served = phase_serve(args.seed)
     gc.collect()                  # the bf16 engine goes; its model stays
     torch.cuda.empty_cache()
+    gen_launches = phase_generate(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     lora_launches, lora_capture = phase_serve_lora(served, args.seed)
     gc.collect()                  # the LoRA engine and registry go
     torch.cuda.empty_cache()
@@ -2718,6 +3260,15 @@ def main(argv=None) -> int:
     train_launches, bucket = phase_train(args.seed)
     gc.collect()                  # so do the model and the optimizer
     torch.cuda.empty_cache()
+    # the AdamW kernel's check on the train phase's bucket goes first,
+    # so that the bucket is freed before train_loop builds its own
+    adamw_row = phase_adamw_kernel(train_launches, bucket, args.seed, card)
+    del bucket
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop_launches = phase_train_loop(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     packed_launches, lens = phase_packed_attention(args.seed)
     norm_launches = fused_norm.rms_norm_rows.launches   # the main paths ended
     gc.collect()
@@ -2725,9 +3276,15 @@ def main(argv=None) -> int:
     kernels = phase_kernels(capture, launches, args.seed, card)
     del capture
     kernels += phase_flash_kernels(train_launches, args.seed, card)
-    kernels.append(phase_adamw_kernel(train_launches, bucket, args.seed,
-                                      card))
-    del bucket
+    kernels.append(adamw_row)
+    kernels.append(phase_decode_flash_kernel(
+        gen_launches["flash_attention_fwd_decode"], args.seed, card))
+    for row in kernels:           # the counts of the other main paths
+        extra = {phase: counts[row["name"]] for phase, counts in (
+            ("train_loop", loop_launches), ("generate", gen_launches))
+            if row["name"] in counts}
+        if extra and row["name"] != "flash_attention_fwd_decode":
+            row["launches_by_phase"] = {"train": row["launches"], **extra}
     gc.collect()
     torch.cuda.empty_cache()
     kernels += phase_quant_kernels(quant_capture, quant_launches,

@@ -16,7 +16,9 @@ the plain mode) or raises. `flash_route` picks each entry's kernel
 before the launch from (dtype, head_dim, mode, kernel) alone: bf16 at
 head_dim <= 128 takes the wgmma kernels in every mode — the forward of
 `csrc/flash_fwd_sm90.cu`, dQ and dK/dV of `csrc/flash_bwd_sm90.cu`
-(counted in `.sm90_launches`; the wgmma dK/dV reads lse and delta, and
+(counted in `.sm90_launches`, and a plain forward at one query row,
+generate's decode step, also in `flash_fwd.decode_launches`; the wgmma
+dK/dV reads lse and delta, and
 the masked wgmma kernels their segment rows or bounds, with TMA in
 boxes that start 16-byte aligned, so the wrapper pads those rows to a
 multiple of 4 elements when S is not one, `_tma_rows`); fp32 and
@@ -574,6 +576,8 @@ def flash_fwd(q, k, v, sm_scale, causal, seg=None, fm=None, fm_causal=True,
     if sm90 and mode == "plain":
         _launch_sm90(flash_fwd, "flash_attention_fwd_sm90",
                      (q, k, v, out, lse), sm_scale, causal)
+        if Sq == 1:
+            flash_fwd.decode_launches += 1
         return out, lse
     _launch(flash_fwd, "flash_attention_fwd" + ("_sm90_masked" if sm90
                                                  else ""), q, k, (out, lse),
@@ -628,6 +632,7 @@ def flash_dkv(q, k, v, dout, lse, delta, sm_scale, causal, seg=None,
 
 flash_fwd.launches = flash_fwd.varlen_launches = 0
 flash_fwd.sm90_launches = flash_dq.sm90_launches = 0
+flash_fwd.decode_launches = 0
 flash_dkv.sm90_launches = 0
 flash_dq.launches = flash_dq.varlen_launches = 0
 flash_dkv.launches = flash_dkv.varlen_launches = 0

@@ -7,7 +7,8 @@ is a name/shape check and a copy. The rope tables are not parameters on
 either side: the port rebuilds them from the config. The optimizer's
 state crosses in its canonical per-parameter form (`moment1_<i>`,
 `moment2_<i>`, `master_<i>`, `@step`), which both sides' `state_dict()`
-write whether or not the update was fused.
+write whether or not the update was fused, with amsgrad's
+`moment2_max_<i>` and an LR scheduler's `LR_Scheduler` dict.
 
 A state dict of a reference model converted for weight-only serving
 (`quantize_for_serving`, wq="int8"/"int4") carries int8 `*.qweight` and
@@ -32,7 +33,7 @@ from .llama import LlamaConfig
 __all__ = ["expected_shapes", "from_jax_state_dict",
            "from_jax_optimizer_state", "from_jax_adapter"]
 
-_OPT_KEY = re.compile(r"(moment1|moment2|master)_(\d+)")
+_OPT_KEY = re.compile(r"(moment1|moment2|moment2_max|master)_(\d+)")
 
 
 def expected_shapes(cfg: LlamaConfig, wq=None) -> Dict[str, tuple]:
@@ -112,14 +113,17 @@ def from_jax_state_dict(np_state, cfg: LlamaConfig,
 
 def from_jax_optimizer_state(np_state) -> Dict[str, object]:
     """The reference optimizer's `state_dict()`, exported as {key: numpy
-    array} plus the int `@step` -> the same keys as CPU tensors (dtypes
-    kept, bf16 included), ready for the port's `AdamW.set_state_dict`.
-    Raises ValueError on a key the port does not take (an LR
-    scheduler's state, amsgrad's `moment2_max`, ...)."""
+    array} plus the int `@step` and the `LR_Scheduler` dict -> the same
+    keys as CPU tensors (dtypes kept, bf16 included; the scheduler's
+    dict copied), ready for the port's `set_state_dict`. Raises
+    ValueError on a key the port does not take."""
     out: Dict[str, object] = {}
     for key, val in np_state.items():
         if key == "@step":
             out[key] = int(val)
+        elif key == "LR_Scheduler":
+            out[key] = {k: (list(v) if isinstance(v, (list, tuple)) else v)
+                        for k, v in dict(val).items()}
         elif _OPT_KEY.fullmatch(key):
             out[key] = _to_tensor(val)
         else:

@@ -3,12 +3,26 @@
 Ported: the configs, the rope tables, interleaved-pair rotary, the
 training forward (`LlamaForCausalLM.forward(input_ids, labels)`: causal
 attention through the flash kernels, then the shifted, masked-mean
-cross entropy), and the paged decode / chunked-prefill forward passes
-the serving engine runs (over full-width or int8 KV pages), with tied
-or untied heads and the multi-LoRA projection hooks (`_lora`: q/k/v of
-every pass, o of the paged passes, gate/up/down of the MLP). Not ported (they
-raise): the KV-cache forward of generate(), sequence parallelism,
-recompute, and the pipeline model.
+cross entropy), with `LlamaConfig.recompute` (one non-reentrant
+`torch.utils.checkpoint` per decoder layer: the flash forward replays
+inside the backward); the KV-cache forward and `generate` (greedy or
+sampled; `use_jit=True` runs `models/generation.py::jit_generate` over a
+preallocated cache); and the paged decode / chunked-prefill forward
+passes the serving engine runs (over full-width or int8 KV pages), with
+tied or untied heads and the multi-LoRA projection hooks (`_lora`:
+q/k/v of every pass, o of the paged passes, gate/up/down of the MLP).
+Not ported (they raise): sequence parallelism and the pipeline model.
+
+The KV-cache forward takes per-layer (k, v) caches of (B, S, KVH, D),
+in one of two modes. Concatenated (`caches` alone, eager `generate`):
+the new K/V are appended, the rope rows start at the cache's length,
+and the result is the new cache. Fixed buffer (`caches` with
+`cache_pos`, `jit_generate`): K/V are written in place at `cache_pos`
+and the attention reads the written prefix `[:cache_pos + S]`, the
+reference's mask `kpos <= cache_pos + i` over the whole buffer being
+exactly bottom-right causal attention over that prefix. Either way the
+KV heads are repeated after the cache and the attention is causal when
+S > 1, so on the card every pass goes through the flash kernel.
 
 Parameters keep the reference's names and layouts (`Linear` weights are
 (in, out)), so `models/convert.py` moves a reference state dict across
@@ -18,7 +32,10 @@ target device (the card by default) from an explicit `torch.Generator`.
 Rounding note: the reference rotates q/k in fp32 and, for a bf16
 model, carries the fp32 result onward (bf16 * fp32 promotes). The port
 rotates in fp32 too but casts back to the model dtype, so a bf16 model
-runs bf16 activations end to end; at fp32 the two are the same.
+runs bf16 activations end to end; at fp32 the two are the same. For the
+same reason `generate`'s caches hold the model dtype, where the
+reference's eager caches start as fp32 zeros and promote a bf16 model's
+attention to fp32.
 """
 from __future__ import annotations
 
@@ -28,12 +45,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.fleet.utils import recompute
 from ..kernels.paged_attention import (paged_attention_decode,
                                        paged_cache_write,
                                        paged_cache_write_range)
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn.functional import (parallel_cross_entropy,
                              scaled_dot_product_attention, sdpa_ref, swiglu)
+from . import generation
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_3_8b", "llama_step_flops", "apply_rotary",
@@ -187,24 +206,35 @@ class LlamaAttention(nn.Module):
                 v.view(b, s, self.n_kv, self.head_dim))
 
     def forward(self, x, cos, sin, cache=None, cache_pos=None):
-        """Training / full-sequence forward: x (B, S, hidden), cos/sin
-        (S, D/2). KV heads are repeated to the query heads before the
-        attention, so autograd sums the gradient over the copies; the
-        attention is causal whenever S > 1."""
-        if cache is not None or cache_pos is not None:
-            raise NotImplementedError(
-                "the KV-cache forward of generate() is not ported to "
-                "paddle_tpu_torch; serve through ServingEngine")
+        """Full-sequence or KV-cache forward: x (B, S, hidden), cos/sin
+        (S, D/2) at the tokens' positions. With `cache` (k, v) of
+        (B, P, KVH, D): appended to (concatenated mode) or, with
+        `cache_pos`, written in place at cache_pos (fixed buffer). KV
+        heads are repeated to the query heads after the cache (autograd
+        sums the gradient over the copies); the attention is causal,
+        bottom-right aligned, whenever S > 1. Returns out, or (out,
+        cache) with a cache."""
         b, s, _ = x.shape
         q, k, v = self._qkv(x)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
+        if cache is not None and cache_pos is not None:
+            pk, pv = cache
+            pos = int(cache_pos)
+            pk[:, pos:pos + s] = k
+            pv[:, pos:pos + s] = v
+            k, v = pk[:, :pos + s], pv[:, :pos + s]
+        elif cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            cache = (k, v)
         if self.n_kv != self.n_heads:
             rep = self.n_heads // self.n_kv
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         out = scaled_dot_product_attention(q, k, v, is_causal=(s > 1))
-        return self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
+        out = self.o_proj(out.reshape(b, s, self.n_heads * self.head_dim))
+        return out if cache is None else (out, cache)
 
     def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
         """One decode step over the paged KV cache. x (B, 1, hidden);
@@ -290,9 +320,15 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, epsilon=config.rms_norm_eps, **kw)
         self.mlp = LlamaMLP(config, generator=generator, **kw)
 
-    def forward(self, x, cos, sin):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, cos, sin, cache=None, cache_pos=None):
+        h = self.input_layernorm(x)
+        if cache is None:
+            attn = self.self_attn(h, cos, sin)
+        else:
+            attn, cache = self.self_attn(h, cos, sin, cache, cache_pos)
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x if cache is None else (x, cache)
 
     def forward_paged(self, x, cos_b, sin_b, kv, block_tables, seq_lens):
         attn, kv = self.self_attn.forward_paged(
@@ -332,21 +368,32 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", sin, persistent=False)
 
     def forward(self, input_ids, caches=None, cache_pos=None):
-        """Full-sequence forward from position 0: input_ids (B, S) ->
-        final-norm hidden states (B, S, hidden)."""
-        if caches is not None or cache_pos is not None:
-            raise NotImplementedError(
-                "the KV-cache forward of generate() is not ported to "
-                "paddle_tpu_torch; serve through ServingEngine")
-        for flag in ("sequence_parallel", "recompute"):
-            if getattr(self.cfg, flag):
-                raise NotImplementedError(f"LlamaConfig.{flag}=True is not "
-                                          "ported to paddle_tpu_torch")
+        """input_ids (B, S) -> final-norm hidden states (B, S, hidden),
+        from position 0, or with per-layer `caches` from the cache's
+        length (concatenated) or `cache_pos` (fixed buffer; see the
+        module docstring), then (hidden, new caches). Under
+        `recompute` each decoder layer of a forward that records
+        gradients is checkpointed."""
+        if self.cfg.sequence_parallel:
+            raise NotImplementedError("LlamaConfig.sequence_parallel=True "
+                                      "is not ported to paddle_tpu_torch")
         s = input_ids.shape[1]
-        cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        if cache_pos is not None:
+            past = int(cache_pos)
+        else:
+            past = caches[0][0].shape[1] if caches is not None else 0
+        cos = self.rope_cos[past:past + s]
+        sin = self.rope_sin[past:past + s]
         x = self.embed_tokens(input_ids)
+        if caches is not None:
+            new_caches = []
+            for layer, cache in zip(self.layers, caches):
+                x, cache = layer(x, cos, sin, cache, cache_pos)
+                new_caches.append(cache)
+            return self.norm(x), new_caches
+        ckpt = self.cfg.recompute and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            x = recompute(layer, x, cos, sin) if ckpt else layer(x, cos, sin)
         return self.norm(x)
 
     def forward_paged_decode(self, input_ids, paged_caches, block_tables,
@@ -412,13 +459,18 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head(h)
 
     def forward(self, input_ids, labels=None, caches=None, cache_pos=None):
-        """Training forward. Without labels: logits (B, S, V). With
-        labels (B, S): the next-token loss — logits[:, :-1] against
-        labels[:, 1:], fp32 cross entropy, mean over the positions whose
-        label is not -100 (the reference's `_head_and_loss`)."""
-        logits = self._head(self.model(input_ids, caches, cache_pos))
+        """Without labels: logits (B, S, V), or (logits, new caches) with
+        `caches` (the KV-cache forward). With labels (B, S): the
+        next-token loss — logits[:, :-1] against labels[:, 1:], fp32
+        cross entropy, mean over the positions whose label is not -100
+        (the reference's `_head_and_loss`)."""
+        if caches is not None:
+            h, caches = self.model(input_ids, caches, cache_pos)
+        else:
+            h = self.model(input_ids)
+        logits = self._head(h)
         if labels is None:
-            return logits
+            return logits if caches is None else (logits, caches)
         shift_labels = labels[:, 1:]
         loss_t = parallel_cross_entropy(logits[:, :-1, :], shift_labels)
         valid = (shift_labels != -100).to(loss_t.dtype)
@@ -440,3 +492,54 @@ class LlamaForCausalLM(nn.Module):
         h, caches = self.model.forward_paged_prefill(
             input_ids, paged_caches, block_table, cache_len, chunk_len)
         return self._head(h[:, chunk_len - 1:chunk_len]), caches
+
+    # -------------------------------------------------------- generation
+    def _new_caches(self, batch, length=0):
+        """Per-layer (k, v) zeros of (batch, length, KVH, D) in the
+        model's dtype, on its device: empty for the concatenated mode,
+        the whole buffer for the fixed one."""
+        w = self.model.embed_tokens.weight
+        return [tuple(torch.zeros(batch, length, layer.self_attn.n_kv,
+                                  layer.self_attn.head_dim, dtype=w.dtype,
+                                  device=w.device) for _ in range(2))
+                for layer in self.model.layers]
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, use_jit=False,
+                 seed=None):
+        """Greedy (temperature 0) or sampled decode with a KV cache:
+        input_ids (B, S0) -> (B, S0 + max_new_tokens) on the model's
+        device. Once a row emits `eos_token_id` it emits only that; once
+        every row has, the rest is padded with it. Sampling draws its
+        noise from a `torch.Generator` on the model's device seeded with
+        `seed` (from torch's default generator when None).
+        `use_jit=True` runs `jit_generate` over a preallocated cache:
+        the same tokens."""
+        device = self.model.embed_tokens.weight.device
+        ids = torch.as_tensor(input_ids).to(device)
+        if use_jit:
+            return generation.jit_generate(
+                self, ids, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_token_id=eos_token_id, seed=seed)
+        gen = generation.make_generator(seed, device)
+        b = ids.shape[0]
+        logits, caches = self(ids, caches=self._new_caches(b))
+        out = [ids]
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        for i in range(max_new_tokens):
+            nxt = generation.next_token(logits[:, -1], temperature, top_k,
+                                        top_p, gen)
+            if eos_token_id is not None:
+                nxt = torch.where(done, eos_token_id, nxt)
+                done = done | (nxt == eos_token_id)
+            out.append(nxt.to(ids.dtype)[:, None])
+            if eos_token_id is not None and bool(done.all()):
+                out.append(torch.full((b, max_new_tokens - i - 1),
+                                      eos_token_id, dtype=ids.dtype,
+                                      device=device))
+                break
+            if i + 1 < max_new_tokens:
+                logits, caches = self(out[-1], caches=caches)
+        return torch.cat(out, dim=1)

@@ -5,7 +5,11 @@ the packed-sequence `flash_attn_unpadded` and `flashmask_attention`.
 `scaled_dot_product_attention` sends a call with no mask and no dropout
 to `kernels.flash_attention.flash_attention_bshd`. On the card that is
 every such call: the hand-written CUDA kernels mask ragged lengths, and
-a head dim or dtype they do not take raises there. On the CPU the
+a head dim or dtype they do not take raises there. The one exception is
+the caller's own: inside `sdp_kernel(enable_flash=False)` mask-free
+calls go to `sdpa_ref` on both devices, as in the reference (which also
+turns its packed entries below to their compositions there: not
+ported, they keep their kernels). On the CPU the
 dispatch is the reference's: the call goes to the flash entry (its plain
 versions) only when its shapes pass the reference's TPU rules
 (`check_supported`), else to `sdpa_ref`. A masked call goes to `sdpa_ref`
@@ -30,7 +34,9 @@ import torch
 from ...kernels import flash_attention as flash
 
 __all__ = ["sdpa_ref", "scaled_dot_product_attention", "flash_attention",
-           "flash_attn_unpadded", "flashmask_attention"]
+           "flash_attn_unpadded", "flashmask_attention", "sdp_kernel"]
+
+_USE_FLASH = [True]
 
 
 def sdpa_ref(q, k, v, mask=None, scale=None, causal=False):
@@ -71,7 +77,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """(B, S, H, D) attention: mask-free calls to the flash kernels on
     the card; the reference's dispatch on the CPU."""
     _refuse_dropout(dropout_p, training)
-    if attn_mask is None and dropout_p == 0.0:
+    if attn_mask is None and dropout_p == 0.0 and _USE_FLASH[0]:
         if query.is_cuda:
             return flash.flash_attention_bshd(query, key, value,
                                               causal=is_causal)
@@ -226,3 +232,25 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
                                               causal=causal)
     return sdpa_ref(query, key, value, _build_mask(idx, Sq, key.shape[1],
                                                    causal))
+
+
+class sdp_kernel:
+    """Context manager choosing SDPA's kernel: enable_flash=False sends
+    every mask-free `scaled_dot_product_attention` call inside it to
+    `sdpa_ref`, on the card too. `enable_math` and
+    `enable_mem_efficient` are accepted and change nothing, as in the
+    reference."""
+
+    def __init__(self, enable_flash=True, enable_math=True,
+                 enable_mem_efficient=True):
+        self.enable_flash = enable_flash
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = _USE_FLASH[0]
+        _USE_FLASH[0] = bool(self.enable_flash)
+        return self
+
+    def __exit__(self, *exc):
+        _USE_FLASH[0] = self._prev
+        return False

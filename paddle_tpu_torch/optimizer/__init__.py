@@ -1,3 +1,8 @@
-from .optimizer import AdamW, Optimizer
+from . import lr
+from .optimizer import (ASGD, LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
+                        AdamW, Lamb, Momentum, NAdam, Optimizer, RAdam,
+                        RMSProp, Rprop)
 
-__all__ = ["Optimizer", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adadelta", "Adamax", "RMSProp", "Lamb", "NAdam", "RAdam", "ASGD",
+           "Rprop", "LBFGS"]

@@ -19,6 +19,7 @@ from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import quant_matmul as qm
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn.quant import weight_quantize
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (AdapterRegistry, LoRAAdapter,
                                       ServingEngine)
@@ -1089,6 +1090,136 @@ def test_train_steps_on_card_match_cpu_and_run_the_kernels(card):
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=1e-4)
     assert losses["cuda"][-1] < losses["cuda"][0]
+
+
+# ----------------------------------------------- generate and recompute
+# the forward at generate's shapes (B*H, Sq, Sk, D, causal): decode steps
+# (one query row against a cache of 1 to 1025 keys, not causal, Sk not a
+# multiple of the ring's 128-key tile) and a prefill against a cached
+# prefix (Sq 13 < Sk 77, bottom-right causal)
+DECODE_FLASH_CASES = [(8, 1, 1, 128, False), (8, 1, 7, 128, False),
+                      (8, 1, 64, 128, False), (8, 1, 513, 128, False),
+                      (8, 1, 1025, 128, False), (6, 1, 513, 64, False),
+                      (4, 13, 77, 128, True)]
+
+
+@pytest.mark.parametrize("case", DECODE_FLASH_CASES, ids=str)
+def test_flash_forward_at_generate_shapes_matches_plain_version(card, case):
+    """bf16 on the wgmma forward (one more `sm90_launches`, and one more
+    `decode_launches` at Sq 1), fp32 on
+    flash_attention.cu, each against the plain version with
+    `flash_error`'s limits (bf16 relative 1e-2, fp32 1e-4 of the largest
+    value, the lse 1e-4); rows past Sq are never written."""
+    BH, Sq, Sk, D, causal = case
+    q, k, v, _ = _flash_inputs(BH, Sq, Sk, D, sum(case[:4]) + 5, card)
+    scale = 1.0 / np.sqrt(D)
+    for dt in (torch.bfloat16, torch.float32):
+        qq, kk, vv = (t.to(dt) for t in (q, k, v))
+        s0 = fa.flash_fwd.sm90_launches
+        d0 = fa.flash_fwd.decode_launches
+        out, lse = fa.flash_fwd(qq, kk, vv, scale, causal)
+        torch.cuda.synchronize()
+        assert fa.flash_fwd.sm90_launches == s0 + int(dt == torch.bfloat16)
+        assert fa.flash_fwd.decode_launches == \
+            d0 + int(dt == torch.bfloat16 and Sq == 1)
+        ref_out, ref_lse = fa.flash_fwd_ref(qq, kk, vv, scale, causal)
+        if dt == torch.bfloat16:
+            _close_rel(out, ref_out, 1e-2)
+        else:
+            _close(out, ref_out, 1e-4)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
+        assert out.shape == (BH, Sq, D) and lse.shape == (BH, Sq)
+
+
+TINY = dict(vocab_size=128, hidden_size=128, intermediate_size=256,
+            num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+            max_position_embeddings=128)
+
+
+def _tiny_llama(dev):
+    """The same seeded fp32 weights on either device (built on the CPU)."""
+    model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu",
+                             generator=torch.Generator().manual_seed(4))
+    return model.to(dev)
+
+
+def test_generate_on_card_matches_cpu(card):
+    """A tiny fp32 Llama's greedy generate (eager and use_jit) gives the
+    same tokens on the card as on the CPU; on the card every forward
+    pass launched the flash forward once per layer."""
+    rng = np.random.RandomState(6)
+    ids = torch.from_numpy(rng.randint(0, 128, (2, 24)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = _tiny_llama(dev)
+        n0 = fa.flash_fwd.launches
+        outs[dev] = [model.generate(ids, max_new_tokens=8,
+                                    use_jit=jit).cpu() for jit in (False,
+                                                                   True)]
+        if dev == "cuda":
+            assert fa.flash_fwd.launches - n0 == 2 * 8 * 2
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(a, b)
+    assert torch.equal(outs["cuda"][0], outs["cuda"][1])
+
+
+def test_fused_adamw_lr_ratio_buckets_bitwise_equal_per_parameter(card):
+    """Two lr_ratio groups: two fused buckets, two AdamW launches a step,
+    and three clipped steps bitwise equal to the per-parameter fp32
+    path."""
+    rng = np.random.RandomState(8)
+    shapes = [(96, 64), (64,), (64, 32), (32,)]
+    init = [rng.randn(*sh).astype(np.float32) for sh in shapes]
+    grads = [[rng.randn(*sh).astype(np.float32) for sh in shapes]
+             for _ in range(3)]
+    runs = {}
+    for fused in (True, False):
+        ps = [torch.nn.Parameter(torch.from_numpy(a).to(card)) for a in init]
+        first = id(ps[0])
+        opt = AdamW(1e-2, parameters=ps, fused=fused, weight_decay=0.05,
+                    lr_ratio=lambda p: 0.5 if id(p) == first else 1.0,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        n0 = fo.fused_adamw_bucket.launches
+        for step in grads:
+            for p, g in zip(ps, step):
+                p.grad = torch.from_numpy(g).to(card)
+            opt.step()
+        torch.cuda.synchronize()
+        if fused:
+            assert len(opt._fused_buckets) == 2
+            assert fo.fused_adamw_bucket.launches - n0 == 6
+        runs[fused] = ps
+    for a, b in zip(runs[True], runs[False]):
+        assert torch.equal(a, b), (a - b).abs().max()
+
+
+def test_recompute_on_card_matches_no_recompute(card):
+    """A tiny bf16 Llama (head_dim 64: the wgmma kernels) with
+    recompute: each layer's flash forward runs twice (the replay), dQ
+    and dK/dV once, all on the wgmma kernels; the loss and the
+    gradients match the run without recompute (relative 1e-3)."""
+    rng = np.random.RandomState(9)
+    ids = torch.from_numpy(rng.randint(0, 128, (2, 96))).to(card)
+    model = LlamaForCausalLM(LlamaConfig(**TINY), device=card,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator(card).manual_seed(4))
+    res = {}
+    for rc in (True, False):
+        model.cfg.recompute = rc
+        model.zero_grad(set_to_none=True)
+        n0 = [(f.launches, f.sm90_launches)
+              for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)]
+        loss = model(ids, labels=ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = [(f.launches - a, f.sm90_launches - b) for f, (a, b) in
+               zip((fa.flash_fwd, fa.flash_dq, fa.flash_dkv), n0)]
+        assert got == [(2 * (1 + rc),) * 2, (2, 2), (2, 2)]
+        res[rc] = (loss.float().item(),
+                   [p.grad.float().clone() for p in model.parameters()])
+    assert abs(res[True][0] - res[False][0]) <= 1e-3 * abs(res[False][0])
+    for a, b in zip(res[True][1], res[False][1]):
+        assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() <= 1e-3
 
 
 # ----------------------------------------- varlen and flashmask attention

@@ -102,14 +102,19 @@ def test_fused_adamw_trajectory_matches_reference(trajectory):
 
 
 def test_unported_training_options_raise():
+    """sequence_parallel is still refused; recompute and the KV-cache
+    forward (once refused here too) now run (tests/test_torch_recompute.py
+    and tests/test_torch_generate.py hold them against the reference)."""
     kw = dict(SMALL, num_hidden_layers=1)
     ids = torch.zeros(1, 8, dtype=torch.long)
-    for flag in ("sequence_parallel", "recompute"):
-        model = LlamaForCausalLM(LlamaConfig(**kw, **{flag: True}),
-                                 device="cpu")
-        with pytest.raises(NotImplementedError, match=flag):
-            model(ids)
+    model = LlamaForCausalLM(LlamaConfig(**kw, sequence_parallel=True),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        model(ids)
+    model = LlamaForCausalLM(LlamaConfig(**kw, recompute=True), device="cpu")
+    assert model(ids).shape == (1, 8, SMALL["vocab_size"])
     model = LlamaForCausalLM(LlamaConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="generate"):
-        model(ids, caches=[])
+    logits, caches = model(ids, caches=model._new_caches(1))
+    assert logits.shape == (1, 8, SMALL["vocab_size"])
+    assert caches[0][0].shape[1] == 8
     assert model(ids).shape == (1, 8, SMALL["vocab_size"])
