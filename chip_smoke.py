@@ -23,7 +23,39 @@ Phases, one JSON line each:
                max_new_tokens with finite logits, that the paged-decode
                kernel ran once per layer per decode launch, and that all
                pages return after reset_prefix_cache().
-  3b. generate — `LlamaForCausalLM.generate` on the same bf16 model: 4
+  3a. serve_multi — on the same bf16 model object, the same 16 requests,
+               schedule and grid with `decode_steps=4`: each launch runs
+               4 decode steps (sampling and the freeze masks on the
+               card) under torch.cuda.set_sync_debug_mode("error"), so
+               a host sync inside its K steps fails the phase. Checks
+               as in phase 3, and that the paged-decode launches counted
+               in the wrapper equal 32 layers x the K-loop iterations the
+               engine counted (decode_launch_steps). Reports decode
+               tokens/s and wall ms per launch and per token beside
+               phase 3's, and how many requests' tokens equal phase 3's
+               (bf16: not gated).
+  3b. serve_spec — two drains of the same 16 requests with spec_k=4:
+               (a) NgramProposer; (b) DraftModelProposer with the served
+               model as its own draft (its own 1536-page pool, 3.2 GB).
+               Checks verify launches ran, every request completes, both
+               pools end empty; in (b) drafts accepted, more than one
+               token a verify step, the draft's decode through the paged
+               kernel (counted). Reports acceptance, tokens a verify
+               step, verify ms a launch, agreement with phase 3 and, in
+               (b), the first rejected draft's logit margin.
+  3c. serve_resume — the 16 requests up front, stepped until one decodes
+               while another is mid-prefill; snapshot(), a json round
+               trip, vacate(), then ServingEngine.from_snapshot on the
+               same model and grid, drained. Checks every request
+               completes under its original id with its token count and
+               both engines end with zero pages; reports agreement with
+               phase 3.
+  3d. trace  — one serve drain with trace=True: every request's trace
+               holds its admission, prefill span(s), one decode span per
+               token after the first and its finish; export() writes
+               build/serve_trace.json, which json.load reads.
+               Reports the decode-step wall beside phase 3's.
+  3e. generate — `LlamaForCausalLM.generate` on the same bf16 model: 4
                prompts of 512 tokens (the first 512 of the first 4 serve
                prompts that long), 32 new tokens; greedy eager, greedy
                use_jit=True (the preallocated cache written in place),
@@ -230,7 +262,8 @@ Phases, one JSON line each:
                  main path calls it: 0 launches).
 Then the `{"kernels": [...]}` line (each row's `launches` its main path's
 count; the flash and AdamW rows also `launches_by_phase` for train,
-train_loop and generate), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
+train_loop and generate, the paged-decode row for serve, serve_multi and
+serve_spec), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
 with status 2 and prints no result.
 """
@@ -240,6 +273,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -417,6 +451,11 @@ FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128, True), (3, 72, 136, 64, True),
 # the serve phase's bf16 pool; serve_quant gets the same bytes of int8
 # pages
 SERVE_PAGES = 2048
+# serve_multi's decode steps a launch; serve_spec's drafts a step and its
+# draft model's pool (2 MB a page at Llama-3-8B's widths: 3.2 GB beside
+# the 4.3 GB serve pool); the trace phase's Chrome export
+SERVE_K, SPEC_K, DRAFT_PAGES = 4, 4, 1536
+TRACE_PATH = os.path.join("build", "serve_trace.json")
 # serve_lora: the registry's rank buckets and slots per bucket, and the
 # adapters (name, rank, payload) tagged round-robin with base rows
 LORA_BUCKETS, LORA_SLOTS = (8, 16), 4
@@ -528,21 +567,31 @@ def serve_prompts(seed: int, vocab: int):
             for n, m in zip(lens, news)]
 
 
-def serve_requests(eng, prompts, adapters=None):
+def decode_side_launches(eng) -> int:
+    """Decode-side launches so far: plain and multi-step decode launches
+    and speculative verify launches."""
+    c = eng.metrics.counters
+    return c["decode_launches"] + c["spec_steps"]
+
+
+def serve_requests(eng, prompts, adapters=None, capture_batches=True):
     """Drive `eng` with `prompts` (tagged with `adapters`, one LoRA
     adapter name or None per prompt): 8 up front, 8 once decoding has
     begun, until it drains. The first decode-only step after a live
     decode batch of >= 8 rows was captured (`capture_batch`) runs under
     torch.profiler and is reported on its own; the other steps' wall
-    times are summed by kind. Checks every request emitted exactly its
-    max_new_tokens with finite logits. Returns the serve line's fields,
-    the capture and the outputs in prompt order."""
+    times are summed by kind. With `capture_batches=False` nothing is
+    captured and the step after the first decode-only one (once all 16
+    are added) is the profiled one. Checks every request emitted exactly
+    its max_new_tokens with finite logits. Returns the serve line's
+    fields, the capture and the outputs in prompt order."""
     import torch
     tags = list(adapters or [None] * len(prompts))
     rids = [eng.add_request(p, max_new_tokens=m, adapter=a)
             for (p, m), a in zip(prompts[:8], tags)]
     late_added = False
     capture = None
+    armed = False           # the next step runs under the profiler
     profiled = None
     steps = 0
     wall = {"prefill_steps_s": 0.0, "mixed_steps_s": 0.0,
@@ -554,11 +603,11 @@ def serve_requests(eng, prompts, adapters=None):
             rids += [eng.add_request(p, max_new_tokens=m, adapter=a)
                      for (p, m), a in zip(prompts[8:], tags[8:])]
             late_added = True
-        before = eng.metrics.counters["decode_launches"]
+        before = decode_side_launches(eng)
         chunks_before = eng.metrics.counters["prefill_chunks"]
         # the first step after the capture runs under torch.profiler; it
         # is reported on its own and left out of the wall sums
-        profile_this = capture is not None and profiled is None
+        profile_this = armed and profiled is None
         ctx = (torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -567,7 +616,7 @@ def serve_requests(eng, prompts, adapters=None):
         with ctx as prof:
             emitted = eng.step()
         dt = time.perf_counter() - ts
-        decoded = eng.metrics.counters["decode_launches"] > before
+        decoded = decode_side_launches(eng) > before
         chunked = eng.metrics.counters["prefill_chunks"] > chunks_before
         if profile_this:
             profiled = profile_summary(
@@ -585,9 +634,12 @@ def serve_requests(eng, prompts, adapters=None):
         if steps > 2000:
             raise RuntimeError("engine did not drain")
         running = eng.scheduler.running
-        if (capture is None and late_added and decoded and not chunked
+        if not capture_batches:
+            armed = armed or (late_added and decoded and not chunked)
+        elif (capture is None and late_added and decoded and not chunked
                 and len(running) >= 8):
             capture = capture_batch(eng, running[:15])
+            armed = True
     serve_s = time.perf_counter() - t_serve
     c = eng.metrics.counters
     outs = [eng.requests[rid].output_ids for rid in rids]
@@ -597,7 +649,7 @@ def serve_requests(eng, prompts, adapters=None):
                                  f"tokens, wanted {m}")
     if c["requests_quarantined"] or c["engine_failures"]:
         raise AssertionError(f"non-finite logits: {c}")
-    if capture is None:
+    if capture_batches and capture is None:
         raise AssertionError("no decode batch was captured")
     step_ms = (wall["decode_steps_s"] / decode_only_steps * 1e3
                if decode_only_steps else None)
@@ -611,6 +663,8 @@ def serve_requests(eng, prompts, adapters=None):
               "prefill_tokens": c["prefill_tokens"],
               "generated_tokens": sum(len(o) for o in outs),
               "decode_launches": c["decode_launches"],
+              "decode_launch_steps": c["decode_launch_steps"],
+              "verify_launches": c["spec_steps"],
               "prefill_launches": c["prefill_chunks"],
               "decode_tokens": c["decode_tokens"], "serve_s": serve_s,
               **wall,
@@ -668,6 +722,309 @@ def phase_serve(seed: int):
     return ({"paged_attention_decode": launches}, capture,
             {"model": model, "prompts": prompts, "outs": outs,
              "pool_bytes": pool_bytes, "peak": peak, "fields": fields})
+
+
+def serve_engine(model, seed: int, **kw):
+    """A ServingEngine on the serve phase's grid (page 16, 2048 pages,
+    one batch bucket of 16)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, page_size=16, num_pages=SERVE_PAGES,
+                         batch_buckets=[16], seed=seed, **kw)
+
+
+def agreement(outs, ref) -> dict:
+    """How many requests' tokens equal `ref`'s, and where each other one
+    first differs."""
+    return {"identical_requests": sum(a == b for a, b in zip(outs, ref)),
+            "requests": len(ref),
+            "first_divergence": [_first_divergence(a, b)
+                                 for a, b in zip(outs, ref)]}
+
+
+def decode_walls(fields) -> dict:
+    """Decode-only steps' tokens/s and wall ms per launch and per token
+    (one decode-side launch a decode-only step)."""
+    tok = fields["decode_only_tokens"]
+    return {"decode_tokens_per_s": fields["decode_tokens_per_s"],
+            "decode_ms_per_launch": fields["decode_step_ms"],
+            "decode_ms_per_token": (fields["decode_steps_s"] * 1e3 / tok
+                                    if tok else None)}
+
+
+def _pages_left(eng) -> int:
+    eng.reset_prefix_cache()
+    if eng.allocator.num_used != 0:
+        raise AssertionError(f"{eng.allocator.num_used} pages leaked")
+    return eng.allocator.num_used
+
+
+def phase_serve_multi(served, seed: int):
+    """Multi-step decode on the serve phase's bf16 model: decode_steps=4
+    over the same 16 requests, schedule and grid. Every K-step launch
+    runs under torch.cuda.set_sync_debug_mode("error") (a host sync
+    inside its K steps raises and fails the engine); the paged-decode
+    launches counted in the wrapper must equal the layers times the
+    K-loop iterations the engine counted (decode_launch_steps)."""
+    import torch
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+
+    t0 = time.perf_counter()
+    model = served["model"]
+    cfg = model.cfg
+    eng = serve_engine(model, seed, decode_steps=SERVE_K)
+    cls = type(model)
+    inner = cls.forward_paged_decode_multi
+
+    def no_sync(self, *a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(self, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    cls.forward_paged_decode_multi = no_sync
+    try:
+        paged_attention_decode.launches = 0      # the main path starts
+        fields, _, outs = serve_requests(eng, served["prompts"],
+                                        capture_batches=False)
+        launches = paged_attention_decode.launches   # the path ended
+    finally:
+        cls.forward_paged_decode_multi = inner
+    steps = fields["decode_launch_steps"]
+    if not (launches > 0 and launches == steps * cfg.num_hidden_layers):
+        raise AssertionError(f"serve_multi paged_attention_decode launches "
+                             f"{launches} != {steps} K-loop iterations x "
+                             f"{cfg.num_hidden_layers} layers")
+    if not steps > fields["decode_launches"]:
+        raise AssertionError(f"no launch ran more than one step: {fields}")
+    serve = served["fields"]
+    emit({"phase": "serve_multi", "model": "llama_3_8b",
+          "dtype": "bfloat16", "layers": cfg.num_hidden_layers,
+          "decode_steps": SERVE_K, "multi_buckets": eng.multi_buckets,
+          "sync_debug_mode_in_launch": "error", **fields,
+          **decode_walls(fields),
+          "decode_tokens_per_launch_row":
+              eng.metrics.snapshot()["decode_tokens_per_launch"],
+          "slot_shortfall":
+              eng.metrics.counters["multi_decode_slot_shortfall"],
+          "paged_attention_decode_launches": launches,
+          "serve": decode_walls(serve),
+          "serve_device_ms": (serve["profiled_step"] or {}).get("device_ms"),
+          "tokens_vs_serve": agreement(outs, served["outs"]),
+          "pages_used_after_reset": _pages_left(eng),
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_serve_spec(served, seed: int):
+    """Speculative decoding on the serve phase's bf16 model, two drains
+    of the same 16 requests: (a) NgramProposer, spec_k=4; (b)
+    DraftModelProposer with the served model as its own draft (its own
+    1536-page pool). Checks verify launches ran, every request
+    completes, both pools end empty, and in (b) that drafts were
+    accepted, more than one token was emitted per verify step and the
+    draft's decode ran the paged kernel. In (b) the first rejected
+    draft's logit margin (the target's top logit minus the draft
+    token's, at that verify position) is read back once (one host read
+    per verify launch until a rejection shows)."""
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+    from paddle_tpu_torch.serving import DraftModelProposer, NgramProposer
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    model = served["model"]
+    cfg = model.cfg
+    accept = engine_mod._verify_accept
+    launches = {}
+    for kind in ("ngram", "draft"):
+        t0 = time.perf_counter()
+        proposer = (NgramProposer() if kind == "ngram" else
+                    DraftModelProposer(model, num_pages=DRAFT_PAGES,
+                                       page_size=16, batch_buckets=[16]))
+        eng = serve_engine(model, seed, proposer=proposer, spec_k=SPEC_K)
+        verify_s, margin = [], {}
+        run_verify = eng._run_verify
+
+        def timed(reqs, drafts):
+            ts = time.perf_counter()
+            try:
+                return run_verify(reqs, drafts)
+            finally:
+                verify_s.append(time.perf_counter() - ts)
+
+        def observed(lg, ids, dl, *a):
+            toks, n_acc, ok = accept(lg, ids, dl, *a)
+            if not margin:
+                n, d = n_acc.tolist(), dl.tolist()
+                b = next((i for i in range(len(d)) if n[i] < d[i]), None)
+                if b is not None:
+                    j = n[b]
+                    row = lg[b, j].float()
+                    top, draft = int(row.argmax()), int(ids[b, j + 1])
+                    margin.update(verify_launch=len(verify_s) + 1, row=b,
+                                  position=j, draft_token=draft,
+                                  target_token=top,
+                                  logit_margin=float(row[top] - row[draft]))
+            return toks, n_acc, ok
+
+        eng._run_verify = timed
+        if kind == "draft":
+            engine_mod._verify_accept = observed
+        try:
+            paged_attention_decode.launches = 0   # the main path starts
+            fields, _, outs = serve_requests(eng, served["prompts"],
+                                             capture_batches=False)
+            launches[kind] = paged_attention_decode.launches
+        finally:
+            engine_mod._verify_accept = accept
+        snap = eng.metrics.snapshot()
+        if not fields["verify_launches"] > 0:
+            raise AssertionError(f"serve_spec {kind}: no verify launch")
+        row = {"phase": f"serve_spec_{kind}", "model": "llama_3_8b",
+               "dtype": "bfloat16", "layers": cfg.num_hidden_layers,
+               "proposer": type(proposer).__name__, "spec_k": SPEC_K,
+               "spec_buckets": eng.spec_buckets, **fields,
+               **decode_walls(fields),
+               "spec_acceptance_rate": snap.get("spec_acceptance_rate"),
+               "spec_tokens_per_step": snap.get("spec_tokens_per_step"),
+               "spec_drafted_tokens": snap["spec_drafted_tokens"],
+               "spec_accepted_tokens": snap["spec_accepted_tokens"],
+               "spec_rollback_tokens": snap["spec_rollback_tokens"],
+               "spec_draft_oom_drops": snap["spec_draft_oom_drops"],
+               "verify_ms_per_launch": (sum(verify_s) / len(verify_s)
+                                        * 1e3),
+               "paged_attention_decode_launches": launches[kind],
+               "tokens_vs_serve": agreement(outs, served["outs"]),
+               "pages_used_after_reset": _pages_left(eng)}
+        if kind == "draft":
+            if not (snap["spec_accepted_tokens"] > 0
+                    and snap["spec_tokens_per_step"] > 1.0):
+                raise AssertionError(f"target-as-draft accepted nothing: "
+                                     f"{snap}")
+            if (proposer.disabled or proposer.num_propose_failures
+                    or not launches[kind] > 0):
+                raise AssertionError(f"the draft model did not decode: "
+                                     f"{proposer.disabled_reason!r}, "
+                                     f"{proposer.num_propose_failures} "
+                                     f"failed rounds, "
+                                     f"{launches[kind]} paged launches")
+            if proposer._states or proposer.allocator.num_used:
+                raise AssertionError(f"{proposer.allocator.num_used} draft "
+                                     f"pages leaked")
+            row.update(draft_pages=DRAFT_PAGES,
+                       draft_launches=proposer.num_draft_launches,
+                       draft_propose_failures=proposer.num_propose_failures,
+                       draft_pool_skips=proposer.num_pool_skips,
+                       draft_pages_used_after=proposer.allocator.num_used,
+                       first_rejection=margin or None)
+        row["seconds"] = time.perf_counter() - t0
+        emit(row)
+        del eng, proposer
+        gc.collect()
+    return launches
+
+
+def phase_serve_resume(served, seed: int):
+    """Snapshot and resume on the serve configuration: the 16 requests
+    step until one decodes while another is mid-prefill (a chunked
+    prompt); then snapshot(), a json round trip and vacate(), and
+    from_snapshot onto a fresh engine with the same model and grid,
+    drained. Checks every request completes under its original id with
+    its token count and both engines end with zero pages."""
+    from paddle_tpu_torch.serving import RequestState, ServingEngine
+
+    t0 = time.perf_counter()
+    model = served["model"]
+    prompts = served["prompts"]
+    eng = serve_engine(model, seed)
+    rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
+    steps = 0
+    while True:
+        eng.step()
+        steps += 1
+        states = [eng.requests[r] for r in rids]
+        decoding = sum(r.state is RequestState.DECODE for r in states)
+        mid_prefill = sum(r.state is RequestState.PREFILL
+                          and r.num_computed > 0 for r in states)
+        if decoding and mid_prefill:
+            break
+        if steps > 64:
+            raise AssertionError("no step had a request decoding and "
+                                 "one mid-prefill")
+    snap = json.loads(json.dumps(eng.snapshot(reason="serve_resume")))
+    freed = eng.vacate()
+    if eng.allocator.num_used != 0:
+        raise AssertionError(f"vacate left {eng.allocator.num_used} pages")
+    t1 = time.perf_counter()
+    res = ServingEngine.from_snapshot(model, snap, page_size=16,
+                                      num_pages=SERVE_PAGES,
+                                      batch_buckets=[16], seed=seed)
+    res.run()
+    resume_s = time.perf_counter() - t1
+    live = {r["request_id"] for r in snap["requests"]}
+    outs = []
+    for rid, (_, m) in zip(rids, prompts):
+        req = res.requests[rid] if rid in live else eng.requests[rid]
+        if len(req.output_ids) != m or req.request_id != rid:
+            raise AssertionError(f"request {rid} ended with "
+                                 f"{len(req.output_ids)} of {m} tokens")
+        outs.append(req.output_ids)
+    emit({"phase": "serve_resume", "model": "llama_3_8b",
+          "dtype": "bfloat16", "steps_before_snapshot": steps,
+          "snapshot_requests": len(snap["requests"]),
+          "snapshot_decoding": decoding, "snapshot_mid_prefill": mid_prefill,
+          "snapshot_json_bytes": len(json.dumps(snap)),
+          "pages_freed_by_vacate": freed,
+          "pages_used_after_vacate": eng.allocator.num_used,
+          "resume_drain_s": resume_s,
+          "requests_adopted": res.metrics.counters["requests_adopted"],
+          "tokens_vs_serve": agreement(outs, served["outs"]),
+          "pages_used_after_reset": _pages_left(res),
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_trace(served, seed: int):
+    """One serve drain with trace=True: every request's trace holds its
+    admission, prefill span(s), one decode span per token after the
+    first and its finish; export() writes Chrome JSON that json.load
+    reads back (build/serve_trace.json)."""
+    t0 = time.perf_counter()
+    model = served["model"]
+    eng = serve_engine(model, seed, trace=True)
+    fields, _, outs = serve_requests(eng, served["prompts"],
+                                     capture_batches=False)
+    tracer = eng.tracer
+    traces = tracer.traces()
+    if tracer.live or len(traces) != len(outs):
+        raise AssertionError(f"{len(tracer.live)} traces left live, "
+                             f"{len(traces)} of {len(outs)} recorded")
+    by_len = sorted(len(o) for o in outs)
+    got = sorted(t.count_spans("decode_step") + 1 for t in traces)
+    for tr in traces:
+        if not ("admitted" in tr.mark_names()
+                and tr.count_spans("prefill_chunk") >= 1
+                and tr.count_spans("decode_step") >= 1
+                and tr.finish_reason == "length"):
+            raise AssertionError(f"incomplete trace {tr!r}: "
+                                 f"{tr.mark_names()} {tr.span_names()[:8]}")
+    if got != by_len:
+        raise AssertionError(f"decode spans + 1 {got} != tokens {by_len}")
+    os.makedirs(os.path.dirname(TRACE_PATH), exist_ok=True)
+    tracer.export(TRACE_PATH, flight_recorder=eng.recorder)
+    with open(TRACE_PATH) as f:
+        doc = json.load(f)
+    if len(doc["requestTraces"]) != len(outs) or not doc["traceEvents"]:
+        raise AssertionError("the Chrome export does not hold the traces")
+    serve = served["fields"]
+    emit({"phase": "trace", "model": "llama_3_8b", "dtype": "bfloat16",
+          **fields, "traced_decode_ms_per_launch": fields["decode_step_ms"],
+          "serve_decode_ms_per_launch": serve["decode_step_ms"],
+          "trace_events": len(doc["traceEvents"]),
+          "export_bytes": os.path.getsize(TRACE_PATH),
+          "tokens_vs_serve": agreement(outs, served["outs"]),
+          "pages_used_after_reset": _pages_left(eng),
+          "seconds": time.perf_counter() - t0})
 
 
 def weight_bytes(model) -> int:
@@ -3246,6 +3603,18 @@ def main(argv=None) -> int:
     launches, capture, served = phase_serve(args.seed)
     gc.collect()                  # the bf16 engine goes; its model stays
     torch.cuda.empty_cache()
+    multi_launches = phase_serve_multi(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_launches = phase_serve_spec(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_resume(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_trace(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     gen_launches = phase_generate(served, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3275,6 +3644,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels = phase_kernels(capture, launches, args.seed, card)
     del capture
+    kernels[0]["launches_by_phase"] = {
+        "serve": launches["paged_attention_decode"],
+        "serve_multi": multi_launches,
+        "serve_spec": sum(spec_launches.values()),
+        "serve_spec_by_proposer": spec_launches}
     kernels += phase_flash_kernels(train_launches, args.seed, card)
     kernels.append(adamw_row)
     kernels.append(phase_decode_flash_kernel(

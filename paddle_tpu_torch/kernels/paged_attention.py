@@ -36,6 +36,7 @@ from . import build
 
 __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
            "paged_cache_write", "paged_cache_write_range",
+           "paged_cache_write_span",
            "alloc_paged_cache", "check_supported_paged", "paged_page_bytes",
            "quantize_kv", "KV_QMAX", "KV_SCALE_DTYPE", "paged_decode_plan",
            "paged_decode_splits", "KERNEL_SOURCE", "CUDA_GROUP_SIZES",
@@ -392,34 +393,22 @@ def paged_cache_write(k_cache, v_cache, k_new, v_new, block_tables,
                  at the same (page, head, slot) indices.
     Returns (k_cache, v_cache), plus (k_scale, v_scale) when given.
 
-    A bucket pad row carries write_pos -1; the reference drops it (an
-    out-of-bounds scatter offset), where a torch index of -1 would wrap
-    into the last slot. Here such a row is dropped by construction: it
-    rewrites slot 0 of pad page 0 (values and scale) with that slot's own
-    contents, so the cache is bitwise unchanged, with no host sync. Live
-    rows never address page 0 (the allocator never hands it out).
+    A bucket pad row carries write_pos -1, and a row frozen at its cap in
+    a multi-step decode launch writes one slot past its sequence, which
+    may lie past the block table; the reference drops both (an
+    out-of-bounds scatter offset, an out-of-range page id), where a
+    torch index would wrap or clamp into a live slot. Here such a row is
+    dropped by construction: it rewrites slot 0 of pad page 0 (values
+    and scale) with that slot's own contents, so the cache is bitwise
+    unchanged, with no host sync. Live rows never address page 0 (the
+    allocator never hands it out). This is `paged_cache_write_span` at
+    one position a row.
     """
-    num_pages, KVH, page_size, D = k_cache.shape
     pos = write_pos.long()
-    dead = pos < 0
-    P = block_tables.shape[1]
-    page_idx = torch.clamp(torch.div(pos, page_size, rounding_mode="floor"),
-                           0, P - 1)
-    pages = block_tables.long().gather(1, page_idx[:, None])[:, 0]
-    pages = torch.where(dead, torch.zeros_like(pages), pages)
-    off = torch.where(dead, torch.zeros_like(pos), pos % page_size)
-    heads = torch.arange(KVH, device=k_cache.device)
-    idx = (pages[:, None], heads[None, :], off[:, None])
-    for cache, new, scale in ((k_cache, k_new, k_scale),
-                              (v_cache, v_new, v_scale)):
-        vals, sc = _maybe_quantize(cache, new, scale)
-        cache[idx] = torch.where(dead[:, None, None], cache[0, :, 0][None],
-                                 vals)
-        if sc is not None:
-            scale[idx] = torch.where(dead[:, None], scale[0, :, 0][None], sc)
-    if k_scale is None:
-        return k_cache, v_cache
-    return k_cache, v_cache, k_scale, v_scale
+    return paged_cache_write_span(k_cache, v_cache, k_new[:, None],
+                                  v_new[:, None], block_tables,
+                                  torch.ones_like(pos), pos,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_cache_write_range(k_cache, v_cache, k_new, v_new, block_table,
@@ -459,6 +448,60 @@ def paged_cache_write_range(k_cache, v_cache, k_new, v_new, block_table,
         cache[idx] = vals
         if sc is not None:
             scale[idx] = sc
+    if k_scale is None:
+        return k_cache, v_cache
+    return k_cache, v_cache, k_scale, v_scale
+
+
+def paged_cache_write_span(k_cache, v_cache, k_new, v_new, block_tables,
+                           lengths, starts, k_scale=None, v_scale=None):
+    """Write a BATCH of short spans' K/V into the paged cache, IN PLACE
+    — the speculative verify write: every row lands its [last emitted
+    token, draft_1..draft_K] K/V in one index write.
+
+    k_new/v_new:  (B, S, KVH, D) — row b holds positions
+                  starts[b]..starts[b]+S-1.
+    block_tables: (B, max_pages) int32 — per-sequence page ids.
+    lengths:      (B,) — live tokens of each row's span (1 + its draft
+                  length); positions from lengths[b] on are bucket
+                  padding.
+    starts:       (B,) — absolute position of k_new[b, 0] (seq_len - 1:
+                  the first input token rewrites its own slot, so a
+                  retried launch is bitwise idempotent; int8 quantizes
+                  on write, deterministically).
+    k/v_scale:    optional fp32 scale pages of int8 caches.
+    Returns (k_cache, v_cache), plus (k_scale, v_scale) when given.
+
+    Padding positions, a pad row's (which starts at -1) and positions
+    past the block table are dropped: each rewrites slot 0 of pad page
+    0 (values and scale) with that slot's own contents, so page 0 stays
+    bitwise unchanged whatever the duplicates, with no host sync — where
+    the reference scatters pad values into page 0 (never read unmasked
+    either way) and drops out-of-range ones.
+    """
+    num_pages, KVH, page_size, D = k_cache.shape
+    B, S = k_new.shape[:2]
+    P = block_tables.shape[1]
+    dev = k_cache.device
+    t = torch.arange(S, device=dev)[None, :]
+    pos = t + starts.long()[:, None]                           # (B, S)
+    dead = ((t >= lengths.long()[:, None]) | (pos < 0)
+            | (pos >= P * page_size))
+    page_idx = torch.clamp(torch.div(pos, page_size, rounding_mode="floor"),
+                           0, P - 1)
+    pages = block_tables.long().gather(1, page_idx)
+    pages = torch.where(dead, torch.zeros_like(pages), pages)
+    off = torch.where(dead, torch.zeros_like(pos), pos % page_size)
+    heads = torch.arange(KVH, device=dev)
+    idx = (pages[:, :, None], heads[None, None, :], off[:, :, None])
+    for cache, new, scale in ((k_cache, k_new, k_scale),
+                              (v_cache, v_new, v_scale)):
+        vals, sc = _maybe_quantize(cache, new, scale)
+        cache[idx] = torch.where(dead[:, :, None, None],
+                                 cache[0, :, 0][None, None], vals)
+        if sc is not None:
+            scale[idx] = torch.where(dead[:, :, None],
+                                     scale[0, :, 0][None, None], sc)
     if k_scale is None:
         return k_cache, v_cache
     return k_cache, v_cache, k_scale, v_scale

@@ -10,7 +10,12 @@ sampled; `use_jit=True` runs `models/generation.py::jit_generate` over a
 preallocated cache); and the paged decode / chunked-prefill forward
 passes the serving engine runs (over full-width or int8 KV pages), with
 tied or untied heads and the multi-LoRA projection hooks (`_lora`:
-q/k/v of every pass, o of the paged passes, gate/up/down of the MLP).
+q/k/v of every pass, o of the paged passes, gate/up/down of the MLP);
+the multi-step decode launch (`forward_paged_decode_multi`: K decode
+steps with sampling and per-row freeze masks on the card, no host sync
+inside) and the speculative verify forward (`forward_paged_verify`:
+1 + K tokens a row, logits at every position, attention over the
+gathered paged prefix as in the chunked prefill).
 Not ported (they raise): sequence parallelism and the pipeline model.
 
 The KV-cache forward takes per-layer (k, v) caches of (B, S, KVH, D),
@@ -48,7 +53,8 @@ from ..device import resolve_device
 from ..distributed.fleet.utils import recompute
 from ..kernels.paged_attention import (paged_attention_decode,
                                        paged_cache_write,
-                                       paged_cache_write_range)
+                                       paged_cache_write_range,
+                                       paged_cache_write_span)
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn.functional import (parallel_cross_entropy,
                              scaled_dot_product_attention, sdpa_ref, swiglu)
@@ -56,7 +62,7 @@ from . import generation
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_3_8b", "llama_step_flops", "apply_rotary",
-           "apply_rotary_positions"]
+           "apply_rotary_positions", "apply_rotary_spans"]
 
 
 @dataclass
@@ -138,6 +144,13 @@ def apply_rotary(x, cos, sin):
 def apply_rotary_positions(x, cos_b, sin_b):
     """x (B, 1, H, D); cos_b/sin_b (B, D/2) at each row's own position."""
     return _rotate(x, cos_b[:, None, None, :], sin_b[:, None, None, :])
+
+
+def apply_rotary_spans(x, cos_bs, sin_bs):
+    """x (B, S, H, D); cos_bs/sin_bs (B, S, D/2) at each row's own span
+    of positions (the verify step: 1 + K tokens a row, each row at its
+    own offset)."""
+    return _rotate(x, cos_bs[:, :, None, :], sin_bs[:, :, None, :])
 
 
 def _split_kv(kv):
@@ -290,6 +303,46 @@ class LlamaAttention(nn.Module):
         out = out.reshape(b, s, self.n_heads * self.head_dim)
         return _lora("o_proj", out, self.o_proj(out)), kv
 
+    def forward_paged_verify(self, x, cos_bs, sin_bs, kv, block_tables,
+                             seq_lens, draft_lens):
+        """One speculative VERIFY step: each row scores 1 + K tokens (its
+        last emitted token and K drafts) against its own paged prefix.
+        x (B, S, hidden): row b's tokens at positions seq_lens[b]-1
+        onward, the first 1 + draft_lens[b] live (the rest K-bucket
+        padding); cos_bs/sin_bs (B, S, D/2) the rope rows there;
+        block_tables (B, P); seq_lens (B,) counts through the FIRST
+        input token (the `forward_paged` convention). Writes every live
+        position's K/V (`paged_cache_write_span`, idempotent at
+        seq_lens-1; quantized on write for int8), then attends over the
+        gathered pages (dequantized in the gather for int8), KV heads
+        repeated as in the prefill, under the mask kpos <= (seq_lens-1)
+        + j. A pad row's seq_len 0 would mask its whole first row; its
+        query positions are clamped at 0 so it stays finite (its output
+        is discarded). Returns (out, kv)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        q = apply_rotary_spans(q, cos_bs, sin_bs)
+        k = apply_rotary_spans(k, cos_bs, sin_bs)
+        kc, vc, ks, vs = _split_kv(kv)
+        paged_cache_write_span(kc, vc, k, v, block_tables, draft_lens + 1,
+                               seq_lens - 1, k_scale=ks, v_scale=vs)
+        kd = _gather_kv(kc, block_tables, self.n_kv, self.head_dim, b,
+                        scale=ks, cdt=q.dtype)
+        vd = _gather_kv(vc, block_tables, self.n_kv, self.head_dim, b,
+                        scale=vs, cdt=q.dtype)
+        if self.n_kv != self.n_heads:
+            rep = self.n_heads // self.n_kv
+            kd = kd.repeat_interleave(rep, dim=2)
+            vd = vd.repeat_interleave(rep, dim=2)
+        sk = kd.shape[1]
+        qpos = (seq_lens.long()[:, None] - 1
+                + torch.arange(s, device=x.device)[None, :]).clamp_min(0)
+        kpos = torch.arange(sk, device=x.device)
+        mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+        out = sdpa_ref(q, kd, vd, mask)
+        out = out.reshape(b, s, self.n_heads * self.head_dim)
+        return _lora("o_proj", out, self.o_proj(out)), kv
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
@@ -343,6 +396,15 @@ class LlamaDecoderLayer(nn.Module):
         attn, kv = self.self_attn.forward_paged_prefill(
             self.input_layernorm(x), cos_c, sin_c, kv, block_table,
             cache_len, chunk_len)
+        x = x + attn
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x, kv
+
+    def forward_paged_verify(self, x, cos_bs, sin_bs, kv, block_tables,
+                             seq_lens, draft_lens):
+        attn, kv = self.self_attn.forward_paged_verify(
+            self.input_layernorm(x), cos_bs, sin_bs, kv, block_tables,
+            seq_lens, draft_lens)
         x = x + attn
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, kv
@@ -431,6 +493,25 @@ class LlamaModel(nn.Module):
                                                chunk_len)
         return self.norm(x), paged_caches
 
+    def forward_paged_verify(self, input_ids, paged_caches, block_tables,
+                             seq_lens, draft_lens):
+        """One speculative VERIFY step. input_ids (B, S): row b's [last
+        emitted token, drafts] at positions seq_lens[b]-1 onward (first
+        1 + draft_lens[b] live); positions off the rope table (pad rows,
+        padded tails) are clipped to it (those rows are masked or
+        discarded). Returns (hidden (B, S, H), paged_caches)."""
+        s = input_ids.shape[1]
+        pos = (seq_lens.long()[:, None] - 1
+               + torch.arange(s, device=input_ids.device)[None, :])
+        pos = pos.clamp(0, self.rope_cos.shape[0] - 1)
+        cos_bs, sin_bs = self.rope_cos[pos], self.rope_sin[pos]
+        x = self.embed_tokens(input_ids)
+        for layer, kv in zip(self.layers, paged_caches):
+            x, _ = layer.forward_paged_verify(x, cos_bs, sin_bs, kv,
+                                              block_tables, seq_lens,
+                                              draft_lens)
+        return self.norm(x), paged_caches
+
 
 class LlamaForCausalLM(nn.Module):
     """Causal LM over `LlamaModel`. Built on `device` (the card unless
@@ -492,6 +573,70 @@ class LlamaForCausalLM(nn.Module):
         h, caches = self.model.forward_paged_prefill(
             input_ids, paged_caches, block_table, cache_len, chunk_len)
         return self._head(h[:, chunk_len - 1:chunk_len]), caches
+
+    def forward_paged_verify(self, input_ids, paged_caches, block_tables,
+                             seq_lens, draft_lens):
+        """Serving verify step: paged-KV transformer over 1 + K tokens a
+        row and the LM head at EVERY position (position j's logits score
+        draft j+1 and give the correction or bonus token).
+        Returns (logits (B, S, V), paged_caches)."""
+        h, caches = self.model.forward_paged_verify(
+            input_ids, paged_caches, block_tables, seq_lens, draft_lens)
+        return self._head(h), caches
+
+    def forward_paged_decode_multi(self, input_ids, paged_caches,
+                                   block_tables, seq_lens, step_caps,
+                                   eos_ids, noise=None, *, k_steps,
+                                   temperature=0.0, top_k=0, top_p=1.0):
+        """K decode steps in ONE launch: `k_steps` calls of
+        `forward_paged_decode` with sampling on the device, so a launch
+        emits up to K tokens a row for one host round trip.
+
+        input_ids (B,) — each row's last emitted token; seq_lens (B,)
+        counts through it (the `forward_paged_decode` convention);
+        step_caps (B,) — tokens row b may emit (0 marks a pad row);
+        eos_ids (B,) — per-row EOS (-1 for none); noise — (K, B, V)
+        Gumbel noise drawn by the caller before the launch (None for
+        greedy), one block per step, so a retried launch replays bit for
+        bit.
+
+        Freeze masks: a row stops once it hits its cap, its EOS or
+        non-finite logits on a live step. A frozen row stays in the
+        batch at a fixed (ids, seq_len), rewriting the same token's K/V
+        at the same slot every remaining step, and emits -1. The loop
+        runs all K steps and reads nothing back: tokens, counts and
+        flags stay on the device until the caller's one copy.
+
+        Returns (tokens (B, K) int64, -1 past each row's finish; n_emit
+        (B,) int32; ok (B,) bool, False iff a live step of that row had
+        non-finite logits; paged_caches)."""
+        ids = input_ids.reshape(-1).long()
+        sl = seq_lens.to(torch.int32)
+        caps = step_caps.to(torch.int32)
+        eos = eos_ids.long()
+        active = caps > 0
+        n_emit = torch.zeros_like(sl)
+        ok = torch.ones_like(active)
+        minus1 = torch.full_like(ids, -1)
+        toks = []
+        for j in range(int(k_steps)):
+            logits, _ = self.forward_paged_decode(ids[:, None], paged_caches,
+                                                  block_tables, sl)
+            rows = logits[:, 0]
+            fin = torch.isfinite(rows).all(dim=-1)
+            tok = generation._sample(rows, temperature, top_k, top_p,
+                                     None if noise is None else noise[j])
+            emit = active & fin
+            # non-finite logits on a LIVE step poison the row; a frozen
+            # row's logits are discarded
+            ok = ok & (fin | ~active)
+            toks.append(torch.where(emit, tok, minus1))
+            n_emit = n_emit + emit.to(torch.int32)
+            hit_eos = emit & (eos >= 0) & (tok == eos)
+            active = emit & ~hit_eos & (n_emit < caps)
+            ids = torch.where(emit, tok, ids)
+            sl = sl + emit.to(torch.int32)
+        return torch.stack(toks, dim=1), n_emit, ok, paged_caches
 
     # -------------------------------------------------------- generation
     def _new_caches(self, batch, length=0):

@@ -1,21 +1,26 @@
 """Serving stack of the port: engine, scheduler, paged KV bookkeeping,
-multi-LoRA adapters."""
+multi-LoRA adapters, speculative decoding, request tracing."""
 from .engine import ServingEngine
 from .errors import (EngineFailure, EngineOverloaded, PoisonedComputation,
-                     TransientDeviceError, UnsupportedFeature)
+                     SnapshotVersionError, TransientDeviceError,
+                     UnsupportedFeature)
 from .kv_cache import PAD_PAGE, BlockAllocator, BlocksExhausted, KVSequence
 from .lora import (AdapterBusy, AdapterError, AdapterLoadError,
                    AdapterNotLoaded, AdapterRegistry, LoRAAdapter,
                    LoRALayout)
 from .radix_cache import RadixCache
 from .scheduler import Request, RequestState, Scheduler
+from .spec import DraftModelProposer, NgramProposer, Proposer
 from .supervisor import RetryPolicy, StepSupervisor, classify_failure
+from .trace import FlightRecorder, RequestTrace, RequestTracer
 
 __all__ = ["ServingEngine", "EngineFailure", "EngineOverloaded",
            "PoisonedComputation", "TransientDeviceError",
-           "UnsupportedFeature", "PAD_PAGE", "BlockAllocator",
-           "BlocksExhausted", "KVSequence", "RadixCache", "Request",
-           "RequestState", "Scheduler", "RetryPolicy", "StepSupervisor",
-           "classify_failure", "LoRAAdapter", "AdapterRegistry",
-           "LoRALayout", "AdapterError", "AdapterNotLoaded",
-           "AdapterLoadError", "AdapterBusy"]
+           "SnapshotVersionError", "UnsupportedFeature", "PAD_PAGE",
+           "BlockAllocator", "BlocksExhausted", "KVSequence", "RadixCache",
+           "Request", "RequestState", "Scheduler", "RetryPolicy",
+           "StepSupervisor", "classify_failure", "LoRAAdapter",
+           "AdapterRegistry", "LoRALayout", "AdapterError",
+           "AdapterNotLoaded", "AdapterLoadError", "AdapterBusy",
+           "Proposer", "NgramProposer", "DraftModelProposer",
+           "RequestTrace", "RequestTracer", "FlightRecorder"]

@@ -1,10 +1,9 @@
 """ServingEngine: continuous-batching inference over the paged-KV kernel
-(port of `paddle_tpu/serving/engine.py`, single-card plain-decode
-slice).
+(port of `paddle_tpu/serving/engine.py`, single card).
 
 Scheduling, block-based KV management and the radix prefix cache run on
 the host (scheduler.py / kv_cache.py / radix_cache.py); device work is
-two kinds of eager launches, each padded to a shape bucket exactly as
+four kinds of eager launches, each padded to a shape bucket exactly as
 the reference pads its compiled programs, so shapes match the reference
 and a bucket can later be captured as one CUDA graph:
 
@@ -19,12 +18,47 @@ and a bucket can later be captured as one CUDA graph:
     step through `model.forward_paged_decode` — per-row rope, the
     current token's `paged_cache_write`, the paged-decode CUDA kernel
     over the block tables — plus sampling of the live rows.
+  * MULTI_DECODE (`decode_steps=K`), bucketed by (B, K, P): K decode
+    steps in one launch (`model.forward_paged_decode_multi`) with
+    sampling on the device and per-row EOS / cap / finiteness freeze
+    masks; the seq_lens advance on the device and nothing is read back
+    until the launch's one copy of (tokens, counts, flags). Greedy
+    output equals K=1's; the scheduler charges the token budget xK;
+    abort/TTL take effect at the next K boundary with the launch's
+    tokens delivered; NaN quarantine is per launch (a poisoned row
+    delivers none of the launch's tokens).
+  * VERIFY (`proposer=`), bucketed by (B, K, P): each row scores its
+    last emitted token plus up to K drafted tokens in one
+    `model.forward_paged_verify` (attention over the gathered paged
+    prefix, as in the chunked prefill); acceptance is resolved on the
+    device — greedy longest-prefix match, or for temperature > 0 the
+    reference's rule for a one-hot proposal (accept draft d iff
+    u < p(d), else sample p with d removed) — and rejected drafts' pages
+    roll back through `BlockAllocator.truncate_sequence`. Greedy output
+    equals plain decode's. Proposers: `serving.spec.NgramProposer` and
+    `DraftModelProposer` (its own paged pool, driven through the same
+    prefill-chunk and paged-decode forwards).
 
 Resilience: per-request deadlines and `abort()` take effect at the next
 iteration boundary in any state; the waiting queue is bounded
 (`EngineOverloaded`); every launch runs under a `StepSupervisor` that
 retries transient device errors, NaN/Inf logits quarantine only their
-own request, and anything else fails the engine (`EngineFailure`).
+own request, and anything else drains the engine to a JSON-safe
+snapshot and raises `EngineFailure(snapshot=...)`. `snapshot()` /
+`vacate()` / `ServingEngine.from_snapshot()` / `adopt_requests()` move
+the live requests (queued, mid-prefill, decoding, preempted, with drafts
+in flight) to a fresh engine: a resumed request re-prefills its prompt
+plus what it generated, so greedy continuations equal an uninterrupted
+run under the same buckets. The snapshot records use the reference's
+keys and types, with one difference: `rng_key` holds the engine's
+`torch.Generator` state (`get_state()`, as a list of byte values) and
+`from_snapshot` restores it (a generator of the same device type).
+
+Tracing: `trace=True` builds a private `RequestTracer` (`trace_ring`
+completed traces), a tracer object is shared; with `trace=None` every
+hook is one `is None` check and nothing trace-related is allocated.
+The flight recorder (`flight_recorder_steps` non-idle step records)
+is always on and rides every snapshot.
 
 Determinism: greedy decode is deterministic and, given the same shape
 buckets, a request's tokens do not depend on what it is batched with
@@ -34,11 +68,11 @@ so a retried launch replays bit-identically.
 
 Quantized serving: `kv_dtype="int8"` keeps every layer's K/V pages as
 int8 with fp32 per-slot scale pages (quantized on write, dequantized by
-the paged-decode kernel's int8 variant and by the prefill gather), so a
-`kv_pool_bytes` budget holds ~1.94x the pages; `wq="int8"` / `"int4"`
-converts the model's MLP and LM-head linears in place to weight-only
-quantized ones before the first launch (`nn.quant.quantize_for_serving`;
-int8 runs the dequant-matmul kernel).
+the paged-decode kernel's int8 variant and by the prefill and verify
+gathers), so a `kv_pool_bytes` budget holds ~1.94x the pages;
+`wq="int8"` / `"int4"` converts the model's MLP and LM-head linears in
+place to weight-only quantized ones before the first launch
+(`nn.quant.quantize_for_serving`; int8 runs the dequant-matmul kernel).
 
 Multi-LoRA serving: pass `lora` (a `serving.lora.AdapterRegistry` built
 for this model's dims on the engine's device) and tag requests with
@@ -46,20 +80,23 @@ for this model's dims on the engine's device) and tag requests with
 registry's pools (refcount pinning, LRU eviction of idle adapters); each
 launch gathers the loaded adapters into per-rank-bucket slot stacks and
 the model's projection hooks add every row's OWN adapter delta through
-the LoRA kernels, so rows of one launch may mix adapters. Radix keys are
-namespaced by (adapter, load generation): prefixes never cross adapters.
+the LoRA kernels, so rows of one launch may mix adapters (multi-step
+decode included: the scope spans the whole K-step launch). Radix keys
+are namespaced by (adapter, load generation): prefixes never cross
+adapters. Snapshot records carry the adapter.
 
-Refused for now (`UnsupportedFeature`): speculative decoding
-(`proposer`), `decode_steps > 1`, tensor parallelism (`mesh`), the
-host spill tier, disaggregated roles, the persistent compile cache and
-per-request tracing. Snapshot and resume are not ported: a failed engine
-raises `EngineFailure` with no snapshot.
+Feature pairs the reference refuses raise `UnsupportedFeature` with the
+reference's reasons (`errors.FEATURE_CONFLICTS`). Not ported yet
+(`UnsupportedFeature`): tensor parallelism (`mesh`), the host spill
+tier, disaggregated roles and the persistent compile cache; nor the
+fleet's prefix export/adopt/release.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -69,33 +106,80 @@ from ..device import resolve_device
 from ..kernels.paged_attention import (alloc_paged_cache,
                                        check_supported_paged,
                                        paged_page_bytes)
-from ..models.generation import _sample, sample_noise
+from ..models.generation import _filter_logits, _sample, sample_noise
 from ..nn.quant import quantize_for_serving
 from ..utils import faults
-from .errors import EngineFailure, EngineOverloaded, UnsupportedFeature
-from .kv_cache import PAD_PAGE, BlockAllocator
+from .errors import (EngineFailure, EngineOverloaded, SnapshotVersionError,
+                     UnsupportedFeature, check_feature_conflicts)
+from .kv_cache import PAD_PAGE, BlockAllocator, BlocksExhausted
 from .metrics import ServingMetrics
 from .lora.adapter import AdapterNotLoaded
 from .lora.runtime import build_context, lora_scope
 from .lora.store import AdapterRegistry
 from .radix_cache import RadixCache
-from .scheduler import Request, RequestState, Scheduler
+from .scheduler import (Request, RequestState, Scheduler,
+                        bump_request_counter)
 from .supervisor import POISON, RetryPolicy, StepSupervisor, classify_failure
-from .trace import FlightRecorder
+from .trace import FlightRecorder, RequestTracer
 
-__all__ = ["ServingEngine"]
+__all__ = ["ServingEngine", "SNAPSHOT_VERSION", "SNAPSHOT_MINOR",
+           "check_snapshot_version", "MAX_DECODE_STEPS"]
 
 _engine_counter = itertools.count()
 
+# the timer of the per-launch TPOT samples; tests pin launch durations
+# by replacing this module attribute
+_perf_counter = time.perf_counter
+
+# Snapshot schema: a MAJOR `version` this build would misread is refused
+# (SnapshotVersionError); a same-major snapshot from a newer `minor`
+# (extra keys) is accepted with a warning. Minor 2 added the request
+# records' "adapter", minor 3 their "colocate" flag (the reference's).
+SNAPSHOT_VERSION = 1
+SNAPSHOT_MINOR = 3
+_SNAPSHOT_KNOWN_KEYS = frozenset(
+    {"version", "minor", "reason", "rng_key", "requests",
+     "flight_recorder"})
+
+
+def check_snapshot_version(snapshot: dict):
+    """Refuse a snapshot whose schema `version` is not the one this
+    build writes (`SnapshotVersionError`); warn and ignore unknown keys
+    of a same-major snapshot from a newer minor."""
+    found = snapshot.get("version")
+    if found != SNAPSHOT_VERSION:
+        raise SnapshotVersionError(
+            f"unsupported snapshot version {found!r} (this build "
+            f"writes {SNAPSHOT_VERSION})",
+            found=found, expected=SNAPSHOT_VERSION)
+    minor = snapshot.get("minor", 0)
+    extra = sorted(set(snapshot) - _SNAPSHOT_KNOWN_KEYS)
+    if extra or (isinstance(minor, int) and minor > SNAPSHOT_MINOR):
+        warnings.warn(
+            f"snapshot from a newer same-major build (minor {minor!r} "
+            f"vs {SNAPSHOT_MINOR}); ignoring unknown keys {extra}",
+            RuntimeWarning, stacklevel=2)
+
+
 # Fault-injection points. The step-exception points fire BEFORE the
 # launch, so an injected transient retries the identical launch;
-# nan_logits poisons the per-row finiteness flags AFTER the launch;
-# deadline_storm returns seconds of forward clock skew applied at the
-# next boundary.
+# nan_logits poisons the per-row finiteness flags AFTER the launch (the
+# decode, multi-step decode and verify launches alike); deadline_storm
+# returns seconds of forward clock skew applied at the next boundary;
+# draft_storm replaces the proposer's drafts with its payload
+# (callable(reqs, k) -> drafts, or True for seeded garbage), which must
+# leave greedy output unchanged.
 FAULT_CHUNK = faults.register_point("serving.engine.prefill_chunk")
 FAULT_DECODE = faults.register_point("serving.engine.decode_step")
 FAULT_NAN = faults.register_point("serving.engine.nan_logits")
 FAULT_STORM = faults.register_point("serving.engine.deadline_storm")
+FAULT_VERIFY = faults.register_point("serving.engine.verify_step")
+FAULT_DRAFT = faults.register_point("serving.spec.draft_storm")
+FAULT_MULTI = faults.register_point("serving.engine.multi_decode_step")
+
+# Ceiling on decode_steps (K), the reference's: a launch runs K decode
+# steps back to back with nothing read back in between
+MAX_DECODE_STEPS = 64
 
 
 def _bucket_for(value: int, buckets: List[int]) -> int:
@@ -114,22 +198,14 @@ def _pow2_buckets(lo: int, hi: int) -> List[int]:
     return out
 
 
-def _refuse_unported(*, proposer, decode_steps, host_spill_pages, mesh,
-                     role, compile_cache, trace):
+def _refuse_unported(*, host_spill_pages, mesh, role, compile_cache):
     """Raise UnsupportedFeature naming every requested feature this
-    slice of the port does not have (ValueError for invalid values)."""
-    if int(decode_steps) < 1:
-        raise ValueError("decode_steps must be >= 1")
-    if int(host_spill_pages) < 0:
-        raise ValueError("host_spill_pages must be >= 0")
+    port does not have yet."""
     asked = {
-        "proposer": proposer is not None,
-        "decode_steps>1": int(decode_steps) > 1,
         "host_spill_pages": int(host_spill_pages) > 0,
         "mesh": mesh is not None,
         "role": role != "both",
         "compile_cache": compile_cache is not None,
-        "trace": bool(trace),
     }
     refused = [name for name, on in asked.items() if on]
     if refused:
@@ -138,17 +214,64 @@ def _refuse_unported(*, proposer, decode_steps, host_spill_pages, mesh,
             features=refused)
 
 
+def _verify_accept(lg, ids, dl, temperature, top_k, top_p, rnd):
+    """Acceptance of one verify launch, on the device. lg (B, S, V)
+    logits; ids (B, S) [last token, drafts]; dl (B,) draft lengths; rnd
+    = (u (B, K) uniforms, g (B, S, V) Gumbel noise) when temperature > 0.
+    Greedy: the longest prefix of drafts equal to the argmax of the
+    position before, then that argmax (correction or bonus). Sampled
+    (a one-hot proposal): draft d at position j accepts iff u_j < p_j(d),
+    p the filtered, tempered distribution; a rejected position samples p
+    with d removed and renormalized, the bonus position p itself.
+    Returns (tokens (B, S), accepted (B,), ok (B,)): ok over the live
+    positions only (padding runs on clamped positions)."""
+    B, S, V = lg.shape
+    K = S - 1
+    jpos = torch.arange(S, device=lg.device)[None, :]
+    live_q = jpos <= dl[:, None]
+    fin = torch.isfinite(lg).all(dim=-1)
+    ok = torch.where(live_q, fin, torch.ones_like(fin)).all(dim=-1)
+    drafts = ids[:, 1:]
+    # position j's logits score draft j+1: live iff j < dl
+    has_draft = jpos[:, :K] < dl[:, None]
+    idsn = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    if temperature <= 0.0:
+        pred = torch.argmax(lg, dim=-1)
+        acc = (pred[:, :K] == drafts) & has_draft
+        n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+        return torch.where(jpos < n_acc[:, None], idsn, pred), n_acc, ok
+    u, g = rnd
+    p = torch.softmax(_filter_logits(lg, temperature, top_k, top_p), dim=-1)
+    p_draft = p[:, :K].gather(-1, drafts[..., None])[..., 0]
+    acc = (u < p_draft) & has_draft
+    n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+    onehot = torch.nn.functional.one_hot(idsn, V).to(p.dtype)
+    res = p * (1.0 - torch.where((jpos < dl[:, None])[..., None], onehot,
+                                 torch.zeros_like(onehot)))
+    res = res / res.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    sampled = torch.argmax(torch.log(res + 1e-30) + g, dim=-1)
+    return torch.where(jpos < n_acc[:, None], idsn, sampled), n_acc, ok
+
+
 class ServingEngine:
     """Continuous-batching engine over a causal LM with paged-KV decode.
 
     model: a LlamaForCausalLM-protocol module (`forward_paged_prefill`,
-    `forward_paged_decode`) whose parameters live on `device` — the card
-    unless `device="cpu"` is passed. The engine owns the per-layer
-    paged caches (in the model's dtype, or int8 with scale pages for
-    kv_dtype="int8") on the same device. wq="int8"/"int4" quantizes the
-    model's MLP and LM-head weights IN PLACE at construction, as the
-    reference does. lora (an AdapterRegistry on the same device) turns
-    on multi-LoRA serving.
+    `forward_paged_decode`, and `forward_paged_decode_multi` /
+    `forward_paged_verify` for multi-step and speculative decode) whose
+    parameters live on `device` — the card unless `device="cpu"` is
+    passed. The engine owns the per-layer paged caches (in the model's
+    dtype, or int8 with scale pages for kv_dtype="int8") on the same
+    device. wq="int8"/"int4" quantizes the model's MLP and LM-head
+    weights IN PLACE at construction, as the reference does. lora (an
+    AdapterRegistry on the same device) turns on multi-LoRA serving.
+
+    proposer (a serving.spec.Proposer) turns on speculative decoding:
+    up to `spec_k` drafts a decoding request are verified per step,
+    `spec_buckets` the K axis of the verify grid. decode_steps=K runs K
+    decode steps per launch, `multi_buckets` the K axis of its grid;
+    the two are mutually exclusive. trace=True (or a shared
+    RequestTracer) turns on per-request tracing.
     """
 
     def __init__(self, model, *, device=None, num_pages: int = 128,
@@ -165,25 +288,71 @@ class ServingEngine:
                  default_ttl_s: Optional[float] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  clock=None,
-                 kv_pool_bytes: Optional[int] = None,
-                 flight_recorder_steps: int = 128,
-                 proposer=None, decode_steps: int = 1,
+                 proposer=None, spec_k: int = 4,
+                 spec_buckets: Optional[List[int]] = None,
+                 decode_steps: int = 1,
+                 multi_buckets: Optional[List[int]] = None,
                  kv_dtype: Optional[str] = None, wq: Optional[str] = None,
+                 kv_pool_bytes: Optional[int] = None,
                  host_spill_pages: int = 0, mesh=None, lora=None,
-                 role: str = "both", compile_cache=None, trace=None):
+                 role: str = "both", compile_cache=None,
+                 trace=None, trace_ring: int = 512,
+                 flight_recorder_steps: int = 128):
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', got "
                              f"{kv_dtype!r}")
         if wq not in (None, "int8", "int4"):
             raise ValueError(f"wq must be None, 'int8' or 'int4', got "
                              f"{wq!r}")
-        _refuse_unported(proposer=proposer, decode_steps=decode_steps,
-                         host_spill_pages=host_spill_pages, mesh=mesh,
-                         role=role, compile_cache=compile_cache,
-                         trace=trace)
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be 'both', 'prefill' or "
+                             f"'decode', got {role!r}")
+        if int(host_spill_pages) < 0:
+            raise ValueError("host_spill_pages must be >= 0")
+        self.decode_steps = int(decode_steps)
+        if self.decode_steps < 1:
+            raise ValueError("decode_steps must be >= 1")
+        if self.decode_steps > MAX_DECODE_STEPS:
+            raise ValueError(
+                f"decode_steps {self.decode_steps} exceeds "
+                f"MAX_DECODE_STEPS {MAX_DECODE_STEPS}")
+        self.spec_k = int(spec_k)
+        if proposer is not None and self.spec_k < 1:
+            raise ValueError("spec_k must be >= 1 with a proposer")
+        # the capability table, on the features asked for, then what the
+        # port does not have yet — both before the model is touched
+        tp = (int(dict(getattr(mesh, "shape", {})).get("model", 1))
+              if mesh is not None else 1)
+        active = {name for name, on in (
+            ("proposer", proposer is not None),
+            ("multi_step_decode", self.decode_steps > 1),
+            ("lora", lora is not None),
+            ("tensor_parallel", tp > 1),
+            ("host_spill", int(host_spill_pages) > 0),
+            ("no_prefix_cache", not enable_prefix_cache),
+            ("prefill_role", role == "prefill")) if on}
+        check_feature_conflicts(active)
+        _refuse_unported(host_spill_pages=host_spill_pages, mesh=mesh,
+                         role=role, compile_cache=compile_cache)
         if lora is not None and not isinstance(lora, AdapterRegistry):
             raise TypeError(f"lora must be a serving.lora.AdapterRegistry, "
                             f"got {type(lora).__name__}")
+        self.spec_buckets = (sorted(spec_buckets or
+                                    _pow2_buckets(1, self.spec_k))
+                             if proposer is not None else [])
+        if self.spec_buckets and self.spec_buckets[-1] != self.spec_k:
+            raise ValueError(
+                f"largest spec bucket {self.spec_buckets[-1]} must equal "
+                f"spec_k {self.spec_k}")
+        self.multi_buckets = (sorted(multi_buckets or
+                                     _pow2_buckets(1, self.decode_steps))
+                              if self.decode_steps > 1 else [])
+        if self.multi_buckets and \
+                self.multi_buckets[-1] != self.decode_steps:
+            raise ValueError(
+                f"largest multi bucket {self.multi_buckets[-1]} must "
+                f"equal decode_steps {self.decode_steps}")
+        self.proposer = proposer
         self.device = resolve_device(device)
         first = next(model.parameters())
         if first.device != self.device:
@@ -261,20 +430,37 @@ class ServingEngine:
             max_prompt_len=self.max_seq_len,
             prefix_cache=self.radix,
             max_queue_len=max_queue_len)
+        if proposer is not None:
+            # verify tokens draw from the per-step token budget prefill
+            # chunks compete for
+            self.scheduler.decode_token_cost = 1 + self.spec_k
+        elif self.decode_steps > 1:
+            # a decoding request may emit up to K tokens a launch
+            self.scheduler.decode_token_cost = self.decode_steps
         # deadlines use an injectable clock so expiry stays deterministic
         self._clock = clock if clock is not None else time.monotonic
         self._clock_skew = 0.0
         self.default_ttl_s = default_ttl_s
-        self.supervisor = StepSupervisor(
-            policy=retry_policy,
-            on_retry=lambda label, attempt: self.metrics.on_step_retry())
+        self.supervisor = StepSupervisor(policy=retry_policy,
+                                         on_retry=self._on_step_retry)
         self.failed = False
+        self.last_snapshot: Optional[dict] = None
         self.metrics = ServingMetrics(name=f"serving-{next(_engine_counter)}")
         if self.lora is not None:
             # registry lifecycle counters land in this engine's metrics
             # (loads done before the engine existed carry in)
             self.lora.bind_counters(self.metrics.counters)
+        # per-request tracing is off by default and free when off: every
+        # hook is guarded by one `self.tracer is None` check
+        if trace is True:
+            self.tracer: Optional[RequestTracer] = RequestTracer(
+                max_completed=trace_ring)
+        elif trace:
+            self.tracer = trace
+        else:
+            self.tracer = None
         self.recorder = FlightRecorder(flight_recorder_steps)
+        self._cur_rids = ()          # requests of the launch being run
         self._step_ev = {"programs": []}
         self._step_t0: Optional[float] = None
         self._last_launch_s: Optional[float] = None
@@ -309,9 +495,83 @@ class ServingEngine:
         the allocator."""
         return self._kv
 
+    # --------------------------------------------------- request tracing
+    # Every hook returns at once when `self.tracer is None`: the one check
+    # the default hot path pays; nothing below it allocates.
+    def _on_step_retry(self, label: str, attempt: int):
+        self.metrics.on_step_retry()
+        if self.tracer is not None:
+            for rid in self._cur_rids:
+                self.tracer.mark(rid, "retry", label=label,
+                                 attempt=attempt, engine=self.metrics.name)
+
+    def _tr_begin(self, req: Request):
+        if self.tracer is None:
+            return
+        self.tracer.begin(req.request_id, engine=self.metrics.name,
+                          prompt_len=len(req.prompt_ids),
+                          max_new_tokens=req.max_new_tokens)
+
+    def _tr_shed(self, req: Request):
+        """Admission shed: the trace begins and ends at the door, so
+        sheds show in the completed ring."""
+        if self.tracer is None:
+            return
+        self._tr_begin(req)
+        self.tracer.mark(req.request_id, "shed", engine=self.metrics.name,
+                         queue_depth=self.scheduler.queue_depth)
+        self.tracer.finish(req.request_id, "shed")
+
+    def _tr_admit(self, req: Request, resumed: bool):
+        if self.tracer is None:
+            return
+        tr = self.tracer.get(req.request_id)
+        if tr is None:
+            return
+        now = self.tracer.now_ns()
+        tr.span("queue_wait", tr.t_queue, now, resumed=resumed)
+        tr.mark("admitted", now, cached_tokens=req.cached_tokens,
+                resumed=resumed, engine=self.metrics.name)
+
+    def _tr_launch(self, rids, name: str, t0: int, **args):
+        """One span per participating request of a batched launch; the
+        record is built once (`span_many`)."""
+        if self.tracer is None:
+            return
+        self.tracer.span_many(rids, name, t0, self.tracer.now_ns(),
+                              engine=self.metrics.name, **args)
+
+    def _tr_mark(self, rid: int, name: str, **args):
+        if self.tracer is None:
+            return
+        self.tracer.mark(rid, name, engine=self.metrics.name, **args)
+
+    def _tr_finish(self, rid: int, reason: str):
+        if self.tracer is None:
+            return
+        self.tracer.finish(rid, reason)
+
+    def _tr_preempt(self, req: Request):
+        if self.tracer is None:
+            return
+        tr = self.tracer.get(req.request_id)
+        if tr is None:
+            return
+        now = self.tracer.now_ns()
+        tr.mark("preempted", now, engine=self.metrics.name)
+        tr.t_queue = now     # the next admission's queue_wait anchor
+
+    def _tr_now(self) -> int:
+        return self.tracer.now_ns() if self.tracer is not None else 0
+
     # ------------------------------------------------------------- intake
     def _now(self) -> float:
         return self._clock() + self._clock_skew
+
+    def _refuse_if_failed(self):
+        if self.failed:
+            raise EngineFailure("engine has failed; resume from "
+                                "last_snapshot", snapshot=self.last_snapshot)
 
     def add_request(self, prompt_ids, max_new_tokens: int = 32,
                     eos_token_id: Optional[int] = None,
@@ -326,8 +586,7 @@ class ServingEngine:
         an unknown one is shed typed (`AdapterNotLoaded`) at the door,
         never served with base weights. An admitted request pins its
         adapter until it reaches a terminal state."""
-        if self.failed:
-            raise EngineFailure("engine has failed")
+        self._refuse_if_failed()
         if adapter is not None:
             if self.lora is None:
                 raise AdapterNotLoaded(
@@ -359,6 +618,7 @@ class ServingEngine:
             self.scheduler.add_request(req)
         except EngineOverloaded:
             self.metrics.on_shed()
+            self._tr_shed(req)
             raise
         if adapter is not None:
             self.lora.acquire(adapter)     # pinned until terminal
@@ -367,6 +627,7 @@ class ServingEngine:
             req.adapter_key = self.lora.namespace_of(adapter)
         self.requests[req.request_id] = req
         self.metrics.on_add(req.request_id)
+        self._tr_begin(req)
         return req.request_id
 
     def abort(self, request_id: int) -> bool:
@@ -423,12 +684,12 @@ class ServingEngine:
                                         largs[0]))
 
     # ----------------------------------------------------------- launches
-    def _noise(self, rows: int) -> Optional[torch.Tensor]:
-        """Sampling noise for one launch, drawn before the supervised
-        call (None for greedy)."""
+    def _noise(self, *rows: int) -> Optional[torch.Tensor]:
+        """Gumbel sampling noise of shape (*rows, V) for one launch,
+        drawn before the supervised call (None for greedy)."""
         if self.temperature <= 0.0:
             return None
-        return sample_noise((rows, self.cfg.vocab_size), self._gen,
+        return sample_noise(tuple(rows) + (self.cfg.vocab_size,), self._gen,
                             self.device)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
@@ -467,8 +728,13 @@ class ServingEngine:
                 res = torch.stack([tok, ok.long()]).cpu()
             return int(res[0]), bool(res[1])
 
+        self._cur_rids = (req.request_id,)
         self._step_ev["programs"].append(f"chunk:S{S}:P{P}")
+        t_tr = self._tr_now()
         tok, ok = self.supervisor.run(launch, label="prefill_chunk")
+        self._tr_launch((req.request_id,), "prefill_chunk", t_tr,
+                        start=chunk.start, length=chunk.length,
+                        bucket=[S, P], last=chunk.is_last)
         if faults.fire(FAULT_NAN) is not None:
             ok = False
         self.metrics.on_prefill(chunk.length)
@@ -497,6 +763,7 @@ class ServingEngine:
         if self.lora is not None:
             self.metrics.on_adapter_mix(
                 len({r.adapter for r in reqs if r.adapter is not None}))
+        rids = tuple(r.request_id for r in reqs)
 
         def launch():
             faults.fire(FAULT_DECODE)
@@ -513,10 +780,15 @@ class ServingEngine:
                 res = torch.stack([toks, oks.long()]).cpu().numpy()
             return res[0], res[1].astype(bool)
 
+        self._cur_rids = rids
         self._step_ev["programs"].append(f"decode:B{B}:P{P}")
-        t0 = time.perf_counter()
+        self._step_ev["decode_k"] = 1
+        t_tr = self._tr_now()
+        t0 = _perf_counter()
         toks, oks = self.supervisor.run(launch, label="decode_step")
-        self._last_launch_s = time.perf_counter() - t0
+        self._last_launch_s = _perf_counter() - t0
+        self._tr_launch(rids, "decode_step", t_tr, batch=n, bucket=[B, P],
+                        k=1)
         # this step wrote one token per live row and the attention
         # kernel read every live token's K/V
         self.metrics.on_kv_bytes(
@@ -549,6 +821,324 @@ class ServingEngine:
             rows = poison
         return [int(i) for i in rows if 0 <= int(i) < len(reqs)]
 
+    # ----------------------------------------------- multi-step decode
+    def _run_multi_decode(self, reqs: List[Request], caps: List[int],
+                          K: int):
+        """One supervised (B, K, P) multi-step launch. `reqs[i]`'s
+        sequence is already extended by caps[i] - 1 slots; returns
+        (toks (B, K), n_emit (B,), oks (n,), launch seconds)."""
+        n = len(reqs)
+        B = _bucket_for(n, self.batch_buckets)
+        P = _bucket_for(max(len(r.seq.pages) for r in reqs),
+                        self.pages_buckets)
+        ids = np.zeros((B,), np.int64)
+        sl = np.zeros((B,), np.int32)
+        cp = np.zeros((B,), np.int32)
+        eos = np.full((B,), -1, np.int64)
+        bt = np.full((B, P), PAD_PAGE, np.int32)
+        bt[:n] = self.allocator.block_table([r.seq for r in reqs], P)
+        for i, (r, c) in enumerate(zip(reqs, caps)):
+            ids[i] = r.output_ids[-1]
+            # seq_lens counts through the FIRST input token; the
+            # extension slots grew num_tokens past it
+            sl[i] = r.seq.num_tokens - (c - 1)
+            cp[i] = c
+            if r.eos_token_id is not None:
+                eos[i] = r.eos_token_id
+        ids_t, bt_t, sl_t, cp_t, eos_t = (self._to_device(a)
+                                          for a in (ids, bt, sl, cp, eos))
+        noise = self._noise(K, B)   # every step's, drawn once per launch
+        largs = self._lora_launch_args(reqs, B)
+        if self.lora is not None:
+            self.metrics.on_adapter_mix(
+                len({r.adapter for r in reqs if r.adapter is not None}))
+        rids = tuple(r.request_id for r in reqs)
+
+        def launch():
+            faults.fire(FAULT_MULTI)
+            # the LoRA scope spans the whole launch: the slot stacks are
+            # gathered once, not once per step
+            with torch.inference_mode(), self._lora_scope(largs):
+                toks, n_emit, ok, _ = self.model.forward_paged_decode_multi(
+                    ids_t, self._kv, bt_t, sl_t, cp_t, eos_t, noise,
+                    k_steps=K, temperature=self.temperature,
+                    top_k=self.top_k, top_p=self.top_p)
+                # the launch's one read-back
+                return torch.cat([toks, n_emit[:, None].long(),
+                                  ok[:, None].long()], dim=1).cpu().numpy()
+
+        self._cur_rids = rids
+        self._step_ev["programs"].append(f"multi_decode:B{B}:K{K}:P{P}")
+        self._step_ev["decode_k"] = K
+        t_tr = self._tr_now()
+        t0 = _perf_counter()
+        res = self.supervisor.run(launch, label="multi_decode_step")
+        dt = _perf_counter() - t0
+        toks, n_emit = res[:, :K], res[:, K].astype(int)
+        oks = res[:n, K + 1].astype(bool)
+        self._tr_launch(rids, "multi_decode_step", t_tr, batch=n,
+                        bucket=[B, K, P], k=K)
+        # every live row writes one token's K/V a step (frozen steps
+        # rewrite the same slot) and each step's attention reads the
+        # row's then-current prefix (frozen rows at their frozen length)
+        reads = sum(int(b0) * K + sum(min(j, int(e)) for j in range(K))
+                    for b0, e in zip(sl[:n], n_emit[:n]))
+        self.metrics.on_kv_bytes(
+            written=n * K * self.kv_bytes_per_token,
+            read=reads * self.kv_bytes_per_token)
+        for r in reqs:
+            r.num_computed = r.seq.num_tokens
+        poison = faults.fire(FAULT_NAN)
+        if poison is not None:
+            for i in self._poison_rows(poison, reqs):
+                oks[i] = False
+        return toks, n_emit, oks, dt
+
+    def _multi_decode_step(self, decodes: List[Request], emitted):
+        """Extend each sequence by up to K-1 slots -> ONE K-step launch
+        -> emit each row's tokens up to its freeze point -> roll unused
+        slots back.
+
+        Transients retry (writes idempotent, noise pre-drawn); a row
+        whose per-launch finiteness flag is down is quarantined alone
+        and delivers no token of the launch; unattributed poison rolls
+        the extension slots back and isolates through solo plain-decode
+        launches; anything else fails the engine to a snapshot."""
+        caps = []
+        for req in decodes:
+            want = min(self.decode_steps, req.remaining_new_tokens())
+            granted, copies = self._extend_slots(req, want - 1)
+            if granted < want - 1:
+                self.metrics.counters["multi_decode_slot_shortfall"] += \
+                    (want - 1) - granted
+            if copies:
+                self._apply_copies(copies)
+            caps.append(1 + granted)
+        K = _bucket_for(max(caps), self.multi_buckets)
+        try:
+            toks, n_emit, oks, dt = self._run_multi_decode(decodes, caps, K)
+        except Exception as exc:   # noqa: BLE001
+            toks1, oks = self._rollback_and_isolate(
+                exc, decodes, [c - 1 for c in caps])
+            self._emit_rows(decodes, toks1[:, None], [1] * len(decodes),
+                            [0] * len(decodes), oks, emitted)
+            # the solo launches counted their tokens in _run_decode; the
+            # rows keep the tokens-per-launch denominator honest
+            self.metrics.on_decode_launch(1, len(decodes), 0, None)
+            return
+        total_emitted, _, _ = self._emit_rows(
+            decodes, toks, n_emit, [c - 1 for c in caps], oks, emitted)
+        self.metrics.on_decode(total_emitted)
+        self.metrics.on_decode_launch(K, len(decodes), total_emitted, dt)
+
+    def _rollback_and_isolate(self, exc, decodes: List[Request],
+                              extended: List[int]):
+        """A decode-side launch over `decodes` failed. Anything but
+        poison fails the engine to a snapshot. Unattributed poison rolls
+        back each row's `extended[i]` slots past its input token (their
+        K/V is suspect) and isolates through solo plain-decode launches;
+        returns their (tokens (n,), oks (n,))."""
+        if classify_failure(exc) != POISON:
+            self._fail(exc)
+        for req, e in zip(decodes, extended):
+            if e:
+                self.allocator.truncate_sequence(req.seq,
+                                                 req.seq.num_tokens - e)
+        return self._isolate_poisoned(decodes)
+
+    def _emit_rows(self, decodes: List[Request], toks, counts,
+                   extended: List[int], oks, emitted):
+        """Deliver a decode-side launch's tokens: row i's sequence holds
+        `extended[i]` slots past its input token; a row whose flag in
+        `oks` is down is quarantined (pages, extension slots included,
+        freed WITHOUT donation, no token delivered); the others emit up
+        to counts[i] of toks[i] until a finish reason. The valid K/V is
+        the input token + the emitted tokens consumed as later inputs;
+        every slot past it rolls back, so donation and resume never see
+        it. Returns (tokens emitted, slots rolled back, rows kept)."""
+        total_emitted = total_rolled = rows = 0
+        for i, req in enumerate(decodes):
+            base = req.seq.num_tokens - extended[i]   # through input tok
+            if not oks[i]:
+                self._quarantine(req)
+                continue
+            reason = None
+            n_done = 0
+            for j in range(int(counts[i])):
+                reason = self._emit(req, int(toks[i, j]), emitted)
+                n_done += 1
+                if reason is not None:
+                    break
+            valid = base + max(n_done, 1) - 1
+            rolled = req.seq.num_tokens - valid
+            if rolled:
+                self.allocator.truncate_sequence(req.seq, valid)
+            req.num_computed = valid
+            total_emitted += n_done
+            total_rolled += rolled
+            rows += 1
+            if reason is not None:
+                self.scheduler.finish(req, reason)
+                self._on_finished(req)
+        return total_emitted, total_rolled, rows
+
+    # ------------------------------------------------ speculative verify
+    def _extend_slots(self, req: Request, want: int):
+        """Grow the request's sequence by up to `want` token slots (the
+        scheduler already reserved this launch's input-token slot). On
+        pool exhaustion the reclamation ladder stops at radix eviction
+        of unreferenced cached prefixes — it never preempts live work
+        for these advisory slots. Degrades, never fails: a dry pool
+        grants fewer (zero means a single-step launch). Returns
+        (granted, CoW copies due)."""
+        base = req.seq.num_tokens
+        copies, granted = [], 0
+        for _ in range(want):
+            try:
+                copies.extend(self.allocator.append_token(req.seq))
+            except BlocksExhausted:
+                if not self.scheduler._reclaim(1):
+                    break
+                try:
+                    copies.extend(self.allocator.append_token(req.seq))
+                except BlocksExhausted:
+                    break
+            granted += 1
+        assert req.seq.num_tokens == base + granted
+        return granted, copies
+
+    def _extend_for_drafts(self, req: Request, draft: List[int]):
+        """Grow by up to len(draft) slots, shortening the draft to what
+        the pool granted. Returns (granted draft, CoW copies due)."""
+        granted, copies = self._extend_slots(req, len(draft))
+        if granted < len(draft):
+            self.metrics.on_spec_draft_oom(len(draft) - granted)
+        del draft[granted:]
+        return draft, copies
+
+    def _run_verify(self, reqs: List[Request], drafts: List[List[int]]):
+        """One supervised (B, K, P) verify launch. `reqs[i]`'s sequence
+        is already extended by len(drafts[i]); returns (toks (B, K+1),
+        n_acc (B,), oks (n,))."""
+        n = len(reqs)
+        B = _bucket_for(n, self.batch_buckets)
+        K = _bucket_for(max((len(d) for d in drafts), default=0) or 1,
+                        self.spec_buckets)
+        P = _bucket_for(max(len(r.seq.pages) for r in reqs),
+                        self.pages_buckets)
+        S = K + 1
+        ids = np.zeros((B, S), np.int64)
+        sl = np.zeros((B,), np.int32)
+        dl = np.zeros((B,), np.int64)
+        bt = np.full((B, P), PAD_PAGE, np.int32)
+        bt[:n] = self.allocator.block_table([r.seq for r in reqs], P)
+        for i, (r, d) in enumerate(zip(reqs, drafts)):
+            ids[i, 0] = r.output_ids[-1]
+            ids[i, 1:1 + len(d)] = d
+            dl[i] = len(d)
+            # seq_lens counts through the FIRST input token; the drafts
+            # extended num_tokens past it
+            sl[i] = r.seq.num_tokens - len(d)
+        ids_t, bt_t, sl_t, dl_t = (self._to_device(a)
+                                   for a in (ids, bt, sl, dl))
+        # drawn once: retries re-run identically
+        rnd = None
+        if self.temperature > 0.0:
+            rnd = (torch.rand((B, K), generator=self._gen,
+                              device=self.device), self._noise(B, S))
+        rids = tuple(r.request_id for r in reqs)
+
+        def launch():
+            faults.fire(FAULT_VERIFY)
+            with torch.inference_mode():
+                logits, _ = self.model.forward_paged_verify(
+                    ids_t, self._kv, bt_t, sl_t, dl_t)
+                toks, n_acc, ok = _verify_accept(
+                    logits, ids_t, dl_t, self.temperature, self.top_k,
+                    self.top_p, rnd)
+                # the launch's one read-back
+                return torch.cat([toks, n_acc[:, None], ok[:, None].long()],
+                                 dim=1).cpu().numpy()
+
+        self._cur_rids = rids
+        self._step_ev["programs"].append(f"verify:B{B}:K{K}:P{P}")
+        # a verify launch can emit up to K drafts + 1 correction/bonus
+        self._step_ev["decode_k"] = K + 1
+        t_tr = self._tr_now()
+        res = self.supervisor.run(launch, label="verify_step")
+        if self.tracer is not None:
+            t1 = self.tracer.now_ns()
+            for rid, d in zip(rids, drafts):
+                self.tracer.span(rid, "verify_step", t_tr, t1,
+                                 engine=self.metrics.name, batch=n,
+                                 drafted=len(d), bucket=[B, K, P])
+        self.metrics.on_kv_bytes(
+            written=int(sum(1 + len(d) for d in drafts))
+            * self.kv_bytes_per_token,
+            read=sum(r.seq.num_tokens for r in reqs)
+            * self.kv_bytes_per_token)
+        oks = res[:n, S + 1].astype(bool)
+        poison = faults.fire(FAULT_NAN)
+        if poison is not None:
+            for i in self._poison_rows(poison, reqs):
+                oks[i] = False
+        return res[:, :S], res[:, S].astype(int), oks
+
+    def _spec_decode_step(self, decodes: List[Request], emitted):
+        """propose -> extend KV -> ONE verify launch -> emit the accepted
+        prefix + correction/bonus -> roll rejected drafts' pages back.
+
+        Transients retry (the verify write is idempotent, its random
+        numbers pre-drawn); per-row poison quarantines alone;
+        unattributed poison rolls every draft back and isolates through
+        solo plain-decode launches; anything else, and a proposer that
+        raises (a draft model's launch on the card), fails the engine to
+        a snapshot."""
+        # drafts are advisory and capped so the emitted tokens never
+        # overshoot max_new_tokens: r remaining tokens use at most r - 1
+        # accepted drafts (+1 correction/bonus)
+        try:
+            proposals = self.proposer.propose(decodes, self.spec_k)
+        except Exception as exc:   # noqa: BLE001
+            self._fail(exc)
+        storm = faults.fire(FAULT_DRAFT)
+        if storm is not None:
+            proposals = (storm(decodes, self.spec_k) if callable(storm)
+                         else [[(i * 7 + j * 13 + 1) %
+                                max(2, self.cfg.vocab_size)
+                                for j in range(self.spec_k)]
+                               for i in range(len(decodes))])
+        drafts = []
+        for req, prop in zip(decodes, proposals):
+            cap = max(0, min(self.spec_k, req.remaining_new_tokens() - 1))
+            d = [int(t) for t in list(prop)[:cap]]
+            d, copies = self._extend_for_drafts(req, d)
+            if copies:
+                self._apply_copies(copies)
+            drafts.append(d)
+
+        try:
+            toks, n_accs, oks = self._run_verify(decodes, drafts)
+        except Exception as exc:   # noqa: BLE001
+            toks1, oks = self._rollback_and_isolate(
+                exc, decodes, [len(d) for d in drafts])
+            # real rollback work even though no verify step completed
+            self.metrics.counters["spec_rollback_tokens"] += sum(
+                len(d) for d in drafts)
+            # the solo launches counted their own tokens and verified
+            # nothing
+            self._emit_rows(decodes, toks1[:, None], [1] * len(decodes),
+                            [0] * len(decodes), oks, emitted)
+            return
+        drafted = sum(len(d) for d, ok in zip(drafts, oks) if ok)
+        total_emitted, total_rb, rows = self._emit_rows(
+            decodes, toks, n_accs + 1, [len(d) for d in drafts], oks,
+            emitted)
+        # decode_tokens counts tokens emitted by decode-side launches
+        self.metrics.on_decode(total_emitted)
+        self.metrics.on_spec_step(drafted, total_emitted - rows,
+                                  total_emitted, total_rb, rows)
+
     def _apply_copies(self, copies):
         """Device-side copy-on-write: copy a page's rows to a fresh page
         in every layer's K and V — and, for int8 KV, its scale rows,
@@ -566,6 +1156,7 @@ class ServingEngine:
         req.output_ids.append(tok)
         if first:
             self.metrics.on_first_token(req.request_id)
+            self._tr_mark(req.request_id, "first_token")
         emitted.append((req.request_id, tok))
         if req.eos_token_id is not None and tok == req.eos_token_id:
             return "stop"
@@ -586,10 +1177,12 @@ class ServingEngine:
             if req.aborted:
                 if self.scheduler.cancel(req, "abort"):
                     self.metrics.on_abort(req.request_id)
+                    self._tr_finish(req.request_id, "abort")
                     self._retain(req)
             elif req.deadline is not None and now >= req.deadline:
                 if self.scheduler.cancel(req, "expired"):
                     self.metrics.on_expire(req.request_id)
+                    self._tr_finish(req.request_id, "expired")
                     self._retain(req)
 
     def _quarantine(self, req: Request):
@@ -598,52 +1191,70 @@ class ServingEngine:
         NaN K/V — the radix tree must never serve them)."""
         if self.scheduler.cancel(req, "quarantined", donate=False):
             self.metrics.on_quarantine(req.request_id)
+            self._tr_mark(req.request_id, "quarantined")
+            self._tr_finish(req.request_id, "quarantined")
             self._retain(req)
 
     def _fail(self, exc: BaseException):
-        """Unrecoverable: record the failing step, refuse further work
-        and raise EngineFailure (no snapshot in this port)."""
+        """Unrecoverable: stamp the failing step into the flight
+        recorder, drain to a serializable snapshot and raise
+        EngineFailure. The engine refuses further work afterwards."""
         self.metrics.on_engine_failure()
         self.recorder.record({
             "step": int(self.metrics.counters["engine_steps"]) + 1,
             "failed": repr(exc),
             "programs": list(self._step_ev.get("programs", ())),
+            "t_wall_ms": (round((time.perf_counter()
+                                 - self._step_t0) * 1e3, 3)
+                          if self._step_t0 is not None else None),
             "queue_depth": int(self.scheduler.queue_depth),
             "running": len(self.scheduler.running),
             "kv_used_pages": int(self.allocator.num_used),
+            "kv_occupancy": round(float(self.allocator.occupancy()), 4),
         })
+        self.last_snapshot = self.snapshot(reason=repr(exc))
         self.failed = True
-        raise EngineFailure(f"unrecoverable engine error: {exc!r}",
-                            cause=exc) from exc
+        raise EngineFailure(
+            f"unrecoverable engine error: {exc!r}; state drained to "
+            f"snapshot ({len(self.last_snapshot['requests'])} requests)",
+            snapshot=self.last_snapshot, cause=exc) from exc
 
     def step(self):
         """One engine iteration: cancellation sweep, schedule, run
-        prefill chunks, run the batched decode step. Returns
-        [(request_id, token)] in emission order (empty when idle).
+        prefill chunks, run the batched decode-side launch (plain,
+        multi-step or verify). Returns [(request_id, token)] in emission
+        order (empty when idle).
 
         Failure semantics per launch: transients retried by the
         supervisor; a poison failure quarantines the offending
-        request(s) and the step continues; anything else raises
-        EngineFailure."""
-        if self.failed:
-            raise EngineFailure("engine has failed")
+        request(s) and the step continues; anything else drains to a
+        snapshot and raises EngineFailure."""
+        self._refuse_if_failed()
         emitted = []
         self._step_t0 = time.perf_counter()
         self._step_ev = {"programs": []}
-        pre_prefill = self.metrics.counters["prefill_tokens"]
+        c = self.metrics.counters
+        pre = {k: c[k] for k in (
+            "prefill_tokens", "requests_preempted", "step_retries",
+            "requests_quarantined", "requests_aborted",
+            "deadline_expired", "prefix_hits", "spec_drafted_tokens",
+            "spec_accepted_tokens")}
         self._cancel_boundary()
         sched = self.scheduler.schedule()
-        for _ in sched.preempted:
+        for req in sched.preempted:
             self.metrics.on_preempt()
+            self._tr_preempt(req)
 
         for chunk in sched.prefills:
             req = chunk.request
             if req.state is RequestState.FINISHED:
                 continue               # quarantined earlier this step
             if chunk.is_first:
+                resumed = req.num_preemptions > 0
                 self.metrics.on_admission(req.request_id,
                                           req.cached_tokens,
-                                          resumed=req.num_preemptions > 0)
+                                          resumed=resumed)
+                self._tr_admit(req, resumed=resumed)
             try:
                 tok, ok = self._run_chunk(chunk)
             except Exception as exc:   # noqa: BLE001
@@ -669,9 +1280,20 @@ class ServingEngine:
             for req in decodes:
                 self._apply_copies(req.pending_copies)
                 req.pending_copies = []
-            self._plain_decode_step(decodes, emitted)
+            if self.proposer is not None:
+                self._spec_decode_step(decodes, emitted)
+            elif self.decode_steps > 1:
+                self._multi_decode_step(decodes, emitted)
+            else:
+                self._plain_decode_step(decodes, emitted)
 
         self.metrics.on_step()
+        self._update_gauges()
+        self._record_step(pre, n_chunks=len(sched.prefills),
+                          n_decode=len(decodes), n_emitted=len(emitted))
+        return emitted
+
+    def _update_gauges(self):
         self.metrics.update_gauges(
             queue_depth=self.scheduler.queue_depth,
             running=len(self.scheduler.running),
@@ -681,27 +1303,56 @@ class ServingEngine:
             radix_nodes=self.radix.num_nodes if self.radix else 0,
             radix_evicted_pages=(self.radix.num_evicted_pages
                                  if self.radix else None))
-        if self._step_ev["programs"] or emitted or sched.preempted:
-            self.recorder.record({
-                "step": int(self.metrics.counters["engine_steps"]),
-                "t_wall_ms": round((time.perf_counter()
-                                    - self._step_t0) * 1e3, 3),
-                "programs": list(self._step_ev["programs"]),
-                "prefill_chunks": len(sched.prefills),
-                "prefill_tokens": int(self.metrics.counters["prefill_tokens"]
-                                      - pre_prefill),
-                "decode_batch": len(decodes),
-                "tokens_out": len(emitted),
-                "preempted": len(sched.preempted),
-                "queue_depth": int(self.scheduler.queue_depth),
-                "running": len(self.scheduler.running),
-                "kv_used_pages": int(self.allocator.num_used),
-            })
-        return emitted
+
+    def _record_step(self, pre: Dict[str, int], *, n_chunks: int,
+                     n_decode: int, n_emitted: int):
+        """Append this iteration's step record to the flight recorder;
+        idle steps (nothing scheduled, nothing cancelled) are skipped
+        before any record is built."""
+        c = self.metrics.counters
+        programs = self._step_ev["programs"]
+        events = {k: int(c[k] - pre[k]) for k in (
+            "requests_preempted", "requests_aborted", "deadline_expired",
+            "requests_quarantined")}
+        if not (programs or n_chunks or n_decode or n_emitted
+                or any(events.values())):
+            return
+        self.recorder.record({
+            "step": int(c["engine_steps"]),
+            "t_wall_ms": round((time.perf_counter()
+                                - self._step_t0) * 1e3, 3),
+            "programs": list(programs),
+            "prefill_chunks": int(n_chunks),
+            "prefill_tokens": int(c["prefill_tokens"]
+                                  - pre["prefill_tokens"]),
+            "decode_batch": int(n_decode),
+            # tokens-per-launch context: 1 for plain decode, the K bucket
+            # for multi-step decode, K+1 for a verify launch, 0 for no
+            # decode-side launch this step
+            "decode_k": int(self._step_ev.get("decode_k", 0))
+            if n_decode else 0,
+            "tokens_out": int(n_emitted),
+            "preempted": events["requests_preempted"],
+            "retries": int(c["step_retries"] - pre["step_retries"]),
+            "quarantined": events["requests_quarantined"],
+            "aborted": events["requests_aborted"],
+            "expired": events["deadline_expired"],
+            "prefix_hits": int(c["prefix_hits"] - pre["prefix_hits"]),
+            "spec_drafted": int(c["spec_drafted_tokens"]
+                                - pre["spec_drafted_tokens"]),
+            "spec_accepted": int(c["spec_accepted_tokens"]
+                                 - pre["spec_accepted_tokens"]),
+            "queue_depth": int(self.scheduler.queue_depth),
+            "running": len(self.scheduler.running),
+            "kv_used_pages": int(self.allocator.num_used),
+            "kv_occupancy": round(float(self.allocator.occupancy()), 4),
+            "cached_pages": int(self.radix.num_cached_pages
+                                if self.radix else 0),
+        })
 
     def timeline(self) -> List[dict]:
         """Flight-recorder view: the last N non-idle step records,
-        oldest first."""
+        oldest first (the same list rides every snapshot)."""
         return self.recorder.records()
 
     def _plain_decode_step(self, decodes: List[Request], emitted):
@@ -728,7 +1379,7 @@ class ServingEngine:
         # TPOT sample: launch wall seconds / tokens emitted (none for
         # the solo isolation launches — they are not a batch launch)
         self.metrics.on_decode_launch(
-            len(decodes), 0 if degraded else len(emitted) - n0,
+            1, len(decodes), 0 if degraded else len(emitted) - n0,
             None if degraded else self._last_launch_s)
 
     def _isolate_poisoned(self, reqs: List[Request]):
@@ -752,7 +1403,10 @@ class ServingEngine:
 
     def _retain(self, req: Request):
         """Terminal-request retention (bounded window). Every terminal
-        path funnels here, so it also unpins the request's adapter."""
+        path funnels here, so it also releases the proposer's state of
+        the request (a draft model's pages) and unpins its adapter."""
+        if self.proposer is not None:
+            self.proposer.on_finished(req)
         if self.lora is not None and req.adapter is not None:
             self.lora.release(req.adapter)
         self._finished_order.append(req.request_id)
@@ -762,7 +1416,145 @@ class ServingEngine:
 
     def _on_finished(self, req: Request):
         self.metrics.on_finish(req.request_id)
+        self._tr_finish(req.request_id, req.finish_reason or "stop")
         self._retain(req)
+
+    # --------------------------------------------------- snapshot/resume
+    def snapshot(self, reason: str = "requested", *,
+                 include_recorder: bool = True) -> dict:
+        """Serializable drain state: every non-finished request (queued,
+        mid-prefill, decoding, preempted) with its prompt, the tokens
+        generated so far and its remaining deadline. KV pages are not
+        captured: a resumed request re-prefills prompt + generated
+        tokens like a preemption resume, so greedy outputs complete
+        identically under the same buckets. JSON-safe by construction;
+        `include_recorder=False` leaves out the flight recorder."""
+        now = self._now()
+        recs = []
+        for req in self.requests.values():
+            if req.state is RequestState.FINISHED:
+                continue
+            recs.append({
+                "request_id": int(req.request_id),
+                "prompt_ids": [int(t) for t in req.prompt_ids],
+                "output_ids": [int(t) for t in req.output_ids],
+                "max_new_tokens": int(req.max_new_tokens),
+                "eos_token_id": (None if req.eos_token_id is None
+                                 else int(req.eos_token_id)),
+                "num_preemptions": int(req.num_preemptions),
+                "aborted": bool(req.aborted),
+                "deadline_remaining_s": (
+                    None if req.deadline is None
+                    else float(req.deadline - now)),
+                "adapter": req.adapter,
+                "colocate": bool(req.colocate),
+            })
+        recs.sort(key=lambda r: r["request_id"])   # FCFS order on resume
+        snap = {"version": SNAPSHOT_VERSION, "minor": SNAPSHOT_MINOR,
+                "reason": str(reason),
+                "rng_key": self._gen.get_state().tolist(),
+                "requests": recs}
+        if include_recorder:
+            snap["flight_recorder"] = self.recorder.records()
+        return snap
+
+    def _restore_request(self, rec: dict) -> Request:
+        """Rebuild one snapshot record into THIS engine under its
+        original id: generated tokens fold into the resume prompt (the
+        preemption recompute path), the remaining deadline is re-anchored
+        on this engine's clock, and the admission bound is bypassed
+        (restored work was admitted once already). A record naming an
+        adapter needs it loaded here (typed AdapterNotLoaded
+        otherwise)."""
+        adapter = rec.get("adapter")
+        if adapter is not None and (self.lora is None
+                                    or not self.lora.has(adapter)):
+            self.metrics.counters["adapter_rejects"] += 1
+            raise AdapterNotLoaded(
+                f"snapshot request {rec['request_id']} needs adapter "
+                f"{adapter!r}, which this engine does not hold",
+                adapter=adapter)
+        req = Request(rec["prompt_ids"], rec["max_new_tokens"],
+                      rec.get("eos_token_id"),
+                      request_id=rec["request_id"], adapter=adapter)
+        if len(req.prompt_ids) + req.max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"snapshot request {req.request_id} needs "
+                f"{len(req.prompt_ids) + req.max_new_tokens} tokens "
+                f"> resumed engine max_seq_len {self.max_seq_len}")
+        req.output_ids = [int(t) for t in rec.get("output_ids", [])]
+        req.num_preemptions = int(rec.get("num_preemptions", 0))
+        req.aborted = bool(rec.get("aborted", False))
+        req.colocate = bool(rec.get("colocate", False))
+        rem = rec.get("deadline_remaining_s")
+        if rem is not None:
+            req.deadline = self._now() + float(rem)
+        self.scheduler.add_request(req, force=True)
+        if adapter is not None:
+            self.lora.acquire(adapter)     # pinned until terminal
+            req.adapter_key = self.lora.namespace_of(adapter)
+        self.requests[req.request_id] = req
+        # adopted, not added: it counted as an arrival where it began
+        self.metrics.on_adopt(req.request_id)
+        if self.tracer is not None:
+            # with a shared tracer the request's live trace continues
+            # here (begin is idempotent); otherwise one starts at adopt
+            tr = self.tracer.begin(req.request_id,
+                                   engine=self.metrics.name,
+                                   prompt_len=len(req.prompt_ids),
+                                   max_new_tokens=req.max_new_tokens)
+            now = self.tracer.now_ns()
+            tr.mark("adopt", now, engine=self.metrics.name,
+                    tokens_so_far=len(req.output_ids))
+            tr.t_queue = now      # re-queued on the adopting engine
+        return req
+
+    def adopt_requests(self, recs) -> List[int]:
+        """Restore snapshot request records into this RUNNING engine
+        (`from_snapshot` minus the construction). Requests keep their
+        original ids; the global id counter is bumped past them. Greedy
+        continuations equal an uninterrupted run under the same
+        buckets; this engine's own random stream serves sampled ones.
+        Returns the adopted request ids."""
+        self._refuse_if_failed()
+        ids = [self._restore_request(rec).request_id for rec in recs]
+        if ids:
+            bump_request_counter(max(ids))
+        return ids
+
+    def vacate(self, reason: str = "migrated") -> int:
+        """Release every KV page this engine holds: cancel all
+        non-finished requests locally (no donation and no abort/expiry
+        metrics — the work re-lands elsewhere through `adopt_requests`)
+        and drop the radix tree. Host bookkeeping only, so it works on a
+        FAILED engine. Returns the pages freed."""
+        before = self.allocator.num_free
+        for req in list(self.requests.values()):
+            if req.state is not RequestState.FINISHED:
+                if self.scheduler.cancel(req, reason, donate=False):
+                    self._retain(req)
+        self.reset_prefix_cache()
+        # a vacated engine usually never steps again: refresh the gauges
+        # now, or they keep its last mid-flight values
+        self._update_gauges()
+        return self.allocator.num_free - before
+
+    @classmethod
+    def from_snapshot(cls, model, snapshot: dict, **engine_kw):
+        """A fresh engine resuming a drained one. Restored requests keep
+        their original ids and re-enter WAITING with their generated
+        tokens folded into the resume prompt. Greedy outputs complete
+        identically under the same buckets; the random stream is
+        restored (`rng_key`), but its position reflects the resume's
+        launches, so sampled continuations are reproducible per
+        snapshot, not equal to the uninterrupted run. Raises
+        `SnapshotVersionError` on a schema-version mismatch."""
+        check_snapshot_version(snapshot)
+        eng = cls(model, **engine_kw)
+        eng._gen.set_state(torch.tensor(snapshot["rng_key"],
+                                        dtype=torch.uint8))
+        eng.adopt_requests(snapshot["requests"])
+        return eng
 
     # --------------------------------------------------- prefix cache ops
     def reset_prefix_cache(self) -> int:
@@ -774,6 +1566,11 @@ class ServingEngine:
         return self.radix.clear()
 
     # ------------------------------------------------------- convenience
+    def stream(self):
+        """Generator over (request_id, token) until all work drains."""
+        while self.has_work():
+            yield from self.step()
+
     def run(self) -> Dict[int, List[int]]:
         """Drain everything; returns {request_id: generated tokens} for
         every request alive when run() was called."""
@@ -788,3 +1585,9 @@ class ServingEngine:
                 raise RuntimeError("serving engine failed to drain "
                                    f"after {guard} steps")
         return out
+
+    def shutdown(self):
+        """Release the proposer's per-request state (a draft model's
+        pages)."""
+        if self.proposer is not None:
+            self.proposer.reset()

@@ -1,6 +1,7 @@
 """Serving counters and gauges (port of `paddle_tpu/serving/metrics.py`,
-the subset the ported engine drives; profiler registration and the
-Prometheus exposition are not ported).
+the subset the ported engine drives — speculative decoding and
+multi-step decode included; profiler registration, the fleet merge and
+the Prometheus exposition are not ported).
 
 Per-request queue-wait / TTFT / TPOT percentiles come from bounded
 reservoirs — a long-lived server keeps the last `PERCENTILE_WINDOW`
@@ -35,6 +36,10 @@ class ServingMetrics:
         self.name = name
         self.counters: Dict[str, int] = {
             "requests_added": 0,
+            # snapshot-restored intake (from_snapshot / adopt_requests),
+            # kept apart from requests_added so a resumed request is not
+            # counted as two arrivals
+            "requests_adopted": 0,
             "requests_finished": 0,
             "requests_preempted": 0,
             "prefill_tokens": 0,
@@ -57,9 +62,19 @@ class ServingMetrics:
             # streamed (host-computed from token counts x bytes/token)
             "kv_bytes_written": 0,
             "kv_bytes_read": 0,
-            # decode-side launches
+            # speculative decoding
+            "spec_steps": 0,               # verify launches
+            "spec_verified_rows": 0,       # sequence-steps verified
+            "spec_drafted_tokens": 0,      # draft tokens scored
+            "spec_accepted_tokens": 0,     # drafts that survived verify
+            "spec_emitted_tokens": 0,      # tokens emitted by verify steps
+            "spec_rollback_tokens": 0,     # rejected-draft KV truncated
+            "spec_draft_oom_drops": 0,     # drafts dropped: pool pressure
+            # decode-side launches (plain K=1 and multi-step K)
             "decode_launches": 0,
-            "decode_launch_rows": 0,
+            "decode_launch_steps": 0,      # K summed over those launches
+            "decode_launch_rows": 0,       # live rows summed over them
+            "multi_decode_slot_shortfall": 0,  # K-1 slots the pool denied
             # multi-LoRA: registry lifecycle (AdapterRegistry.
             # bind_counters homes them here) — loads, explicit unloads,
             # LRU evictions of idle adapters, typed load failures (the
@@ -82,7 +97,11 @@ class ServingMetrics:
         self._queue_wait_samples = self.add_reservoir("queue_wait",
                                                       scale=1e3,
                                                       suffix="_ms")
-        # TPOT: decode launch wall seconds / tokens emitted by it
+        # accepted drafts per verify step: mean > 1 is the "speculation
+        # pays" signal
+        self._accepted_samples = self.add_reservoir("spec_accepted")
+        # TPOT: decode launch wall seconds / tokens emitted by it, so the
+        # per-token percentiles stay comparable across K
         self._tpot_samples = self.add_reservoir("tpot", scale=1e3,
                                                 suffix="_ms")
         # distinct adapters per decode launch: p50 > 1 means launches
@@ -121,6 +140,12 @@ class ServingMetrics:
         self.counters["requests_added"] += 1
         self._arrive_t[request_id] = time.perf_counter()
 
+    def on_adopt(self, request_id: int):
+        """Snapshot-restored request entering this engine: counted as
+        adopted, not added, and with no arrival stamp — its queue-wait
+        and TTFT belong to its original admission."""
+        self.counters["requests_adopted"] += 1
+
     def on_admission(self, request_id: int, cached_tokens: int,
                      resumed: bool = False):
         """First chunk of an admission scheduled; the queue-wait sample
@@ -146,11 +171,13 @@ class ServingMetrics:
     def on_decode(self, num_tokens: int):
         self.counters["decode_tokens"] += num_tokens
 
-    def on_decode_launch(self, rows: int, tokens: int,
+    def on_decode_launch(self, k: int, rows: int, tokens: int,
                          seconds: Optional[float] = None):
-        """One decode launch over `rows` live rows that emitted `tokens`
-        tokens in `seconds` of launch wall time."""
+        """One decode-side launch of `k` steps (1 for plain decode) over
+        `rows` live rows that emitted `tokens` tokens in `seconds` of
+        launch wall time; the TPOT sample is seconds / tokens."""
         self.counters["decode_launches"] += 1
+        self.counters["decode_launch_steps"] += int(k)
         self.counters["decode_launch_rows"] += int(rows)
         if seconds is not None and seconds > 0 and tokens > 0:
             self._tpot_samples.append(seconds / tokens)
@@ -158,6 +185,48 @@ class ServingMetrics:
     def on_adapter_mix(self, distinct: int):
         """Distinct adapters (base rows excluded) in one decode launch."""
         self._adapter_mix_samples.append(int(distinct))
+
+    def tokens_per_launch(self) -> Optional[float]:
+        """Mean decode tokens emitted per row per decode-side launch
+        (None before any): 1.0 for plain decode, up to K for multi-step
+        decode."""
+        if not self.counters["decode_launch_rows"]:
+            return None
+        return (self.counters["decode_tokens"]
+                / self.counters["decode_launch_rows"])
+
+    def on_spec_step(self, drafted: int, accepted: int, emitted: int,
+                     rolled_back: int, rows: int):
+        """One verify launch over `rows` emitting sequences: `drafted`
+        draft tokens scored, `accepted` kept, `emitted` tokens in all
+        (accepted + corrections/bonuses), `rolled_back` rejected-draft
+        slots truncated out of the paged cache."""
+        self.counters["spec_steps"] += 1
+        self.counters["spec_verified_rows"] += rows
+        self.counters["spec_drafted_tokens"] += drafted
+        self.counters["spec_accepted_tokens"] += accepted
+        self.counters["spec_emitted_tokens"] += emitted
+        self.counters["spec_rollback_tokens"] += rolled_back
+        self._accepted_samples.append(accepted)
+
+    def on_spec_draft_oom(self, dropped: int):
+        self.counters["spec_draft_oom_drops"] += dropped
+
+    def spec_acceptance_rate(self) -> Optional[float]:
+        """accepted / drafted over the engine's life (None before any
+        draft was scored)."""
+        if not self.counters["spec_drafted_tokens"]:
+            return None
+        return (self.counters["spec_accepted_tokens"]
+                / self.counters["spec_drafted_tokens"])
+
+    def spec_tokens_per_step(self) -> Optional[float]:
+        """Mean tokens emitted per sequence per verify launch (1.0 =
+        speculation never paid)."""
+        if not self.counters["spec_verified_rows"]:
+            return None
+        return (self.counters["spec_emitted_tokens"]
+                / self.counters["spec_verified_rows"])
 
     def set_kv_info(self, *, kv_dtype, page_bytes, pool_bytes,
                     bytes_per_token):
@@ -243,6 +312,15 @@ class ServingMetrics:
         hr = self.prefix_hit_rate()
         if hr is not None:
             snap["prefix_hit_rate"] = round(hr, 4)
+        ar = self.spec_acceptance_rate()
+        if ar is not None:
+            snap["spec_acceptance_rate"] = round(ar, 4)
+        tps = self.spec_tokens_per_step()
+        if tps is not None:
+            snap["spec_tokens_per_step"] = round(tps, 4)
+        tpl = self.tokens_per_launch()
+        if tpl is not None:
+            snap["decode_tokens_per_launch"] = round(tpl, 4)
         for name, (scale, suffix, digits) in self._reservoir_fmt.items():
             for q, v in self.reservoir_percentiles(name).items():
                 if v is not None:

@@ -35,7 +35,7 @@ from .errors import EngineOverloaded
 from .kv_cache import BlockAllocator, BlocksExhausted
 
 __all__ = ["RequestState", "Request", "PrefillChunk", "ScheduleStep",
-           "Scheduler", "adapter_prefix_key"]
+           "Scheduler", "adapter_prefix_key", "bump_request_counter"]
 
 
 def adapter_prefix_key(ids, adapter):
@@ -59,6 +59,18 @@ class RequestState(enum.Enum):
 
 
 _req_counter = itertools.count()
+
+
+def bump_request_counter(beyond: int):
+    """Advance the global request-id counter past `beyond`: a resumed
+    snapshot restores requests under their original ids, and requests
+    added afterwards must not collide with them."""
+    global _req_counter
+    nxt = next(_req_counter)
+    if nxt <= beyond:
+        _req_counter = itertools.count(beyond + 1)
+    else:
+        _req_counter = itertools.count(nxt)
 
 
 class Request:
@@ -98,6 +110,10 @@ class Request:
         # sets it to the registry's versioned (name, load generation)
         self.adapter = adapter
         self.adapter_key = adapter
+        # the reference's disaggregation pin (a prefill-role engine
+        # decodes such a request itself); roles are not ported, so it
+        # only rides snapshots
+        self.colocate = False
 
     # prompt the next prefill must process (original prompt + anything
     # generated before a preemption — recompute-style resume)

@@ -19,9 +19,10 @@ Design rules (they keep fault runs deterministic):
 
 Points registered by the port: `serving.kv.alloc_page`,
 `serving.radix.insert`, `serving.engine.prefill_chunk`,
-`serving.engine.decode_step`, `serving.engine.nan_logits`,
-`serving.engine.deadline_storm`, `serving.lora.load_fail` and
-`serving.lora.evict_race`.
+`serving.engine.decode_step`, `serving.engine.multi_decode_step`,
+`serving.engine.verify_step`, `serving.engine.nan_logits`,
+`serving.engine.deadline_storm`, `serving.spec.draft_storm`,
+`serving.lora.load_fail` and `serving.lora.evict_race`.
 """
 from __future__ import annotations
 

@@ -49,3 +49,36 @@ def model_pair(seed: int = 0, **overrides):
                             generator=torch.Generator().manual_seed(seed))
     port.load_state_dict(from_jax_state_dict(exported, cfg), strict=True)
     return ref, port
+
+
+def counting_clock():
+    """A tracer clock that returns 0, 1, 2, ... per call: two engines
+    whose tracers read it in the same order stamp the same values."""
+    return iter(range(10 ** 9)).__next__
+
+
+def trace_view(tracer):
+    """Every trace of `tracer`, in request-id order, with the engine
+    names dropped (the two engines' metrics names differ by
+    construction): meta, begin/end stamps, finish reason, and the spans
+    and marks in order by name, stamps and arguments."""
+    def args(a):
+        return {k: v for k, v in a.items() if k != "engine"}
+
+    return [{"meta": args(tr.meta), "t": (tr.t_begin, tr.t_end),
+             "finish": tr.finish_reason,
+             "spans": [(s["name"], s["t0"], s["t1"], args(s["args"]))
+                       for s in tr.spans],
+             "marks": [(m["name"], m["t"], args(m["args"]))
+                       for m in tr.marks]}
+            for tr in sorted(tracer.traces(), key=lambda t: t.request_id)]
+
+
+def assert_traces_equal(port, ref, spans=(), marks=()):
+    """Two `trace_view`s are equal request by request, and the port's
+    holds at least the named spans and marks."""
+    assert len(port) == len(ref) and ref
+    for i, (p, r) in enumerate(zip(port, ref)):
+        assert p == r, i
+    assert {s[0] for v in port for s in v["spans"]} >= set(spans)
+    assert {m[0] for v in port for m in v["marks"]} >= set(marks)

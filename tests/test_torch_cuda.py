@@ -21,8 +21,8 @@ from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn.quant import weight_quantize
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.serving import (AdapterRegistry, LoRAAdapter,
-                                      ServingEngine)
+from paddle_tpu_torch.serving import (AdapterRegistry, DraftModelProposer,
+                                      LoRAAdapter, ServingEngine)
 from paddle_tpu_torch.serving.lora import runtime as lora_runtime
 
 pytestmark = pytest.mark.cuda
@@ -1773,3 +1773,166 @@ def test_rms_norm_rows_refuses_what_it_does_not_take(card):
         fn.rms_norm_rows(x.t().contiguous().t(), w)
     with torch.no_grad():
         fn.rms_norm_rows(x.clone().requires_grad_(), w)
+
+
+# ------------------------------------- multi-step decode, spec, snapshot
+SERVE_KW = dict(num_pages=64, page_size=8, token_budget=64,
+                batch_buckets=[4], prefill_buckets=[64], pages_buckets=[8])
+
+
+def _tiny_bf16(dev):
+    """TINY in bf16 (rope tables stay fp32), seeded on the CPU."""
+    model = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu",
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(4))
+    return model.to(dev)
+
+
+def _serve_prompts(n=4, new=10, seed=12):
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, 128, int(k)).tolist(), new)
+            for k in rng.randint(5, 17, n)]
+
+
+def _serve(eng, prompts):
+    rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_multi_step_launch_has_no_host_sync_and_equals_k1(card, kv_dtype,
+                                                         monkeypatch):
+    """bf16, K=4: each launch runs under set_sync_debug_mode("error")
+    (nothing inside the K steps waits on the card), the paged-decode
+    kernel runs once per layer per step, and the tokens equal K=1's
+    (all rows admitted together, so each step's batch is K=1's)."""
+    model = _tiny_bf16(card)
+    prompts = _serve_prompts()
+    k1 = _serve(ServingEngine(model, device=card, kv_dtype=kv_dtype,
+                              **SERVE_KW), prompts)
+    inner = type(model).forward_paged_decode_multi
+
+    def no_sync(self, *a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(self, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(type(model), "forward_paged_decode_multi", no_sync)
+    eng = ServingEngine(model, device=card, kv_dtype=kv_dtype,
+                        decode_steps=4, **SERVE_KW)
+    counter = "int8_launches" if kv_dtype else "launches"
+    n0 = getattr(pa.paged_attention_decode, counter)
+    k4 = _serve(eng, prompts)
+    c = eng.metrics.counters
+    assert getattr(pa.paged_attention_decode, counter) - n0 == \
+        c["decode_launch_steps"] * TINY["num_hidden_layers"] > 0
+    assert c["decode_launches"] < c["decode_launch_steps"]
+    assert k4 == k1
+    eng.reset_prefix_cache()
+    assert eng.allocator.num_used == 0
+
+
+def test_lora_with_decode_steps_4_on_card(card):
+    """Multi-LoRA at K=4 on the card: every request completes, the LoRA
+    kernel ran once per module and layer per step and chunk."""
+    model = _tiny_llama(card)
+    reg = AdapterRegistry.for_model(model, rank_buckets=(4, 8), slots=3,
+                                    device=card)
+    for name, rank, seed in (("l4", 4, 1), ("h8", 8, 2)):
+        reg.load(LoRAAdapter.random(name, rank, reg.layout.dims, seed=seed,
+                                    scale=0.2))
+    eng = ServingEngine(model, device=card, lora=reg, decode_steps=4,
+                        **SERVE_KW)
+    tags = ["l4", "h8", None, "l4"]
+    n0 = lm.lora_apply.launches
+    rids = [eng.add_request(p, max_new_tokens=m, adapter=a)
+            for (p, m), a in zip(_serve_prompts(), tags)]
+    out = eng.run()
+    assert [len(out[r]) for r in rids] == [10] * 4
+    c = eng.metrics.counters
+    assert lm.lora_apply.launches - n0 == (
+        c["decode_launch_steps"] + c["prefill_chunks"]) * 7 \
+        * TINY["num_hidden_layers"] > 0
+    assert all(reg.refs_of(n) == 0 for n in ("l4", "h8"))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cache_write_span_on_card_bitwise_equals_cpu(card, int8):
+    rng = np.random.RandomState(13)
+    shape = (12, 2, 8, 64)
+    kc = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    vc = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    kn = torch.from_numpy(rng.randn(4, 5, 2, 64).astype(np.float32))
+    vn = torch.from_numpy(rng.randn(4, 5, 2, 64).astype(np.float32))
+    idx = (torch.tensor([[3, 7, 0], [1, 9, 4], [2, 0, 0], [0, 0, 0]],
+                        dtype=torch.int32),
+           torch.tensor([5, 3, 1, 0], dtype=torch.int32),
+           torch.tensor([6, 15, 2, -1], dtype=torch.int32))
+    if int8:
+        kc, vc = (kc * 40).to(torch.int8), (vc * 40).to(torch.int8)
+        scales = [torch.from_numpy(rng.rand(*shape[:3]).astype(np.float32))
+                  for _ in range(2)]
+    else:
+        kc, vc, kn, vn = (t.bfloat16() for t in (kc, vc, kn, vn))
+        scales = []
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.clone().to(dev) for t in (kc, vc, kn, vn) + idx]
+        sc = [t.clone().to(dev) for t in scales]
+        kw = dict(zip(("k_scale", "v_scale"), sc))
+        outs[dev] = [t.cpu() for t in pa.paged_cache_write_span(*args,
+                                                                **kw)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_spec_target_as_draft_on_card(card):
+    """The bf16 target as its own draft model on the card: every
+    request completes, drafts are accepted, the draft's decode launches
+    went through the paged kernel, both pools end empty."""
+    model = _tiny_bf16(card)
+    dp = DraftModelProposer(model, num_pages=64, page_size=8,
+                            prefill_buckets=[64], batch_buckets=[4],
+                            pages_buckets=[8])
+    eng = ServingEngine(model, device=card, proposer=dp, spec_k=4,
+                        spec_buckets=[4], **SERVE_KW)
+    n0 = pa.paged_attention_decode.launches
+    out = _serve(eng, _serve_prompts())
+    assert [len(o) for o in out] == [10] * 4
+    snap = eng.metrics.snapshot()
+    assert snap["spec_steps"] > 0 and snap["spec_acceptance_rate"] > 0
+    assert pa.paged_attention_decode.launches - n0 > 0
+    assert dp.num_propose_failures == 0 and not dp.disabled
+    assert dp.num_draft_launches > 0
+    assert not dp._states and dp.allocator.num_used == 0
+    eng.reset_prefix_cache()
+    assert eng.allocator.num_used == 0
+
+
+def test_snapshot_resume_on_card(card):
+    """fp32 on the card: snapshot mid-run, JSON round trip, vacate,
+    from_snapshot on a fresh engine: every request completes with the
+    uninterrupted run's tokens; both engines end with zero pages."""
+    import json
+    model = _tiny_llama(card)
+    prompts = _serve_prompts(seed=14)
+    want = _serve(ServingEngine(model, device=card, **SERVE_KW), prompts)
+    eng = ServingEngine(model, device=card, decode_steps=2, **SERVE_KW)
+    rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
+    for _ in range(3):
+        eng.step()
+    snap = json.loads(json.dumps(eng.snapshot()))
+    eng.vacate()
+    assert eng.allocator.num_used == 0
+    res = ServingEngine.from_snapshot(model, snap, device=card,
+                                      decode_steps=2, **SERVE_KW)
+    res.run()
+    for rid, w in zip(rids, want):
+        got = (res.requests[rid] if rid in res.requests
+               else eng.requests[rid]).output_ids
+        assert got == w
+    res.reset_prefix_cache()
+    assert res.allocator.num_used == 0

@@ -89,16 +89,16 @@ def test_int8_kv_is_refused():
         pa.check_supported_paged((1, 1, 64), (2, 1, 8, 64), torch.float16)
 
 
-def test_cache_write_matches_reference_and_drops_pad_rows():
-    """A pad decode row writes at position -1. The reference drops it (an
-    out-of-bounds scatter offset); a torch index of -1 would wrap into
-    the last slot. The port must leave the cache unchanged for it."""
+def _check_write_drops_row_1(pos1):
+    """Three rows writing at 12, `pos1` and 17 over 3-page tables (page
+    8): the cache must equal the reference's, with exactly rows 0 and
+    2's (page, slot)s changed — row 1 writes nothing."""
     rng = np.random.RandomState(1)
     num_pages, KVH, page, D = 9, 2, 8, 64
     kc = rng.randn(num_pages, KVH, page, D).astype(np.float32)
     vc = rng.randn(num_pages, KVH, page, D).astype(np.float32)
     bt = np.array([[3, 5, 0], [0, 0, 0], [7, 2, 8]], np.int32)
-    pos = np.array([12, -1, 17], np.int32)       # row 1 is a pad row
+    pos = np.array([12, pos1, 17], np.int32)
     kn = rng.randn(3, KVH, D).astype(np.float32)
     vn = rng.randn(3, KVH, D).astype(np.float32)
     want_k, want_v = ref_pa.paged_cache_write(
@@ -108,11 +108,26 @@ def test_cache_write_matches_reference_and_drops_pad_rows():
                                    for a in (kn, vn, bt, pos)))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(want_k))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(want_v))
-    # exactly the two live (page, slot)s changed: the pad row wrote
-    # nothing — in particular not the last slot of its page 0
     diff_slots = {(p, s) for p, h, s in np.argwhere(
         np.any(tk.numpy() != kc, axis=3)).tolist()}
     assert diff_slots == {(5, 4), (8, 1)}
+
+
+def test_cache_write_matches_reference_and_drops_pad_rows():
+    """A pad decode row writes at position -1. The reference drops it (an
+    out-of-bounds scatter offset); a torch index of -1 would wrap into
+    the last slot. The port must leave the cache unchanged for it — in
+    particular not the last slot of its page 0."""
+    _check_write_drops_row_1(-1)
+
+
+def test_cache_write_drops_rows_past_the_table():
+    """A row frozen at its cap in a multi-step decode launch writes one
+    slot past its sequence, which may lie past the block table (here
+    position 24: page 3 of a 3-page table). The reference drops it (an
+    out-of-range page id); a clamped index would rewrite slot 0 of the
+    row's last page."""
+    _check_write_drops_row_1(24)
 
 
 @pytest.mark.parametrize("start,length", [(0, 9), (5, 9), (13, 3)])

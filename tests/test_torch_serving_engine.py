@@ -87,15 +87,20 @@ def test_engine_greedy_token_identical_to_reference(models):
 
 # the string "registry" stands for a CPU AdapterRegistry for SMALL
 @pytest.mark.parametrize("kw", [
-    dict(proposer=object()), dict(decode_steps=2), dict(role="decode"),
-    dict(wq="int8", kv_dtype="int8", decode_steps=2),
+    dict(proposer=object(), decode_steps=2),
+    dict(proposer=object(), role="prefill"), dict(role="decode"),
+    dict(wq="int8", kv_dtype="int8", decode_steps=2, mesh=object()),
     dict(lora="registry", proposer=object()),
     dict(mesh=object()), dict(host_spill_pages=4), dict(role="prefill"),
-    dict(compile_cache="/nonexistent"), dict(trace=True)])
+    dict(compile_cache="/nonexistent"),
+    dict(trace=True, compile_cache="/nonexistent")])
 def test_unported_features_are_refused(models, kw):
-    """Quantized serving (tests/test_torch_serving_quant.py) and LoRA
-    (tests/test_torch_serving_lora.py) are ported; combined with an
-    unported feature they are refused, before the model is converted."""
+    """Quantized serving (tests/test_torch_serving_quant.py), LoRA
+    (tests/test_torch_serving_lora.py), multi-step decode, speculative
+    decoding and tracing (tests/test_torch_serving_multi.py, _spec.py,
+    _snapshot.py) are ported; a pair the reference's capability table
+    refuses, or any of them with an unported feature, is refused before
+    the model is converted."""
     if kw.get("lora") == "registry":
         kw = dict(kw, lora=AdapterRegistry.for_model(models[1],
                                                      device="cpu"))
