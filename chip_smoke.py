@@ -55,6 +55,42 @@ Phases, one JSON line each:
                token after the first and its finish; export() writes
                build/serve_trace.json, which json.load reads.
                Reports the decode-step wall beside phase 3's.
+  3f. serve_spill — the host spill tier on the same model: a seeded
+               512-token shared prefix + 8 seeded 512-token tails, 8 new
+               tokens, two passes one request at a time, through a
+               device pool of 128 usable pages (the working set is ~290)
+               with one batch (1), prefill (1024) and pages (72) bucket:
+               spill off, spill on (host pool 512 pages), spill off and
+               on with int8 KV, and spill on with one host_spill.corrupt
+               fault (pass 1 and the first pass-2 request). Checks spill-on tokens == spill-off tokens (bf16,
+               int8, and through the corrupt page, counted once), pages
+               demoted, promoted and host hits > 0 with no eviction on
+               the drop rung, cached + prefilled tokens conserved, both
+               pools empty after reset_prefix_cache, and the paged kernel
+               (bf16 or int8) once per layer per decode launch. Reports
+               per-page demote and promote costs (host and, from CUDA
+               events, device), the codec's encode and decode ms a page,
+               host-to-device and device-to-host GB/s, a 32-page tail's
+               promotion against a 512-token recompute chunk, pass-2
+               TTFT with spill on and off, and the prefill tokens saved.
+  3g. fleet  — two replicas of the same model (1024 pages each, pinned
+               buckets) behind PrefixAffinityRouter take serve's 16
+               prompts; `fleet.replica_crash` kills replica-0 mid-run.
+               Checks every request completes with its token count, none
+               lost, each stream saw each token once and the tokens
+               before the crash are a prefix of the final ones, every
+               pool empty at the end; a prefix pull (the crashed
+               replica's vacated engine adopts what the survivor exports
+               for a prompt it served start to end: adopted == exported
+               pages, one prefix hit, the survivor's tokens); a
+               prefill-role engine's hand-off (reason "handoff", a
+               page-aligned span), resumed on the survivor; FleetServer +
+               HttpFrontend on 127.0.0.1: two SSE streams equal to their
+               handles' tokens, one JSON request, /healthz 200, /metrics
+               naming the serving counters; the paged kernel once per
+               layer per decode launch of every engine. Reports
+               migrations, the drain wall and agreement with phase 3
+               (not gated).
   3e. generate — `LlamaForCausalLM.generate` on the same bf16 model: 4
                prompts of 512 tokens (the first 512 of the first 4 serve
                prompts that long), 32 new tokens; greedy eager, greedy
@@ -262,8 +298,9 @@ Phases, one JSON line each:
                  main path calls it: 0 launches).
 Then the `{"kernels": [...]}` line (each row's `launches` its main path's
 count; the flash and AdamW rows also `launches_by_phase` for train,
-train_loop and generate, the paged-decode row for serve, serve_multi and
-serve_spec), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
+train_loop and generate, the paged-decode row for serve, serve_multi,
+serve_spec, serve_spill and fleet, the int8 row for serve_quant and
+serve_spill), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
 with status 2 and prints no result.
 """
@@ -456,6 +493,27 @@ SERVE_PAGES = 2048
 # the 4.3 GB serve pool); the trace phase's Chrome export
 SERVE_K, SPEC_K, DRAFT_PAGES = 4, 4, 1536
 TRACE_PATH = os.path.join("build", "serve_trace.json")
+# serve_spill: a seeded shared prefix and 8 seeded tails (page-aligned),
+# 8 new tokens each, two passes one request at a time, through a device
+# pool far below the ~290-page working set and a host pool above it; one
+# batch, prefill and pages bucket, so spill on and off launch the same
+# shapes (token budget 1024: a 32-page tail's promotion fits its budget).
+# A promotion takes free pages only (the reference's rule: it never
+# evicts for a maybe-hit), and between requests this workload leaves
+# usable pages - 96 free: 128 usable pages (129 with the pad page) leave
+# the 32 a tail needs
+SPILL_PREFIX, SPILL_TAIL, SPILL_TAILS, SPILL_NEW = 512, 512, 8, 8
+SPILL_PAGES, SPILL_HOST = 129, 512
+SPILL_KW = dict(page_size=16, num_pages=SPILL_PAGES, token_budget=1024,
+                batch_buckets=[1], prefill_buckets=[1024],
+                pages_buckets=[72])
+# fleet: two replicas of serve's model, 1024 pages each, pinned buckets
+# (serve's batch of 16, chunks of 512, 72-page tables); replica-0 crashes
+# after this many crash-point checks (both replicas check once a step)
+FLEET_PAGES, FLEET_CRASH_AFTER, FLEET_HTTP_NEW = 1024, 24, 8
+FLEET_KW = dict(page_size=16, num_pages=FLEET_PAGES, token_budget=512,
+                batch_buckets=[16], prefill_buckets=[512],
+                pages_buckets=[72])
 # serve_lora: the registry's rank buckets and slots per bucket, and the
 # adapters (name, rank, payload) tagged round-robin with base rows
 LORA_BUCKETS, LORA_SLOTS = (8, 16), 4
@@ -1025,6 +1083,488 @@ def phase_trace(served, seed: int):
           "tokens_vs_serve": agreement(outs, served["outs"]),
           "pages_used_after_reset": _pages_left(eng),
           "seconds": time.perf_counter() - t0})
+
+
+def spill_prompts(seed: int, vocab: int):
+    """serve_spill's 16 requests: the shared prefix + each tail, twice."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 7)
+    shared = rng.randint(0, vocab, SPILL_PREFIX).tolist()
+    tails = [rng.randint(0, vocab, SPILL_TAIL).tolist()
+             for _ in range(SPILL_TAILS)]
+    return [shared + t for t in tails] * 2
+
+
+def spill_drain(eng, prompts):
+    """One request at a time: (outputs, host seconds from add_request to
+    the step that emitted its first token)."""
+    outs, ttft = [], []
+    for p in prompts:
+        t0 = time.perf_counter()
+        rid = eng.add_request(p, max_new_tokens=SPILL_NEW)
+        first = None
+        while eng.has_work():
+            emitted = eng.step()
+            if first is None and any(r == rid for r, _ in emitted):
+                first = time.perf_counter() - t0
+        outs.append(eng.requests[rid].output_ids)
+        ttft.append(first)
+    return outs, ttft
+
+
+def spill_timers(eng):
+    """Wrap the engine's page I/O: host seconds of each demotion (the
+    gather, its one copy and the encode), of each promotion's decode and
+    CRC check, and of its enqueue (the copy into pinned memory, the
+    host-to-device copy and the cache writes launched, not waited for).
+    Returns the accumulator."""
+    acc = {"demote_s": 0.0, "demoted": 0, "check_s": 0.0,
+           "enqueue_s": 0.0, "promoted": 0}
+    gather, records, scatter = (eng._gather_page_payloads,
+                                eng._page_records, eng._scatter_page_records)
+
+    def timed_gather(pids):
+        t0 = time.perf_counter()
+        out = gather(pids)
+        acc["demote_s"] += time.perf_counter() - t0
+        acc["demoted"] += len(pids)
+        return out
+
+    def timed_records(payload):
+        t0 = time.perf_counter()
+        out = records(payload)
+        acc["check_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_scatter(pids, recs):
+        t0 = time.perf_counter()
+        scatter(pids, recs)
+        acc["enqueue_s"] += time.perf_counter() - t0
+        acc["promoted"] += len(pids)
+
+    eng._gather_page_payloads = timed_gather
+    eng._page_records = timed_records
+    eng._scatter_page_records = timed_scatter
+    return acc
+
+
+def spill_costs(eng, model, seed: int):
+    """The host cost of the page codec and the copies, and the crossover
+    the spill tier trades on, measured on `eng`'s caches: a 32-page
+    tail's demotion and promotion (decode + CRC, the pinned copy and the
+    cache writes, synchronized), against a recompute of the same tail (a
+    prefill chunk of its 512 tokens after a 512-token cached prefix, the
+    chunk a default-bucketed engine launches) and the 16-token chunk a
+    promoted tail still runs. Median of 3 each."""
+    import torch
+    from paddle_tpu_torch.serving.kv_cache import pack_page_payload
+    n = SPILL_TAIL // 16
+    pids = list(range(1, 1 + n))
+    times = {}
+
+    def med(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out) * 1e3
+
+    payloads = eng._gather_page_payloads(pids)
+    times["demote_32_pages_ms"] = med(lambda: eng._gather_page_payloads(pids))
+    recs = [eng._page_records(p) for p in payloads]
+    times["check_32_pages_ms"] = med(
+        lambda: [eng._page_records(p) for p in payloads])
+    times["scatter_32_pages_ms"] = med(
+        lambda: eng._scatter_page_records(pids, recs))
+    times["promote_32_pages_ms"] = (times["check_32_pages_ms"]
+                                    + times["scatter_32_pages_ms"])
+    times["encode_ms_per_page"] = med(lambda: [pack_page_payload(
+        eng._page_heads, r) for r in recs]) / n
+    times["decode_ms_per_page"] = times["check_32_pages_ms"] / n
+    # the copies alone: pinned host -> device, device -> pageable host
+    nbytes = n * eng._page_raw_bytes
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    h2d = med(lambda: dev.copy_(pinned, non_blocking=True))
+    d2h = med(lambda: pinned.copy_(dev))
+    d2h_pageable = med(lambda: dev.cpu())
+    times.update(page_bytes=eng._page_raw_bytes, payload_bytes=len(
+        payloads[0]), h2d_gb_per_s=nbytes / h2d / 1e6,
+        d2h_gb_per_s=nbytes / d2h / 1e6,
+        d2h_pageable_gb_per_s=nbytes / d2h_pageable / 1e6)
+    # recompute of the tail against the chunk a promoted tail still runs
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, model.cfg.vocab_size, (1, SPILL_TAIL),
+                        generator=gen).to("cuda")
+    bt = torch.arange(1, 65, dtype=torch.int32, device="cuda")
+
+    def chunk(S, start):
+        with torch.inference_mode():
+            model.forward_paged_prefill(ids[:, :S], eng.kv_caches, bt,
+                                        start, S)
+
+    times["recompute_512_chunk_ms"] = med(lambda: chunk(512, SPILL_PREFIX))
+    times["tail_16_chunk_ms"] = med(lambda: chunk(16, 1008))
+    times["promote_plus_16_chunk_ms"] = (times["promote_32_pages_ms"]
+                                         + times["tail_16_chunk_ms"])
+    return times
+
+
+def phase_serve_spill(served, seed: int):
+    """The host spill tier at serve's widths: 16 one-at-a-time requests
+    (a 512-token shared prefix + 8 tails of 512, twice) through a device
+    pool of 128 usable pages, spill off and on (host pool 512 pages) at
+    bf16 and with int8 KV, and a spill-on run with one corrupt host page
+    (pass 1 and the first pass-2 request, whose promotion it hits).
+    Gates: spill-on tokens == spill-off tokens at bf16 and int8; pages
+    demoted, promoted and host hits > 0, no eviction took the drop rung;
+    cached + prefilled tokens conserved; both pools empty after
+    reset_prefix_cache; the corrupt page counted once and recomputed to
+    the same tokens; the paged kernel once per layer per decode launch."""
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.utils import faults
+
+    t0 = time.perf_counter()
+    model = served["model"]
+    cfg = model.cfg
+    prompts = spill_prompts(seed, cfg.vocab_size)
+    runs = {}
+    launches = {"launches": 0, "int8_launches": 0}
+    for name, host, kv, corrupt in (("off", 0, None, False),
+                                    ("on", SPILL_HOST, None, False),
+                                    ("off_int8", 0, "int8", False),
+                                    ("on_int8", SPILL_HOST, "int8", False),
+                                    ("on_corrupt", SPILL_HOST, None, True)):
+        eng = ServingEngine(model, host_spill_pages=host, kv_dtype=kv,
+                            seed=seed, **SPILL_KW)
+        acc = spill_timers(eng) if name == "on" else None
+        counter = "int8_launches" if kv else "launches"
+        before = getattr(paged_attention_decode, counter)
+        if corrupt:
+            faults.inject("host_spill.corrupt", payload=True, times=1)
+        try:
+            outs, ttft = spill_drain(
+                eng, prompts[:SPILL_TAILS + 1] if corrupt else prompts)
+        finally:
+            faults.clear()
+        n = getattr(paged_attention_decode, counter) - before
+        launches[counter] += n
+        c = dict(eng.metrics.counters)
+        if n != c["decode_launches"] * cfg.num_hidden_layers or not n:
+            raise AssertionError(f"serve_spill {name}: {n} paged launches "
+                                 f"for {c['decode_launches']} decode "
+                                 f"launches x {cfg.num_hidden_layers}")
+        if any(len(o) != SPILL_NEW for o in outs):
+            raise AssertionError(f"serve_spill {name}: a request ended "
+                                 f"short: {[len(o) for o in outs]}")
+        if c["requests_quarantined"] or c["engine_failures"]:
+            raise AssertionError(f"serve_spill {name}: non-finite logits")
+        cached = eng.radix.num_cached_pages
+        used = eng.allocator.num_used
+        eng.reset_prefix_cache()
+        host_left = eng.host_store.num_used if eng.host_store else 0
+        if used != cached or eng.allocator.num_used or host_left:
+            raise AssertionError(f"serve_spill {name}: {used} pages used "
+                                 f"for {cached} cached; after reset "
+                                 f"{eng.allocator.num_used} device and "
+                                 f"{host_left} host pages")
+        run = {"outs": outs, "ttft_pass2_s": ttft[SPILL_TAILS:],
+               "counters": {k: c[k] for k in (
+                   "kv_pages_demoted", "kv_pages_promoted",
+                   "host_prefix_hits", "host_pages_dropped",
+                   "radix_evict_demoted", "radix_evict_dropped",
+                   "cached_tokens_served", "prefill_tokens",
+                   "prefix_hits", "host_spill_corrupt", "decode_launches",
+                   "prefill_chunks")}}
+        if acc is not None:
+            run["page_io"] = {
+                "demote_ms_per_page": (acc["demote_s"] * 1e3
+                                       / max(1, acc["demoted"])),
+                "promote_check_ms_per_page": (acc["check_s"] * 1e3
+                                              / max(1, acc["promoted"])),
+                "promote_enqueue_ms_per_page": (acc["enqueue_s"] * 1e3
+                                                / max(1, acc["promoted"])),
+                "demoted": acc["demoted"], "promoted": acc["promoted"]}
+            run["costs"] = spill_costs(eng, model, seed)
+        runs[name] = run
+        del eng
+        gc.collect()
+    for off, on in (("off", "on"), ("off_int8", "on_int8"),
+                    ("off", "on_corrupt")):
+        a, b = runs[off], runs[on]
+        if a["outs"][:len(b["outs"])] != b["outs"]:
+            bad = [i for i, (x, y) in enumerate(zip(a["outs"], b["outs"]))
+                   if x != y]
+            raise AssertionError(f"serve_spill {on}: tokens differ from "
+                                 f"{off} at requests {bad}")
+        if on == "on_corrupt":
+            continue
+        ca, cb = a["counters"], b["counters"]
+        if (ca["cached_tokens_served"] + ca["prefill_tokens"]
+                != cb["cached_tokens_served"] + cb["prefill_tokens"]):
+            raise AssertionError(f"serve_spill {on}: cached + prefilled "
+                                 f"tokens not conserved: {ca} {cb}")
+    for on in ("on", "on_int8"):
+        c = runs[on]["counters"]
+        if not (c["kv_pages_demoted"] > 0 and c["kv_pages_promoted"] > 0
+                and c["host_prefix_hits"] > 0
+                and c["radix_evict_dropped"] == 0):
+            raise AssertionError(f"serve_spill {on}: the spill tier did not "
+                                 f"run as it should: {c}")
+    if runs["on_corrupt"]["counters"]["host_spill_corrupt"] != 1:
+        raise AssertionError("serve_spill: the corrupt page was not "
+                             "counted once")
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    emit({"phase": "serve_spill", "model": "llama_3_8b", "dtype": "bfloat16",
+          "layers": cfg.num_hidden_layers, "device_pages": SPILL_PAGES,
+          "host_pages": SPILL_HOST, "requests": len(prompts),
+          "prompt_tokens": SPILL_PREFIX + SPILL_TAIL, "new_tokens": SPILL_NEW,
+          "buckets": {k: SPILL_KW[k] for k in (
+              "batch_buckets", "prefill_buckets", "pages_buckets")},
+          "counters": {k: r["counters"] for k, r in runs.items()},
+          "tokens_equal": {"on_vs_off": True, "int8_on_vs_off": True,
+                           "corrupt_vs_off": True},
+          "page_io": runs["on"]["page_io"], "costs": runs["on"]["costs"],
+          "ttft_pass2_ms": {k: mean(r["ttft_pass2_s"]) * 1e3
+                            for k, r in runs.items()},
+          "prefill_tokens_saved": {
+              "bf16": runs["off"]["counters"]["prefill_tokens"]
+              - runs["on"]["counters"]["prefill_tokens"],
+              "int8": runs["off_int8"]["counters"]["prefill_tokens"]
+              - runs["on_int8"]["counters"]["prefill_tokens"]},
+          "paged_attention_decode_launches": launches["launches"],
+          "paged_attention_decode_int8_launches": launches["int8_launches"],
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def phase_fleet(served, seed: int):
+    """The in-process fleet on serve's model: two replicas (1024 pages
+    each, pinned buckets) behind PrefixAffinityRouter take serve's 16
+    prompts; replica-0 crashes mid-run and its requests migrate. Gates:
+    every request completes with its token count, none lost, each stream
+    saw every token exactly once, the tokens streamed before the crash a
+    prefix of the final ones, every pool empty at the end. Then a prefix
+    pull (the crashed replica's vacated engine adopts what the survivor
+    exports for a prompt it served, then serves it: adopted == exported
+    pages, one prefix hit, the survivor's tokens), a prefill-role
+    engine's hand-off (reason "handoff", a page-aligned span; resumed on
+    the survivor), and FleetServer + HttpFrontend on 127.0.0.1 (two SSE
+    streams == their handles' tokens, one JSON request, /healthz 200,
+    /metrics naming the serving counters)."""
+    import asyncio
+    from paddle_tpu_torch.kernels.paged_attention import \
+        paged_attention_decode
+    from paddle_tpu_torch.profiler.exposition import parse_exposition_names
+    from paddle_tpu_torch.serving import (Fleet, FleetServer, HttpFrontend,
+                                          PrefixAffinityRouter, ReplicaState,
+                                          ServingEngine)
+    from paddle_tpu_torch.utils import faults
+
+    t0 = time.perf_counter()
+    model = served["model"]
+    cfg = model.cfg
+    prompts = served["prompts"]
+    engines = [ServingEngine(model, seed=seed, **FLEET_KW) for _ in range(2)]
+    paged_attention_decode.launches = 0          # the main path starts
+    fleet = Fleet(engines, router=PrefixAffinityRouter(),
+                  stall_timeout_s=600.0)
+    events = {}
+    handles = []
+    for p, m in prompts:
+        h = fleet.submit(p, max_new_tokens=m)
+        h.subscribe(lambda ev, rid=h.request_id: events.setdefault(
+            rid, []).append(ev))
+        handles.append(h)
+    placed = {h.request_id: fleet._assign[h.request_id].name
+              for h in handles}
+    faults.inject("fleet.replica_crash", payload="replica-0",
+                  after=FLEET_CRASH_AFTER, times=-1)
+    at_crash = None
+    t_drain = time.perf_counter()
+    try:
+        steps = 0
+        while fleet.has_work():
+            before = [list(h.tokens) for h in handles]
+            fleet.step_all()
+            steps += 1
+            if at_crash is None and \
+                    fleet.replica("replica-0").state is ReplicaState.DEAD:
+                at_crash = before
+            if steps > 5000:
+                raise RuntimeError("the fleet did not drain")
+    finally:
+        faults.clear()
+    drain_s = time.perf_counter() - t_drain
+    if at_crash is None:
+        raise AssertionError("replica-0 never crashed")
+    c = dict(fleet.counters)
+    for h, (p, m), pre in zip(handles, prompts, at_crash):
+        toks = [e["token"] for e in events[h.request_id]
+                if e["type"] == "token"]
+        if not (h.finished and h.finish_reason in ("length", "stop")
+                and len(h.tokens) == m and toks == h.tokens
+                and h.tokens[:len(pre)] == pre):
+            raise AssertionError(f"fleet request {h.request_id}: "
+                                 f"{h.finish_reason}, {len(h.tokens)} of {m} "
+                                 f"tokens, {len(toks)} streamed, "
+                                 f"{len(pre)} before the crash")
+    migrated_with_tokens = sum(1 for h, pre in zip(handles, at_crash)
+                               if h.migrations and pre)
+    if c["requests_lost"] or not c["requests_migrated"] \
+            or not migrated_with_tokens:
+        raise AssertionError(f"fleet counters {c}: a loss, or no request "
+                             f"migrated mid-stream")
+    survivor = fleet.replica("replica-1").engine
+    crashed = fleet.replica("replica-0").engine
+    # prefix pull: a prompt the survivor served from the start. The
+    # paged kernel balances its KV splits over the batch's seq_lens, so
+    # a row's rounding depends on its batch: the pulled prompt is held to
+    # the survivor serving it alone from its own cache (the same pages,
+    # the same launch shapes, the same batch of one)
+    pick = next(i for i, h in enumerate(handles)
+                if placed[h.request_id] == "replica-1" and not h.migrations)
+    prompt, m = prompts[pick]
+    pull_n, pulled_pages = survivor.export_prefix(prompt)
+    hits0 = crashed.metrics.counters["prefix_hits"]
+    adopted = crashed.adopt_prefix(prompt[:pull_n], pulled_pages)
+    rid = crashed.add_request(prompt, max_new_tokens=m)
+    pulled = crashed.run()[rid]
+    hits = crashed.metrics.counters["prefix_hits"] - hits0
+    rid = survivor.add_request(prompt, max_new_tokens=m)
+    own = survivor.run()[rid]
+    if not (pull_n and adopted == len(pulled_pages) and hits == 1
+            and pulled == own):
+        raise AssertionError(f"prefix pull: {len(pulled_pages)} exported, "
+                             f"{adopted} adopted, {hits} prefix hits, tokens "
+                             f"equal {pulled == own}")
+    # a prefill-role engine hands one request off; the survivor resumes it
+    pf = ServingEngine(model, role="prefill", seed=seed,
+                       **dict(FLEET_KW, num_pages=256))
+    prompt, m = prompts[0]
+    rid = pf.add_request(prompt, max_new_tokens=m)
+    pf.run()
+    req = pf.requests[rid]
+    span = req.handoff_prefix_len
+    if not (req.finish_reason == "handoff" and span > 0 and span % 16 == 0
+            and span <= len(prompt) + len(req.output_ids)):
+        raise AssertionError(f"hand-off: {req.finish_reason}, span {span}")
+    full = prompt + list(req.output_ids)
+    n, payloads = pf.export_prefix(full[:span])
+    survivor.reset_prefix_cache()
+    handed = survivor.adopt_prefix(full[:n], payloads)
+    survivor.adopt_requests([{
+        "request_id": rid, "prompt_ids": prompt,
+        "output_ids": list(req.output_ids), "max_new_tokens": m,
+        "eos_token_id": None, "num_preemptions": 0, "aborted": False,
+        "deadline_remaining_s": None, "adapter": None, "colocate": False}])
+    resumed = survivor.run()[rid]
+    pf.reset_prefix_cache()
+    # FleetServer + HttpFrontend over loopback
+    for e in engines:
+        e.reset_prefix_cache()
+    http_fleet = Fleet(engines, stall_timeout_s=600.0)
+
+    async def call(port, method, path, body=None):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        data = b"" if body is None else json.dumps(body).encode()
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                     f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, rest = raw.partition(b"\r\n\r\n")
+        return int(head.split(b" ")[1]), rest
+
+    async def scenario():
+        async with FleetServer(http_fleet) as server, \
+                HttpFrontend(server, host="127.0.0.1", port=0) as front:
+            port = front.port
+            streams = await asyncio.gather(*[
+                call(port, "POST", "/v1/completions",
+                     {"prompt_ids": p[:128], "max_new_tokens": FLEET_HTTP_NEW})
+                for p, _ in prompts[1:3]])
+            js = await call(port, "POST", "/v1/completions",
+                            {"prompt_ids": prompts[3][0][:128],
+                             "max_new_tokens": FLEET_HTTP_NEW,
+                             "stream": False})
+            return (streams, js, await call(port, "GET", "/healthz"),
+                    await call(port, "GET", "/metrics"))
+
+    streams, js, health, metrics = asyncio.run(scenario())
+    for st, body in streams:
+        evs = [json.loads(x[6:]) for x in body.decode().split("\n\n")
+               if x.startswith("data: {")]
+        toks = [e["token"] for e in evs if e["type"] == "token"]
+        fin = evs[-1]
+        if not (st == 200 and fin["type"] == "finish"
+                and len(toks) == FLEET_HTTP_NEW
+                and http_fleet.handle(fin["request_id"]).tokens == toks):
+            raise AssertionError(f"SSE stream {st}: {evs[-1:]}")
+    doc = json.loads(js[1])
+    names = parse_exposition_names(metrics[1].decode())
+    want = {f"paddle_serving_{k}" for k in (
+        "requests_added", "decode_tokens", "prefill_tokens",
+        "kv_pages_exported", "kv_pages_adopted", "fleet_requests_submitted",
+        "replica_up")}
+    if not (js[0] == 200 and len(doc["tokens"]) == FLEET_HTTP_NEW
+            and health[0] == 200 and metrics[0] == 200 and want <= names):
+        raise AssertionError(f"HTTP: json {js[0]}, healthz {health[0]}, "
+                             f"metrics {metrics[0]}, missing "
+                             f"{sorted(want - names)}")
+    launches = paged_attention_decode.launches   # the main path ended
+    decode = sum(e.metrics.counters["decode_launches"]
+                 for e in engines + [pf])
+    if not (launches and launches == decode * cfg.num_hidden_layers):
+        raise AssertionError(f"fleet: {launches} paged launches for "
+                             f"{decode} decode launches")
+    left = []
+    for e in engines + [pf]:
+        e.reset_prefix_cache()
+        left.append(e.allocator.num_used)
+    if any(left):
+        raise AssertionError(f"fleet: pages left {left}")
+    summary = fleet.summary()
+    emit({"phase": "fleet", "model": "llama_3_8b", "dtype": "bfloat16",
+          "replicas": 2, "pages_each": FLEET_PAGES,
+          "buckets": {k: FLEET_KW[k] for k in (
+              "batch_buckets", "prefill_buckets", "pages_buckets")},
+          "requests": len(handles), "crash_after_checks": FLEET_CRASH_AFTER,
+          "fleet_counters": c,
+          "migrations": [h.migrations for h in handles],
+          "migrated_with_tokens_before_crash": migrated_with_tokens,
+          "drain_s": drain_s, "steps": steps,
+          "tokens_vs_serve": agreement([h.tokens for h in handles],
+                                       served["outs"]),
+          "merged_decode_tokens": summary["decode_tokens"],
+          "prefix_pull": {"prompt_tokens": len(prompts[pick][0]),
+                          "pulled_tokens": pull_n,
+                          "exported_pages": len(pulled_pages),
+                          "adopted_pages": adopted, "prefix_hits": hits,
+                          "tokens_equal_survivor_alone": True,
+                          "vs_fleet_run": agreement([pulled],
+                                                    [handles[pick].tokens]),
+                          "survivor_alone_vs_fleet_run": agreement(
+                              [own], [handles[pick].tokens])},
+          "handoff": {"span": span, "first_tokens": len(req.output_ids),
+                      "adopted_pages": handed,
+                      "resumed_equal_fleet": resumed == handles[0].tokens},
+          "http": {"sse_streams": len(streams), "json_tokens":
+                   len(doc["tokens"]), "healthz": health[0],
+                   "metric_names": len(names)},
+          "paged_attention_decode_launches": launches,
+          "pages_used_after_reset": left,
+          "seconds": time.perf_counter() - t0})
+    http_fleet.shutdown()
+    return launches
 
 
 def weight_bytes(model) -> int:
@@ -3615,6 +4155,12 @@ def main(argv=None) -> int:
     phase_trace(served, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    spill_launches = phase_serve_spill(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_launches = phase_fleet(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     gen_launches = phase_generate(served, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3648,7 +4194,9 @@ def main(argv=None) -> int:
         "serve": launches["paged_attention_decode"],
         "serve_multi": multi_launches,
         "serve_spec": sum(spec_launches.values()),
-        "serve_spec_by_proposer": spec_launches}
+        "serve_spec_by_proposer": spec_launches,
+        "serve_spill": spill_launches["launches"],
+        "fleet": fleet_launches}
     kernels += phase_flash_kernels(train_launches, args.seed, card)
     kernels.append(adamw_row)
     kernels.append(phase_decode_flash_kernel(
@@ -3663,6 +4211,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += phase_quant_kernels(quant_capture, quant_launches,
                                    quant_buckets, args.seed, card)
+    for row in kernels:
+        if row["name"] == "paged_attention_decode_int8":
+            row["launches_by_phase"] = {
+                "serve_quant": row["launches"],
+                "serve_spill": spill_launches["int8_launches"]}
     del quant_capture
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,14 +1,21 @@
-"""Serving stack of the port: engine, scheduler, paged KV bookkeeping,
-multi-LoRA adapters, speculative decoding, request tracing."""
+"""Serving stack of the port: engine, scheduler, paged KV bookkeeping
+and its host spill tier, multi-LoRA adapters, speculative decoding,
+request tracing, and the in-process fleet (routers, failover, the
+asyncio server and its HTTP front door)."""
 from .engine import ServingEngine
 from .errors import (EngineFailure, EngineOverloaded, PoisonedComputation,
                      SnapshotVersionError, TransientDeviceError,
                      UnsupportedFeature)
-from .kv_cache import PAD_PAGE, BlockAllocator, BlocksExhausted, KVSequence
+from .fleet import (Fleet, FleetHandle, FleetServer, HttpFrontend,
+                    PrefixAffinityRouter, RandomRouter, Replica,
+                    ReplicaState, RoundRobinRouter, TokenStream)
+from .kv_cache import (PAD_PAGE, BlockAllocator, BlocksExhausted,
+                       HostPageStore, KVSequence)
+from .metrics import ServingMetrics
 from .lora import (AdapterBusy, AdapterError, AdapterLoadError,
                    AdapterNotLoaded, AdapterRegistry, LoRAAdapter,
                    LoRALayout)
-from .radix_cache import RadixCache
+from .radix_cache import RadixCache, RadixNode
 from .scheduler import Request, RequestState, Scheduler
 from .spec import DraftModelProposer, NgramProposer, Proposer
 from .supervisor import RetryPolicy, StepSupervisor, classify_failure
@@ -23,4 +30,8 @@ __all__ = ["ServingEngine", "EngineFailure", "EngineOverloaded",
            "AdapterRegistry", "LoRALayout", "AdapterError",
            "AdapterNotLoaded", "AdapterLoadError", "AdapterBusy",
            "Proposer", "NgramProposer", "DraftModelProposer",
-           "RequestTrace", "RequestTracer", "FlightRecorder"]
+           "RequestTrace", "RequestTracer", "FlightRecorder",
+           "HostPageStore", "RadixNode", "ServingMetrics", "Fleet",
+           "FleetHandle", "FleetServer", "TokenStream", "Replica",
+           "ReplicaState", "PrefixAffinityRouter", "RandomRouter",
+           "RoundRobinRouter", "HttpFrontend"]

@@ -62,9 +62,13 @@ is always on and rides every snapshot.
 
 Determinism: greedy decode is deterministic and, given the same shape
 buckets, a request's tokens do not depend on what it is batched with
-(rows are independent). Random numbers for sampling are drawn from the
-engine's `torch.Generator` once per launch, BEFORE the supervised call,
-so a retried launch replays bit-identically.
+(rows are independent) — on the CPU. On the card the paged-decode
+kernel balances its KV splits over the batch's sequence lengths, so a
+row's rounding, and a near-tied greedy pick, can change with the other
+rows of its launch; the same batch gives the same tokens. Random
+numbers for sampling are drawn from the engine's `torch.Generator` once
+per launch, BEFORE the supervised call, so a retried launch replays
+bit-identically.
 
 Quantized serving: `kv_dtype="int8"` keeps every layer's K/V pages as
 int8 with fp32 per-slot scale pages (quantized on write, dequantized by
@@ -85,11 +89,29 @@ decode included: the scope spans the whole K-step launch). Radix keys
 are namespaced by (adapter, load generation): prefixes never cross
 adapters. Snapshot records carry the adapter.
 
+Tiered KV: `host_spill_pages=N` puts a `HostPageStore` of N host pages
+under the radix cache. LRU eviction DEMOTES a cached node's pages (K
+and V of every layer, int8 scale rows included) to CRC-protected host
+payloads, gathered on the card in one batch and brought over in one
+copy; a later match PROMOTES them back, every payload decoded and
+checked before any device page is claimed, then one host-to-device copy
+from pinned memory and one `index_copy_` per cache tensor, with no host
+sync (the stream orders the writes before the prefill that reads
+them). Promotion is charged to the chunked-prefill budget; a corrupt,
+slow or lost host page degrades to recompute. Bytes move exactly, so
+outputs equal the spill-off engine's under the same buckets.
+
+Disaggregated roles: `role="prefill"` finishes every request whose
+prefill completes with reason "handoff" (its pages donated to the radix
+tree, `handoff_prefix_len` the span) unless it is pinned `colocate`;
+`role="decode"` is a routing tag. `export_prefix` / `adopt_prefix` /
+`release_prefix` move a cached prefix between engines as the same page
+payloads the spill tier uses.
+
 Feature pairs the reference refuses raise `UnsupportedFeature` with the
 reference's reasons (`errors.FEATURE_CONFLICTS`). Not ported yet
-(`UnsupportedFeature`): tensor parallelism (`mesh`), the host spill
-tier, disaggregated roles and the persistent compile cache; nor the
-fleet's prefix export/adopt/release.
+(`UnsupportedFeature`): tensor parallelism (`mesh`) and the persistent
+compile cache (`compile_cache`).
 """
 from __future__ import annotations
 
@@ -111,7 +133,10 @@ from ..nn.quant import quantize_for_serving
 from ..utils import faults
 from .errors import (EngineFailure, EngineOverloaded, SnapshotVersionError,
                      UnsupportedFeature, check_feature_conflicts)
-from .kv_cache import PAD_PAGE, BlockAllocator, BlocksExhausted
+from .kv_cache import (PAD_PAGE, BlockAllocator, BlocksExhausted,
+                       HostPageCorrupt, HostPageLost, HostPagesExhausted,
+                       HostPageSlow, HostPageStore, decode_page_records,
+                       pack_page_payload, record_head)
 from .metrics import ServingMetrics
 from .lora.adapter import AdapterNotLoaded
 from .lora.runtime import build_context, lora_scope
@@ -198,13 +223,12 @@ def _pow2_buckets(lo: int, hi: int) -> List[int]:
     return out
 
 
-def _refuse_unported(*, host_spill_pages, mesh, role, compile_cache):
+def _refuse_unported(*, mesh, compile_cache):
     """Raise UnsupportedFeature naming every requested feature this
-    port does not have yet."""
+    port does not have yet: tensor parallelism and the persistent
+    compile cache."""
     asked = {
-        "host_spill_pages": int(host_spill_pages) > 0,
         "mesh": mesh is not None,
-        "role": role != "both",
         "compile_cache": compile_cache is not None,
     }
     refused = [name for name, on in asked.items() if on]
@@ -253,6 +277,79 @@ def _verify_accept(lg, ids, dl, temperature, top_k, top_p, rnd):
     return torch.where(jpos < n_acc[:, None], idsn, sampled), n_acc, ok
 
 
+class _HostSpillBridge:
+    """RadixCache.spill over ONE engine's device caches and its
+    HostPageStore (protocol: RadixCache.__init__). The tree stays
+    device-blind; every byte moves through here.
+
+    demote() gathers the pages on the card in one batch and brings them
+    over in one copy, then cuts one encoded payload per page; promote()
+    decodes and checks every payload FIRST (a corrupt page fails before
+    any device page is claimed), then claims the device pages and
+    enqueues one host-to-device copy and the cache writes without a
+    host sync."""
+
+    def __init__(self, engine: "ServingEngine"):
+        self.eng = engine
+
+    def host_free(self) -> int:
+        return self.eng.host_store.num_free
+
+    def holds(self, hid: int) -> bool:
+        return self.eng.host_store.holds(hid)
+
+    def demote(self, pids):
+        """Device pages -> host payloads. Returns the host ids, or None
+        when the host pool ran out mid-batch (partial puts roll back, so
+        a refused demotion leaks nothing — the caller drops instead)."""
+        store = self.eng.host_store
+        hids = []
+        try:
+            for payload in self.eng._gather_page_payloads(pids):
+                hids.append(store.put(payload))
+        except HostPagesExhausted:
+            for hid in hids:
+                store.decref(hid)
+            return None
+        return hids
+
+    def promote(self, hids):
+        """Host payloads -> fresh device pages (refcount 1 each — the
+        tree's ref). Returns None when the device pool is dry (recompute
+        beats evicting for a maybe-hit); HostPageError kinds propagate
+        after their fault counter is bumped, with no device page
+        claimed."""
+        eng = self.eng
+        c = eng.metrics.counters
+        try:
+            records = [eng._page_records(eng.host_store.get(hid))
+                       for hid in hids]
+        except HostPageSlow:
+            c["host_spill_slow"] += 1
+            raise
+        except HostPageCorrupt:
+            c["host_spill_corrupt"] += 1
+            raise
+        except HostPageLost:
+            c["host_spill_lost"] += 1
+            raise
+        try:
+            pids = eng.allocator._alloc_pages(len(hids))
+        except BlocksExhausted:
+            return None
+        eng._scatter_page_records(pids, records)
+        return pids
+
+    def release(self, hids):
+        """Drop the tree's host refs. Tolerates ids the store forgot
+        after a host_spill.lost fault — the lost slot is already free,
+        and a decref there would double-free a reused slot."""
+        store = self.eng.host_store
+        for hid in hids:
+            if store.holds(hid):
+                store.decref(hid)
+
+
 class ServingEngine:
     """Continuous-batching engine over a causal LM with paged-KV decode.
 
@@ -271,7 +368,9 @@ class ServingEngine:
     `spec_buckets` the K axis of the verify grid. decode_steps=K runs K
     decode steps per launch, `multi_buckets` the K axis of its grid;
     the two are mutually exclusive. trace=True (or a shared
-    RequestTracer) turns on per-request tracing.
+    RequestTracer) turns on per-request tracing. host_spill_pages > 0
+    adds the host spill tier under the radix cache; role="prefill"
+    hands requests off after their prefill.
     """
 
     def __init__(self, model, *, device=None, num_pages: int = 128,
@@ -332,8 +431,7 @@ class ServingEngine:
             ("no_prefix_cache", not enable_prefix_cache),
             ("prefill_role", role == "prefill")) if on}
         check_feature_conflicts(active)
-        _refuse_unported(host_spill_pages=host_spill_pages, mesh=mesh,
-                         role=role, compile_cache=compile_cache)
+        _refuse_unported(mesh=mesh, compile_cache=compile_cache)
         if lora is not None and not isinstance(lora, AdapterRegistry):
             raise TypeError(f"lora must be a serving.lora.AdapterRegistry, "
                             f"got {type(lora).__name__}")
@@ -353,6 +451,10 @@ class ServingEngine:
                 f"largest multi bucket {self.multi_buckets[-1]} must "
                 f"equal decode_steps {self.decode_steps}")
         self.proposer = proposer
+        # "prefill": a request whose prefill completes finishes
+        # "handoff" (pages donated for a decode-role engine to adopt)
+        # unless pinned colocate; "decode" behaves like "both"
+        self.role = role
         self.device = resolve_device(device)
         first = next(model.parameters())
         if first.device != self.device:
@@ -480,6 +582,33 @@ class ServingEngine:
             kv_dtype=kv_name, page_bytes=self.kv_page_bytes,
             pool_bytes=self.kv_page_bytes * self.num_pages,
             bytes_per_token=self.kv_bytes_per_token)
+
+        # a page's payload records, in the reference's order: K and V of
+        # every layer, then (int8 KV) K and V scale rows of every layer;
+        # one host page carries all of them
+        self._page_tensors = ([t for layer in self._kv for t in layer[:2]]
+                              + [t for layer in self._kv
+                                 for t in layer[2:]])
+        self._page_heads, self._page_bases, self._page_nbytes = [], [], []
+        base = 0
+        for t in self._page_tensors:
+            nb = t[0].numel() * t.element_size()
+            self._page_heads.append(record_head(
+                str(t.dtype).replace("torch.", ""), tuple(t.shape[1:]), nb))
+            self._page_bases.append(base)
+            self._page_nbytes.append(nb)
+            base += nb
+        self._page_raw_bytes = base
+        self.host_spill_pages = int(host_spill_pages)
+        self.host_page_bytes = self.num_layers * self.kv_page_bytes
+        if self.host_spill_pages:
+            self.host_store: Optional[HostPageStore] = HostPageStore(
+                self.host_spill_pages)
+            self.radix.set_spill(_HostSpillBridge(self))
+            self.metrics.set_host_info(pool_pages=self.host_spill_pages,
+                                       page_bytes=self.host_page_bytes)
+        else:
+            self.host_store = None
 
         self.requests: Dict[int, Request] = {}
         self._finished_order: List[int] = []
@@ -1149,6 +1278,91 @@ class ServingEngine:
                 for t in layer:
                     t[dst].copy_(t[src])
 
+    # ----------------------------------------------- tiered KV page I/O
+    def _gather_page_payloads(self, pids) -> List[bytes]:
+        """The encoded payloads of device pages `pids`: every cache
+        tensor's rows of all the pages are gathered on the device into
+        one record-major byte buffer (record j of every page in one
+        block), which crosses to pinned host memory in ONE copy; each
+        page's payload is then cut from it. The raw rows move exactly,
+        so a promoted page is bitwise the page that was demoted."""
+        n = len(pids)
+        idx = self._to_device(np.asarray(pids, np.int64))
+        flat = torch.empty(n * self._page_raw_bytes, dtype=torch.uint8,
+                           device=self.device)
+        for t, base, nb in zip(self._page_tensors, self._page_bases,
+                               self._page_nbytes):
+            dst = flat[n * base:n * (base + nb)].view(t.dtype)
+            torch.index_select(t, 0, idx, out=dst.view(n, *t.shape[1:]))
+        staged = torch.empty(flat.shape, dtype=torch.uint8,
+                             pin_memory=self.device.type == "cuda")
+        staged.copy_(flat)              # the one copy; returns when done
+        host = memoryview(staged.numpy())
+        return [pack_page_payload(
+            self._page_heads,
+            [host[n * base + i * nb:n * base + (i + 1) * nb]
+             for base, nb in zip(self._page_bases, self._page_nbytes)])
+            for i in range(n)]
+
+    def _page_records(self, payload):
+        """A payload's raw record bytes, after its CRC and its geometry
+        (record count, dtypes, shapes) are checked against this engine's
+        pages: HostPageCorrupt otherwise, before anything lands."""
+        recs = decode_page_records(payload)
+        if len(recs) != len(self._page_heads) or any(
+                record_head(name, shape, len(raw)) != head
+                for (name, shape, raw), head in zip(recs,
+                                                    self._page_heads)):
+            raise HostPageCorrupt(
+                f"page payload of {len(recs)} records does not match "
+                f"this engine's {len(self._page_heads)}-record pages")
+        return [raw for _, _, raw in recs]
+
+    def _scatter_page_records(self, pids, records):
+        """Write checked payload records (`_page_records`) into device
+        pages `pids`: the page ids and every record go into one pinned
+        host buffer, cross in ONE non-blocking copy, and land with one
+        `index_copy_` per cache tensor — no host sync, the stream orders
+        the writes before any launch that reads the pages. The pinned
+        buffer may be dropped at once: PyTorch's caching host allocator
+        does not reuse it until the copy that reads it has completed."""
+        n = len(pids)
+        head = 8 * n                       # the page ids, int64
+        buf = torch.empty(head + n * self._page_raw_bytes,
+                          dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        host = buf.numpy()
+        host[:head] = np.asarray(pids, np.int64).view(np.uint8)
+        for i, raws in enumerate(records):
+            for raw, base, nb in zip(raws, self._page_bases,
+                                     self._page_nbytes):
+                at = head + n * base + i * nb
+                host[at:at + nb] = np.frombuffer(raw, np.uint8)
+        dev = buf.to(self.device, non_blocking=True)
+        idx = dev[:head].view(torch.int64)
+        for t, base, nb in zip(self._page_tensors, self._page_bases,
+                               self._page_nbytes):
+            src = dev[head + n * base:head + n * (base + nb)].view(t.dtype)
+            t.index_copy_(0, idx, src.view(n, *t.shape[1:]))
+
+    def _spill_gauges(self) -> dict:
+        """update_gauges kwargs of the radix eviction rungs and the host
+        spill tier; fields the engine does not own stay None
+        (untouched)."""
+        out = {}
+        if self.radix is not None:
+            out.update(radix_evict_demoted=self.radix.num_evict_demoted,
+                       radix_evict_dropped=self.radix.num_evict_dropped)
+        if self.host_store is not None:
+            out.update(
+                host_pages_used=self.host_store.num_used,
+                host_occupancy=self.host_store.occupancy(),
+                kv_pages_demoted=self.radix.num_demoted_pages,
+                kv_pages_promoted=self.radix.num_promoted_pages,
+                host_prefix_hits=self.radix.num_host_hits,
+                host_pages_dropped=self.radix.num_host_dropped_pages)
+        return out
+
     # ------------------------------------------------------------- step
     def _emit(self, req: Request, tok: int, emitted):
         """Record one generated token + run the finish checks."""
@@ -1271,6 +1485,15 @@ class ServingEngine:
                 if reason is not None:
                     self.scheduler.finish(req, reason)
                     self._on_finished(req)
+                elif self.role == "prefill" and not req.colocate:
+                    # disaggregated prefill: the pages donate to the
+                    # radix tree and the request finishes "handoff"; the
+                    # first token is already emitted, so a decode-role
+                    # engine resumes from the next one
+                    req.handoff_prefix_len = \
+                        self.scheduler.finish_handoff(req)
+                    self.metrics.counters["prefill_handoffs"] += 1
+                    self._on_finished(req)
                 else:
                     self.scheduler.on_prefilled(req)
 
@@ -1302,7 +1525,8 @@ class ServingEngine:
             cached_pages=self.radix.num_cached_pages if self.radix else 0,
             radix_nodes=self.radix.num_nodes if self.radix else 0,
             radix_evicted_pages=(self.radix.num_evicted_pages
-                                 if self.radix else None))
+                                 if self.radix else None),
+            **self._spill_gauges())
 
     def _record_step(self, pre: Dict[str, int], *, n_chunks: int,
                      n_decode: int, n_emitted: int):
@@ -1564,6 +1788,84 @@ class ServingEngine:
         if self.radix is None:
             return 0
         return self.radix.clear()
+
+    # ------------------------------------------- prefix sharing between
+    # engines: the donor exports page payloads, the receiver adopts them
+    def export_prefix(self, tokens) -> tuple:
+        """Donor side: the longest DEVICE-resident cached prefix of
+        `tokens` as (num_tokens, [payload bytes, one per page]), the
+        spill tier's CRC-protected codec. promote_budget=0 keeps the walk
+        on the device tier: an export never charges this engine's
+        prefill budget or device pool. The LRU bump is deliberate: a
+        pulled prefix is hot."""
+        if self.radix is None:
+            return 0, []
+        pages, m = self.radix.match(tokens, promote_budget=0)
+        if not pages:
+            return 0, []
+        payloads = self._gather_page_payloads(pages)
+        self.metrics.counters["kv_pages_exported"] += len(payloads)
+        return m, payloads
+
+    def adopt_prefix(self, tokens, payloads) -> int:
+        """Receiver side: land a sibling's exported prefix pages in this
+        engine's caches and donate them to the radix tree, so the next
+        admission matches them like a local prefix. Degrades to 0 —
+        never raises — on a corrupt payload, a dry device pool, or a
+        span the tree already holds: the prefix then recomputes, the
+        spill tier's fallback. Returns pages newly adopted."""
+        if self.radix is None or not payloads:
+            return 0
+        n = min(len(payloads) * self.page_size,
+                (len(tokens) // self.page_size) * self.page_size)
+        payloads = payloads[:n // self.page_size]
+        if not payloads:
+            return 0
+        try:
+            records = [self._page_records(p) for p in payloads]
+        except HostPageCorrupt:
+            self.metrics.counters["host_spill_corrupt"] += 1
+            return 0
+        try:
+            pids = self.allocator._alloc_pages(len(records))
+        except BlocksExhausted:
+            return 0
+        self._scatter_page_records(pids, records)
+        adopted = self.radix.insert(tuple(tokens[:n]), pids)
+        # the tree took its own refs on the pages it adopted; drop the
+        # intake refs — duplicate pages (spans already cached) free here
+        for pid in pids:
+            self.allocator._decref(pid)
+        self.metrics.counters["kv_pages_adopted"] += adopted
+        return adopted
+
+    def release_prefix(self, tokens, *, drop: bool = False) -> int:
+        """After a hand-off: once a decode-role sibling adopted this
+        engine's pages for `tokens`, the local copy stops earning its
+        pool space. Default: make the cached span the coldest LRU entry
+        — still matchable, but the first eviction victim, so a
+        prefill-role pool never fills with spans that live elsewhere.
+        `drop=True` frees the deepest childless device-resident nodes of
+        the span outright. Returns pages made cold or freed."""
+        if self.radix is None:
+            return 0
+        chain = [child for child, _ in self.radix._walk_prefix(tokens)]
+        released = 0
+        if drop:
+            before = self.allocator.num_free
+            for node in reversed(chain):
+                # only childless device-resident tails: dropping an
+                # interior node would orphan other prefixes
+                if node.children or node.host_pages:
+                    break
+                self.radix._drop_node(node)
+            released = self.allocator.num_free - before
+        else:
+            for node in chain:
+                node.last_use = 0
+                released += len(node.pages)
+        self.metrics.counters["kv_pages_released"] += released
+        return released
 
     # ------------------------------------------------------- convenience
     def stream(self):

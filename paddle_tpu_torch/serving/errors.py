@@ -83,9 +83,10 @@ class UnsupportedFeature(ValueError):
 #   no_prefix_cache   enable_prefix_cache=False
 #   prefill_role      role="prefill"
 #
-# Rows name features the port does not have yet (tensor_parallel,
-# host_spill, prefill_role) too, so that the reasons callers match on
-# are the reference's strings whatever is asked for.
+# host_spill and prefill_role are live features of the port; the rows
+# with tensor_parallel, which the port does not have yet, stay too, so
+# that the reasons callers match on are the reference's strings whatever
+# is asked for.
 FEATURE_CONFLICTS = {
     frozenset({"multi_step_decode", "proposer"}):
         "decode_steps > 1 and a proposer are mutually exclusive: "

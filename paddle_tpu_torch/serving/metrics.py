@@ -1,7 +1,9 @@
-"""Serving counters and gauges (port of `paddle_tpu/serving/metrics.py`,
-the subset the ported engine drives — speculative decoding and
-multi-step decode included; profiler registration, the fleet merge and
-the Prometheus exposition are not ported).
+"""Serving counters and gauges (port of `paddle_tpu/serving/metrics.py`):
+what the engine counts, the host spill tier's and the fleet's counters
+and gauges, the cross-replica merge and the Prometheus exposition. The
+reference's profiler registration is not ported, nor are the counters of
+the features the port does not have (`recompiles` and `compile_cache_*`
+of the compiled-program cache, the tensor-parallel per-shard gauges).
 
 Per-request queue-wait / TTFT / TPOT percentiles come from bounded
 reservoirs — a long-lived server keeps the last `PERCENTILE_WINDOW`
@@ -13,20 +15,11 @@ import time
 from collections import deque
 from typing import Dict, Optional
 
+from ..profiler.exposition import percentile, prometheus_lines
+
 __all__ = ["ServingMetrics", "percentile"]
 
 PERCENTILE_WINDOW = 1024
-
-
-def percentile(samples, q):
-    """Nearest-rank percentile over a small window (the rule of
-    `paddle_tpu/profiler/exposition.py`). Returns None on an empty
-    window."""
-    if not samples:
-        return None
-    s = sorted(samples)
-    idx = min(len(s) - 1, max(0, int(round(q / 100.0 * (len(s) - 1)))))
-    return s[idx]
 
 
 class ServingMetrics:
@@ -50,6 +43,7 @@ class ServingMetrics:
             "admissions": 0,               # first-chunk admissions
             "prefix_hits": 0,              # admissions with a cache match
             "cached_tokens_served": 0,     # matched tokens reused from cache
+            "prefill_tokens_skipped": 0,   # prefill work those tokens saved
             "radix_evicted_pages": 0,
             # failure modes
             "requests_aborted": 0,         # client abort() honored
@@ -87,9 +81,33 @@ class ServingMetrics:
             "adapter_load_failures": 0,
             "lora_evict_refusals": 0,
             "adapter_rejects": 0,
+            # host spill tier: demotion/promotion traffic (synced from
+            # the radix tree at the gauge sites, like
+            # radix_evicted_pages), the eviction rung taken, host-tier
+            # hits and drops, the fleet's prefix pulls and releases, and
+            # the three host_spill fault outcomes (counted where the
+            # degradation happens)
+            "kv_pages_demoted": 0,         # device pages spilled to host
+            "kv_pages_promoted": 0,        # host pages copied back
+            "host_prefix_hits": 0,         # matches that promoted a span
+            "host_pages_dropped": 0,       # host-tier LRU/cascade drops
+            "radix_evict_demoted": 0,      # eviction rung: demoted
+            "radix_evict_dropped": 0,      # eviction rung: dropped
+            "kv_pages_exported": 0,        # prefix pull, donor side
+            "kv_pages_adopted": 0,         # prefix pull, receiver side
+            # prefill-role engines: requests finished "handoff", and
+            # pages released (made coldest or dropped) once a decode
+            # engine adopted them
+            "prefill_handoffs": 0,
+            "kv_pages_released": 0,
+            "host_spill_corrupt": 0,       # CRC reject -> recompute
+            "host_spill_slow": 0,          # deadline miss -> retry later
+            "host_spill_lost": 0,          # buffer gone -> recompute
         }
         self._t_start = time.perf_counter()
         self._arrive_t: Dict[int, float] = {}   # in-flight only
+        self._ttft_sum = 0.0
+        self._ttft_count = 0
         self._reservoirs: Dict[str, deque] = {}
         self._reservoir_fmt: Dict[str, tuple] = {}
         self._ttft_samples = self.add_reservoir("ttft", scale=1e3,
@@ -120,6 +138,14 @@ class ServingMetrics:
         self.kv_page_bytes = 0
         self.kv_pool_bytes = 0
         self.kv_bytes_per_token = 0
+        # host spill pool: geometry set once (set_host_info), occupancy
+        # each step; host_pool_pages == 0 means no spill tier, and the
+        # snapshot's host block is gated on it
+        self.host_pool_pages = 0
+        self.host_page_bytes = 0
+        self.host_pool_bytes = 0
+        self.host_pages_used = 0
+        self.host_occupancy = 0.0
 
     # ---- reservoir registry ---------------------------------------------
     def add_reservoir(self, name: str, scale: float = 1.0,
@@ -154,6 +180,7 @@ class ServingMetrics:
         if cached_tokens > 0:
             self.counters["prefix_hits"] += 1
             self.counters["cached_tokens_served"] += cached_tokens
+            self.counters["prefill_tokens_skipped"] += cached_tokens
         if not resumed:
             t0 = self._arrive_t.get(request_id)
             if t0 is not None:
@@ -162,7 +189,10 @@ class ServingMetrics:
     def on_first_token(self, request_id: int):
         t0 = self._arrive_t.get(request_id)
         if t0 is not None:
-            self._ttft_samples.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self._ttft_sum += dt
+            self._ttft_count += 1
+            self._ttft_samples.append(dt)
 
     def on_prefill(self, num_tokens: int):
         self.counters["prefill_tokens"] += num_tokens
@@ -235,6 +265,14 @@ class ServingMetrics:
         self.kv_pool_bytes = int(pool_bytes)
         self.kv_bytes_per_token = int(bytes_per_token)
 
+    def set_host_info(self, *, pool_pages, page_bytes):
+        """Static host spill pool geometry: slot count and the bytes ONE
+        host page carries — a radix page's K+V across every layer, scale
+        rows included (num_layers x kv_page_bytes)."""
+        self.host_pool_pages = int(pool_pages)
+        self.host_page_bytes = int(page_bytes)
+        self.host_pool_bytes = int(pool_pages) * int(page_bytes)
+
     def on_kv_bytes(self, written: int = 0, read: int = 0):
         self.counters["kv_bytes_written"] += int(written)
         self.counters["kv_bytes_read"] += int(read)
@@ -272,7 +310,15 @@ class ServingMetrics:
 
     def update_gauges(self, *, queue_depth, running, kv_used_pages,
                       kv_occupancy, cached_pages=0, radix_nodes=0,
-                      radix_evicted_pages=None):
+                      radix_evicted_pages=None,
+                      host_pages_used=None, host_occupancy=None,
+                      radix_evict_demoted=None, radix_evict_dropped=None,
+                      kv_pages_demoted=None, kv_pages_promoted=None,
+                      host_prefix_hits=None, host_pages_dropped=None):
+        """None for an optional field means "leave it untouched": the
+        engine passes its radix and spill values only when it has a
+        prefix cache and a host pool, so an engine never zeroes a
+        counter it does not own."""
         self.queue_depth = queue_depth
         self.running = running
         self.kv_used_pages = kv_used_pages
@@ -281,6 +327,19 @@ class ServingMetrics:
         self.radix_nodes = radix_nodes
         if radix_evicted_pages is not None:
             self.counters["radix_evicted_pages"] = radix_evicted_pages
+        if host_pages_used is not None:
+            self.host_pages_used = host_pages_used
+        if host_occupancy is not None:
+            self.host_occupancy = host_occupancy
+        # radix-owned counters, synced by assignment (idempotent)
+        for key, val in (("radix_evict_demoted", radix_evict_demoted),
+                         ("radix_evict_dropped", radix_evict_dropped),
+                         ("kv_pages_demoted", kv_pages_demoted),
+                         ("kv_pages_promoted", kv_pages_promoted),
+                         ("host_prefix_hits", host_prefix_hits),
+                         ("host_pages_dropped", host_pages_dropped)):
+            if val is not None:
+                self.counters[key] = val
 
     # ---- derived ---------------------------------------------------------
     def tokens_per_second(self) -> float:
@@ -289,10 +348,22 @@ class ServingMetrics:
                  + self.counters["decode_tokens"])
         return total / dt if dt > 0 else 0.0
 
+    def mean_ttft(self) -> Optional[float]:
+        if not self._ttft_count:
+            return None
+        return self._ttft_sum / self._ttft_count
+
     def prefix_hit_rate(self) -> Optional[float]:
         if not self.counters["admissions"]:
             return None
         return self.counters["prefix_hits"] / self.counters["admissions"]
+
+    def ttft_percentiles(self):
+        """{p50, p90, p99} seconds over the bounded TTFT window."""
+        return self.reservoir_percentiles("ttft")
+
+    def queue_wait_percentiles(self):
+        return self.reservoir_percentiles("queue_wait")
 
     def snapshot(self) -> dict:
         snap = dict(self.counters)
@@ -304,11 +375,25 @@ class ServingMetrics:
             "cached_pages": self.cached_pages,
             "radix_nodes": self.radix_nodes,
             "tokens_per_second": round(self.tokens_per_second(), 2),
-            "kv_dtype": self.kv_dtype,
-            "kv_page_bytes": self.kv_page_bytes,
-            "kv_pool_bytes": self.kv_pool_bytes,
-            "kv_bytes_per_token": self.kv_bytes_per_token,
         })
+        # pool bytes gate the block (not page bytes): a heterogeneous
+        # merge zeroes the per-page gauges while the pooled bytes stay
+        # exact, and they must still surface
+        if self.kv_page_bytes or self.kv_pool_bytes:
+            snap.update({
+                "kv_dtype": self.kv_dtype,
+                "kv_page_bytes": self.kv_page_bytes,
+                "kv_pool_bytes": self.kv_pool_bytes,
+                "kv_bytes_per_token": self.kv_bytes_per_token,
+            })
+        if self.host_pool_pages:
+            snap.update({
+                "host_pool_pages": self.host_pool_pages,
+                "host_page_bytes": self.host_page_bytes,
+                "host_pool_bytes": self.host_pool_bytes,
+                "host_pages_used": self.host_pages_used,
+                "host_occupancy": round(self.host_occupancy, 4),
+            })
         hr = self.prefix_hit_rate()
         if hr is not None:
             snap["prefix_hit_rate"] = round(hr, 4)
@@ -321,8 +406,98 @@ class ServingMetrics:
         tpl = self.tokens_per_launch()
         if tpl is not None:
             snap["decode_tokens_per_launch"] = round(tpl, 4)
+        ttft = self.mean_ttft()
+        if ttft is not None:
+            snap["mean_ttft_ms"] = round(ttft * 1e3, 3)
         for name, (scale, suffix, digits) in self._reservoir_fmt.items():
             for q, v in self.reservoir_percentiles(name).items():
                 if v is not None:
                     snap[f"{name}_{q}{suffix}"] = round(v * scale, digits)
         return snap
+
+    # ---- Prometheus exposition -------------------------------------------
+    def prometheus_text(self, *, prefix: str = "paddle_serving",
+                        labels: Optional[dict] = None,
+                        emit_type: bool = True) -> str:
+        """This metrics object as Prometheus exposition text, rendered
+        from `snapshot()`, so the scrape cannot disagree with it: every
+        counter, gauge and reservoir percentile surfaces. Keys of the
+        counters dict are typed `counter`, the rest `gauge`."""
+        lines = prometheus_lines(self.snapshot(),
+                                 counter_keys=set(self.counters),
+                                 prefix=prefix, labels=labels,
+                                 emit_type=emit_type)
+        return "\n".join(lines) + "\n" if lines else ""
+
+    # ---- cross-replica aggregation ---------------------------------------
+    @classmethod
+    def merge(cls, *metrics: "ServingMetrics",
+              name: str = "fleet") -> "ServingMetrics":
+        """Combine per-replica metrics into ONE summary: counters and TTFT
+        aggregates sum, every percentile reservoir merges by a balanced
+        NEWEST-first draw across replicas (bounded by the window, so an
+        overflowing union keeps each replica's freshest samples), count
+        gauges sum, and kv_occupancy becomes the pooled used/total ratio.
+        Per-page geometry that differs between replicas becomes a
+        sentinel (0, or "mixed" for the dtype). tokens_per_second spans
+        the earliest source's start, so the merged rate is the fleet's
+        throughput."""
+        out = cls(name=name)
+        total_pages_used = 0
+        total_pages = 0.0
+        for m in metrics:
+            for k, v in m.counters.items():
+                out.counters[k] = out.counters.get(k, 0) + v
+            out._ttft_sum += m._ttft_sum
+            out._ttft_count += m._ttft_count
+            out._t_start = min(out._t_start, m._t_start)
+            out.queue_depth += m.queue_depth
+            out.running += m.running
+            out.kv_used_pages += m.kv_used_pages
+            out.cached_pages += m.cached_pages
+            out.radix_nodes += m.radix_nodes
+            out.kv_pool_bytes += m.kv_pool_bytes
+            # pool-weighted occupancy: each replica's page count from its
+            # byte geometry
+            if m.kv_page_bytes:
+                total_pages += m.kv_pool_bytes / m.kv_page_bytes
+                total_pages_used += m.kv_used_pages
+        if total_pages:
+            out.kv_occupancy = total_pages_used / total_pages
+        pbs = {m.kv_page_bytes for m in metrics if m.kv_page_bytes}
+        dts = {m.kv_dtype for m in metrics if m.kv_page_bytes}
+        bpts = {m.kv_bytes_per_token for m in metrics if m.kv_page_bytes}
+        out.kv_page_bytes = pbs.pop() if len(pbs) == 1 else 0
+        out.kv_dtype = dts.pop() if len(dts) == 1 \
+            else ("mixed" if dts else None)
+        out.kv_bytes_per_token = bpts.pop() if len(bpts) == 1 else 0
+        # host pools: slots, bytes and use sum over the replicas that
+        # spill; per-page bytes follow the same sentinel rule
+        out.host_pool_pages = sum(m.host_pool_pages for m in metrics)
+        out.host_pool_bytes = sum(m.host_pool_bytes for m in metrics)
+        out.host_pages_used = sum(m.host_pages_used for m in metrics)
+        if out.host_pool_pages:
+            out.host_occupancy = out.host_pages_used / out.host_pool_pages
+        hpbs = {m.host_page_bytes for m in metrics if m.host_pool_pages}
+        out.host_page_bytes = hpbs.pop() if len(hpbs) == 1 else 0
+        # reservoirs: per name, walk every source from its freshest
+        # sample backwards, round-robin, until the window fills; reversed
+        # so the merged deque stays oldest -> newest like a live one
+        fmts = {}
+        for m in metrics:
+            for rname in m._reservoirs:
+                fmts.setdefault(rname, m._reservoir_fmt[rname])
+        for rname, (scale, suffix, digits) in fmts.items():
+            srcs = [list(m._reservoirs[rname]) for m in metrics
+                    if rname in m._reservoirs]
+            picked = []
+            depth = 1
+            while len(picked) < PERCENTILE_WINDOW and \
+                    any(depth <= len(s) for s in srcs):
+                for src in srcs:
+                    if depth <= len(src) and len(picked) < PERCENTILE_WINDOW:
+                        picked.append(src[-depth])
+                depth += 1
+            out.add_reservoir(rname, scale=scale, suffix=suffix,
+                              digits=digits).extend(reversed(picked))
+        return out

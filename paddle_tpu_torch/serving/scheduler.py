@@ -1,6 +1,5 @@
 """Iteration-level continuous-batching scheduler (port of
-`paddle_tpu/serving/scheduler.py`; host-tier promotion and the
-prefill-role handoff are not ported).
+`paddle_tpu/serving/scheduler.py`).
 
 Orca's iteration-level scheduling: every engine step re-forms the batch
 from whatever is in flight, so a finishing request's slot is reused
@@ -10,7 +9,9 @@ when enabled), then preempt-by-eviction (the victim's pages are freed
 and it re-enters the waiting queue with its generated tokens folded
 into the prompt). Prompts are processed in token-budget-sized CHUNKS
 interleaved with decode steps (Sarathi-Serve chunked prefill), and
-intake reuses the longest cached block-aligned prefix (SGLang).
+intake reuses the longest cached block-aligned prefix (SGLang); a
+prefix spilled to host RAM is promoted back at intake, charged to the
+same chunked-prefill budget its recompute would draw from.
 
 Per-request state machine:
 
@@ -110,10 +111,12 @@ class Request:
         # sets it to the registry's versioned (name, load generation)
         self.adapter = adapter
         self.adapter_key = adapter
-        # the reference's disaggregation pin (a prefill-role engine
-        # decodes such a request itself); roles are not ported, so it
-        # only rides snapshots
+        # colocate pins the request to local decode even on a
+        # prefill-role engine; handoff_prefix_len is the block-aligned
+        # token span `finish_handoff` donated (what a decode-role engine
+        # can adopt)
         self.colocate = False
+        self.handoff_prefix_len = 0
 
     # prompt the next prefill must process (original prompt + anything
     # generated before a preemption — recompute-style resume)
@@ -346,8 +349,17 @@ class Scheduler:
             n = len(ids)
             mpages, m = [], 0
             if self.prefix_cache is not None:
+                # host-tier promotion moves the bytes a prefill of those
+                # tokens would write, so it is charged to the same
+                # budget; one token is held back so the admitted request
+                # can always take a non-empty first chunk this step
+                promoted_before = self.prefix_cache.num_promoted_pages
                 mpages, m = self.prefix_cache.match(
-                    adapter_prefix_key(ids, req.adapter_key))
+                    adapter_prefix_key(ids, req.adapter_key),
+                    promote_budget=budget - 1)
+                budget -= ((self.prefix_cache.num_promoted_pages
+                            - promoted_before)
+                           * self.allocator.page_size)
                 if m >= n:
                     # full hit: the LAST token must still run through
                     # the model to produce the next-token logits
@@ -383,6 +395,21 @@ class Scheduler:
         req.state = RequestState.DECODE
         self.running.append(req)
         self.running.sort(key=lambda r: r.arrival)
+
+    def finish_handoff(self, req: Request) -> int:
+        """Finish a just-prefilled request for hand-off to a decode-role
+        engine: its computed pages donate to the radix tree like any
+        finish, and the return value is the block-aligned token count of
+        the donated span (0 without a prefix cache or for a sub-page
+        prompt: the decode side then prefills it)."""
+        ids = req.prompt_ids + req.output_ids
+        n = min(req.num_computed, len(ids),
+                req.seq.num_tokens if req.seq is not None else 0)
+        full = (n // self.allocator.page_size) * self.allocator.page_size
+        if self.prefix_cache is None:
+            full = 0
+        self.finish(req, "handoff", donate=True)
+        return full
 
     def finish(self, req: Request, reason: str, donate: bool = True):
         if req in self.running:

@@ -1936,3 +1936,147 @@ def test_snapshot_resume_on_card(card):
         assert got == w
     res.reset_prefix_cache()
     assert res.allocator.num_used == 0
+
+
+# ------------------------------------------------------ host spill tier
+def _filled_engine(card, kv_dtype, host_pages=16):
+    """A tiny bf16 engine whose every page holds seeded random bytes
+    (int8 values and fp32 scales too)."""
+    eng = ServingEngine(_tiny_bf16(card), device=card, kv_dtype=kv_dtype,
+                        host_spill_pages=host_pages, **SERVE_KW)
+    gen = torch.Generator(device=card).manual_seed(6)
+    for t in eng._page_tensors:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=card).to(torch.int8))
+        else:
+            t.copy_(torch.rand(t.shape, generator=gen, device=card))
+    return eng
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_demote_promote_round_trip_is_bitwise_on_card(card, kv_dtype):
+    """Pages gathered on the card and written back into other pages are
+    bitwise the originals, scale rows included; the write enqueues with
+    no host sync, and a pinned buffer reused right after it does not
+    disturb the copy in flight."""
+    from paddle_tpu_torch.serving.kv_cache import encode_page_payload
+    eng = _filled_engine(card, kv_dtype)
+    src, dst = [3, 5, 9, 11], [20, 21, 30, 40]
+    payloads = eng._gather_page_payloads(src)
+    assert payloads[1] == encode_page_payload(
+        [t[5].cpu() for t in eng._page_tensors])
+    records = [eng._page_records(p) for p in payloads]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._scatter_page_records(dst, records)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    scratch = torch.empty(len(payloads[0]) * 8, dtype=torch.uint8,
+                          pin_memory=True)
+    scratch.fill_(0xAB)
+    torch.cuda.synchronize()
+    for t in eng._page_tensors:
+        assert torch.equal(t[dst], t[src])
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_paged_kernel_over_promoted_pages_equals_originals(card, kv_dtype):
+    """The paged-decode kernel over promoted copies of the pages gives
+    bitwise the output it gives over the originals."""
+    eng = _filled_engine(card, kv_dtype)
+    src = [2, 3, 4, 5, 6, 7]
+    dst = [40, 41, 42, 43, 44, 45]
+    eng._scatter_page_records(
+        dst, [eng._page_records(p) for p in eng._gather_page_payloads(src)])
+    layer = eng.kv_caches[1]
+    H, D = eng.num_heads, eng.head_dim
+    q = torch.randn(2, H, D, device=card, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=card).manual_seed(8))
+    sl = torch.tensor([45, 23], dtype=torch.int32, device=card)
+    outs = []
+    for pages in (src, dst):
+        bt = torch.tensor([pages + [0] * 2, pages[3:] + [0] * 5],
+                          dtype=torch.int32, device=card)
+        kw = dict(k_scale=layer[2], v_scale=layer[3]) if kv_dtype else {}
+        outs.append(pa.paged_attention_decode(q, layer[0], layer[1], bt, sl,
+                                              **kw))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0].float()).all()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_demotion_makes_one_device_to_host_copy(card):
+    """A demotion of 6 pages x 2 layers x (K, V, K scales, V scales)
+    moves to the host in ONE copy (counted by the profiler); the
+    promotion back in one host-to-device copy of the payloads."""
+    eng = _filled_engine(card, "int8")
+    pids = [2, 3, 4, 5, 6, 7]
+    eng._gather_page_payloads(pids)            # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        payloads = eng._gather_page_payloads(pids)
+        torch.cuda.synchronize()
+    d2h = [e for e in prof.events() if "Memcpy DtoH" in e.name]
+    assert len(d2h) == 1, [e.name for e in prof.events() if "emcpy" in e.name]
+    records = [eng._page_records(p) for p in payloads]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng._scatter_page_records([30, 31, 32, 33, 34, 35], records)
+        torch.cuda.synchronize()
+    h2d = [e for e in prof.events() if "Memcpy HtoD" in e.name]
+    assert len(h2d) == 1, [e.name for e in prof.events() if "emcpy" in e.name]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_spill_on_equals_off_on_card(card, kv_dtype):
+    """The CPU test's shared-prefix workload through a 16-page pool on
+    the card (bf16 model): spill on gives spill off's tokens, with pages
+    demoted and promoted through the paged kernel's caches."""
+    model = _tiny_bf16(card)
+    rng = np.random.RandomState(7)
+    shared = rng.randint(0, 128, (24,)).tolist()
+    tails = [rng.randint(0, 128, (24,)).tolist() for _ in range(8)]
+    kw = dict(num_pages=16, page_size=8, token_budget=64, batch_buckets=[4],
+              prefill_buckets=[64], pages_buckets=[8], max_batch_size=4,
+              kv_dtype=kv_dtype)
+    outs = []
+    for host in (0, 64):
+        eng = ServingEngine(model, device=card, host_spill_pages=host, **kw)
+        out = []
+        for _ in range(2):
+            for t in tails:
+                rid = eng.add_request(shared + t, max_new_tokens=4)
+                out.append(eng.run()[rid])
+        outs.append(out)
+        c = eng.metrics.counters
+        if host:
+            assert c["kv_pages_demoted"] > 0 and c["kv_pages_promoted"] > 0
+            assert c["radix_evict_dropped"] == 0
+        eng.reset_prefix_cache()
+        assert eng.allocator.num_used == 0
+        assert eng.host_store is None or eng.host_store.num_used == 0
+    assert outs[0] == outs[1]
+
+
+def test_adopt_prefix_across_engines_on_card(card):
+    """A prefix exported by one engine and adopted by another on the same
+    card serves the same tokens as a cache hit."""
+    model = _tiny_bf16(card)
+    prompt = list(range(3, 43))
+    donor = ServingEngine(model, device=card, **SERVE_KW)
+    rid = donor.add_request(prompt, max_new_tokens=6)
+    want = donor.run()[rid]
+    n, payloads = donor.export_prefix(prompt)
+    assert n == 40 and len(payloads) == 5
+    other = ServingEngine(model, device=card, **SERVE_KW)
+    assert other.adopt_prefix(prompt[:n], payloads) == 5
+    rid = other.add_request(prompt, max_new_tokens=6)
+    assert other.run()[rid] == want
+    c = other.metrics.counters
+    assert c["prefix_hits"] == 1 and c["kv_pages_adopted"] == 5
+    for eng in (donor, other):
+        eng.reset_prefix_cache()
+        assert eng.allocator.num_used == 0

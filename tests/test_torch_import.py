@@ -92,3 +92,20 @@ def test_walk_reaches_the_packed_attention_and_norm_modules():
             "paddle_tpu_torch.kernels.fused_norm",
             "paddle_tpu_torch.nn.functional.flash_attention",
             "paddle_tpu_torch.nn.functional.extra"} <= names
+
+
+def test_walk_reaches_the_fleet_modules():
+    """The in-process fleet and the exposition module are among those
+    the probe imports."""
+    import pkgutil
+
+    import paddle_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                   "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.serving.fleet",
+            "paddle_tpu_torch.serving.fleet.fleet",
+            "paddle_tpu_torch.serving.fleet.replica",
+            "paddle_tpu_torch.serving.fleet.router",
+            "paddle_tpu_torch.serving.fleet.server",
+            "paddle_tpu_torch.serving.fleet.http",
+            "paddle_tpu_torch.profiler.exposition"} <= names

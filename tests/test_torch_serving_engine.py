@@ -88,19 +88,23 @@ def test_engine_greedy_token_identical_to_reference(models):
 # the string "registry" stands for a CPU AdapterRegistry for SMALL
 @pytest.mark.parametrize("kw", [
     dict(proposer=object(), decode_steps=2),
-    dict(proposer=object(), role="prefill"), dict(role="decode"),
+    dict(proposer=object(), role="prefill"),
+    dict(role="decode", mesh=object()),
     dict(wq="int8", kv_dtype="int8", decode_steps=2, mesh=object()),
     dict(lora="registry", proposer=object()),
-    dict(mesh=object()), dict(host_spill_pages=4), dict(role="prefill"),
+    dict(mesh=object()), dict(host_spill_pages=4, compile_cache="/x"),
+    dict(role="prefill", decode_steps=2),
     dict(compile_cache="/nonexistent"),
     dict(trace=True, compile_cache="/nonexistent")])
 def test_unported_features_are_refused(models, kw):
     """Quantized serving (tests/test_torch_serving_quant.py), LoRA
     (tests/test_torch_serving_lora.py), multi-step decode, speculative
     decoding and tracing (tests/test_torch_serving_multi.py, _spec.py,
-    _snapshot.py) are ported; a pair the reference's capability table
-    refuses, or any of them with an unported feature, is refused before
-    the model is converted."""
+    _snapshot.py), the host spill tier and the prefill role
+    (tests/test_torch_serving_spill.py, test_torch_fleet.py) are ported;
+    a pair the reference's capability table refuses, or any of them with
+    an unported feature (mesh, compile_cache), is refused before the
+    model is converted."""
     if kw.get("lora") == "registry":
         kw = dict(kw, lora=AdapterRegistry.for_model(models[1],
                                                      device="cpu"))
