@@ -26,6 +26,7 @@ for (all by default):
                 (one request at 32768 tokens over 2048 pages, four at
                 8192), on batches built by this tree's
                 chip_smoke.paged_batch in both trees;
+  paged       — the paged decode of `kernels` alone;
   lora        — chip_smoke.time_ms of one LoRA projection hook,
                 `apply_lora("gate_proj", x, y)` under `lora_scope` of a
                 `build_context` over chip_smoke.lora_registry's adapters
@@ -64,7 +65,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("kernels", "lora", "packed", "train", "serve_quant", "serve_lora")
+PHASES = ("kernels", "paged", "lora", "packed", "train", "serve_quant",
+          "serve_lora")
 QMM_ROWS = (16, 32, 64, 128, 256, 512)
 
 
@@ -224,6 +226,10 @@ def child(phases, seed: int) -> int:
     out = {}
     if "kernels" in phases:
         out["kernels"] = kernel_times(seed)
+        free()
+    if "paged" in phases:
+        out["paged"] = paged_kernel_times(seed, torch.empty(
+            256 * 2 ** 20, dtype=torch.uint8, device="cuda").zero_)
         free()
     if "lora" in phases:
         out["lora"] = lora_times(seed)

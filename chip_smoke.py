@@ -82,7 +82,8 @@ Phases, one JSON line each:
                pool empty at the end; a prefix pull (the crashed
                replica's vacated engine adopts what the survivor exports
                for a prompt it served start to end: adopted == exported
-               pages, one prefix hit, the survivor's tokens); a
+               pages, one prefix hit, its tokens == the survivor's
+               batched fleet run == the survivor serving it alone); a
                prefill-role engine's hand-off (reason "handoff", a
                page-aligned span), resumed on the survivor; FleetServer +
                HttpFrontend on 127.0.0.1: two SSE streams equal to their
@@ -91,6 +92,24 @@ Phases, one JSON line each:
                layer per decode launch of every engine. Reports
                migrations, the drain wall and agreement with phase 3
                (not gated).
+  3h. proc_fleet — the cross-process fleet: two worker processes on the
+               card, p0 (role prefill) and d0 (role decode), each
+               building the same model from the seed (1024 pages,
+               FLEET_KW's buckets), behind `ProcessFleet` (a TCPStore
+               mailbox on 127.0.0.1). Run 1: serve's prompts 0-7, 32 new
+               tokens: prefilled on p0, KV pages relayed to d0, decoded
+               there by the paged kernel. Run 2: prompts 8-15; d0 is
+               SIGKILLed once it has emitted a token, its requests re-land
+               on p0 from its last heartbeat snapshot; d0 respawns.
+               Checks every stream of both runs bitwise equal to one
+               in-process drain of all 16 on the same grid, none lost, no
+               funnel conflict, 8 hand-offs completed in run 1 with the
+               donated pages shipped, both pools empty, each worker's
+               paged launches 32 x its decode launches, no kernel rebuilt
+               by a worker, exits 0 (the killed one -9). Reports worker
+               start seconds, hand-off ms and relay MB/s, TTFT and drain
+               wall of each run, the longest heartbeat gap, migrations
+               and the card's peak memory (all processes).
   3e. generate — `LlamaForCausalLM.generate` on the same bf16 model: 4
                prompts of 512 tokens (the first 512 of the first 4 serve
                prompts that long), 32 new tokens; greedy eager, greedy
@@ -299,7 +318,8 @@ Phases, one JSON line each:
 Then the `{"kernels": [...]}` line (each row's `launches` its main path's
 count; the flash and AdamW rows also `launches_by_phase` for train,
 train_loop and generate, the paged-decode row for serve, serve_multi,
-serve_spec, serve_spill and fleet, the int8 row for serve_quant and
+serve_spec, serve_spill, fleet and proc_fleet (the workers' stats: d0 at
+the end of run 1, p0 at the end), the int8 row for serve_quant and
 serve_spill), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
 with status 2 and prints no result.
@@ -366,9 +386,10 @@ KERNEL = {name: (name, src, replaces) for name, src, replaces in KERNELS}
 SOURCES = sorted({src for _, src, _ in KERNELS})
 # the design of each kernel of the redesigned routes, for the kernels line
 DESIGN = {
-    "paged_attention_decode": "split-KV balanced on the card: grid (KVH, "
-                              "chunks + B), every block splitting the batch "
-                              "from seq_lens; a producer warp keeping a ring "
+    "paged_attention_decode": "split-KV on the card: grid (KVH, chunks + "
+                              "B), every block splitting the batch from "
+                              "seq_lens, each row by its own length and the "
+                              "launch's shapes alone; a producer warp keeping a ring "
                               "of 64-token stages full by 1-D bulk copies "
                               "(mbarriers); 4 consumer warps, each an online "
                               "softmax over 16 tokens a stage, S = Q K^T and "
@@ -511,6 +532,10 @@ SPILL_KW = dict(page_size=16, num_pages=SPILL_PAGES, token_budget=1024,
 # (serve's batch of 16, chunks of 512, 72-page tables); replica-0 crashes
 # after this many crash-point checks (both replicas check once a step)
 FLEET_PAGES, FLEET_CRASH_AFTER, FLEET_HTTP_NEW = 1024, 24, 8
+# proc_fleet: new tokens of each request (two worker processes on
+# FLEET_KW's grid), and where the workers' stderr goes
+PROC_NEW = 32
+PROC_LOGS = os.path.join("build", "proc_fleet_logs")
 FLEET_KW = dict(page_size=16, num_pages=FLEET_PAGES, token_budget=512,
                 batch_buckets=[16], prefill_buckets=[512],
                 pages_buckets=[72])
@@ -1425,11 +1450,10 @@ def phase_fleet(served, seed: int):
                              f"migrated mid-stream")
     survivor = fleet.replica("replica-1").engine
     crashed = fleet.replica("replica-0").engine
-    # prefix pull: a prompt the survivor served from the start. The
-    # paged kernel balances its KV splits over the batch's seq_lens, so
-    # a row's rounding depends on its batch: the pulled prompt is held to
-    # the survivor serving it alone from its own cache (the same pages,
-    # the same launch shapes, the same batch of one)
+    # prefix pull: a prompt the survivor served from the start, held to
+    # the survivor's batched fleet run and to the survivor serving it
+    # alone from its own cache (a row's result does not depend on its
+    # batch: the paged kernel splits each row by its own length)
     pick = next(i for i, h in enumerate(handles)
                 if placed[h.request_id] == "replica-1" and not h.migrations)
     prompt, m = prompts[pick]
@@ -1441,11 +1465,12 @@ def phase_fleet(served, seed: int):
     hits = crashed.metrics.counters["prefix_hits"] - hits0
     rid = survivor.add_request(prompt, max_new_tokens=m)
     own = survivor.run()[rid]
+    batched = handles[pick].tokens
     if not (pull_n and adopted == len(pulled_pages) and hits == 1
-            and pulled == own):
+            and pulled == own == batched):
         raise AssertionError(f"prefix pull: {len(pulled_pages)} exported, "
                              f"{adopted} adopted, {hits} prefix hits, tokens "
-                             f"equal {pulled == own}")
+                             f"{agreement([pulled, own], [batched] * 2)}")
     # a prefill-role engine hands one request off; the survivor resumes it
     pf = ServingEngine(model, role="prefill", seed=seed,
                        **dict(FLEET_KW, num_pages=256))
@@ -1549,11 +1574,7 @@ def phase_fleet(served, seed: int):
                           "pulled_tokens": pull_n,
                           "exported_pages": len(pulled_pages),
                           "adopted_pages": adopted, "prefix_hits": hits,
-                          "tokens_equal_survivor_alone": True,
-                          "vs_fleet_run": agreement([pulled],
-                                                    [handles[pick].tokens]),
-                          "survivor_alone_vs_fleet_run": agreement(
-                              [own], [handles[pick].tokens])},
+                          "tokens_equal_fleet_run_and_alone": True},
           "handoff": {"span": span, "first_tokens": len(req.output_ids),
                       "adopted_pages": handed,
                       "resumed_equal_fleet": resumed == handles[0].tokens},
@@ -1564,6 +1585,211 @@ def phase_fleet(served, seed: int):
           "pages_used_after_reset": left,
           "seconds": time.perf_counter() - t0})
     http_fleet.shutdown()
+    return launches
+
+
+def _worker_log_tails(logs: str, n: int = 3000) -> str:
+    """The end of every worker's stderr log (ProcessFleet's stderr_dir)."""
+    out = []
+    for name in sorted(os.listdir(logs)):
+        with open(os.path.join(logs, name), errors="replace") as f:
+            out.append(f"--- {name}\n{f.read()[-n:]}")
+    return "\n".join(out)
+
+
+def phase_proc_fleet(served, seed: int):
+    """The cross-process fleet on serve's model: two worker processes on
+    the one card, p0 (role prefill) and d0 (role decode), each building
+    Llama-3-8B at its published widths from the seed (the same weights
+    as served["model"]), 1024 pages each, FLEET_KW's pinned buckets.
+    Run 1: serve's prompts 0-7, 32 new tokens each: each prefills on p0,
+    its KV pages travel through the supervisor's relay to d0, which
+    decodes it through the paged kernel. Run 2: prompts 8-15 the same
+    way; once d0 has emitted tokens for one of them it is SIGKILLed, its
+    requests re-land on p0 (colocated) from its last heartbeat snapshot;
+    then d0 is respawned. Gates: every stream of both runs bitwise equal
+    to one in-process drain of all 16 (ServingEngine over served["model"]
+    on the same grid); none lost, no funnel conflict; run 1: 8 hand-offs
+    started and completed, none colocated, the pages shipped equal to the
+    donated prefixes' pages; both pools empty with their invariants
+    holding at the end; each worker's paged launches 32 x its decode
+    launches (d0 at the end of run 1, p0 at the end); the kernel
+    libraries loaded, not rebuilt, by the workers; every worker exits 0
+    at shutdown but the killed one (-9). Reports worker start seconds,
+    each hand-off's ms and relay MB/s, TTFT and drain wall of each run,
+    the longest heartbeat gap, migrations and the card's peak memory."""
+    import dataclasses
+    import torch
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels.paged_attention import KERNEL_SOURCE
+    from paddle_tpu_torch.serving import ProcessFleet, ServingEngine
+
+    t_phase = time.perf_counter()
+    model = served["model"]
+    cfg = model.cfg
+    page = FLEET_KW["page_size"]
+    prompts = [(p, PROC_NEW) for p, _ in served["prompts"]]
+    ref = ServingEngine(model, seed=seed, **FLEET_KW)
+    rids = [ref.add_request(p, max_new_tokens=m) for p, m in prompts]
+    out = ref.run()
+    want = [out[r] for r in rids]
+    del ref, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lib = build.library_path(KERNEL_SOURCE)
+    lib_mtime = lib.stat().st_mtime
+    total_mem = torch.cuda.mem_get_info()[1]
+    low_free = [torch.cuda.mem_get_info()[0]]
+    spec = {"model": {"kind": "llama", "config": dataclasses.asdict(cfg),
+                      "seed": seed},
+            "engine": dict(FLEET_KW, seed=seed), "device": "cuda",
+            "heartbeat_interval_s": 0.1}
+    logs = PROC_LOGS
+    t0 = time.perf_counter()
+    pf = ProcessFleet({"p0": dict(spec, role="prefill"),
+                       "d0": dict(spec, role="decode")},
+                      dead_after_s=120.0, handoff_timeout_s=120.0,
+                      stderr_dir=logs)
+    # per-request hand-off timing: the first pull's start, the adoption
+    handoff = {}
+    start_pull, on_frame = pf._start_pull, pf._on_handoff_frame
+
+    def timed_pull(rid, donor, target, tokens, rec, attempts=1):
+        handoff.setdefault(rid, {"t0": time.perf_counter(),
+                                 "pages": len(tokens) // page})
+        return start_pull(rid, donor, target, tokens, rec, attempts)
+
+    def timed_frame(worker, mtype, msg):
+        entry = pf._handoffs.get(msg.get("payload", {}).get("pull_id"))
+        if mtype == "kv_adopted" and entry is not None:
+            handoff[entry["rid"]]["ms"] = \
+                (time.perf_counter() - handoff[entry["rid"]]["t0"]) * 1e3
+            handoff[entry["rid"]]["adopted"] = \
+                msg["payload"]["adopted_pages"]
+        return on_frame(worker, mtype, msg)
+
+    pf._start_pull, pf._on_handoff_frame = timed_pull, timed_frame
+    gaps = {"max_s": 0.0}
+
+    def watch():
+        now = pf._clock()
+        for w in pf.workers.values():
+            if w.ready and w.state.value in ("healthy", "suspect") \
+                    and w.last_beat_host_t is not None:
+                gaps["max_s"] = max(gaps["max_s"],
+                                    now - w.last_beat_host_t)
+        low_free[0] = min(low_free[0], torch.cuda.mem_get_info()[0])
+
+    def pump_until(done, what, limit_s=600.0):
+        t = time.perf_counter()
+        while not done():
+            if not pf.pump():
+                time.sleep(0.002)
+            watch()
+            if time.perf_counter() - t > limit_s:
+                raise RuntimeError(f"proc_fleet: {what} not reached in "
+                                   f"{limit_s} s: {pf.summary()}")
+
+    def run(batch, kill=None):
+        handles = [pf.submit(p, max_new_tokens=m) for p, m in batch]
+        t = time.perf_counter()
+        if kill is not None:
+            pump_until(lambda: any(len(h.tokens) > 1 and pf._assign.get(
+                h.request_id) == kill for h in handles), "a d0 token")
+            pf.workers[kill].kill()
+        pump_until(lambda: all(h.finished for h in handles), "the drain")
+        wall = time.perf_counter() - t
+        ttft = [(h.first_token_t - h.submit_t) * 1e3 for h in handles]
+        return handles, wall, ttft
+
+    try:
+        ready_s = {}
+
+        def all_ready():
+            for n, w in pf.workers.items():
+                if w.ready and n not in ready_s:
+                    ready_s[n] = time.perf_counter() - t0
+            return len(ready_s) == len(pf.workers)
+        pump_until(all_ready, "the workers' ready", limit_s=900.0)
+        h1, wall1, ttft1 = run(prompts[:8])
+        c1 = dict(pf.counters)
+        d0_stats = pf.request_stats("d0")
+        donated = sum(v["pages"] for v in handoff.values())
+        killed = pf.workers["d0"]
+        h2, wall2, ttft2 = run(prompts[8:], kill="d0")
+        c2 = dict(pf.counters)
+        t_re = time.perf_counter()
+        pf.respawn("d0")
+        pump_until(lambda: pf.workers["d0"].ready, "d0's respawn",
+                   limit_s=900.0)
+        respawn_s = time.perf_counter() - t_re
+        stats = {n: pf.request_stats(n, reset_prefix_cache=True)
+                 for n in pf.workers}
+        watch()
+    except BaseException:
+        pf.shutdown()
+        print(_worker_log_tails(logs), file=sys.stderr, flush=True)
+        raise
+    pf.shutdown()
+    exits = {"p0": pf.workers["p0"].poll(), "d0": pf.workers["d0"].poll(),
+             "d0_killed": killed.poll()}
+    got = [h.tokens for h in h1 + h2]
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if bad:
+        raise AssertionError(f"proc_fleet: requests {bad} differ from the "
+                             f"in-process drain: "
+                             f"{agreement(got, want)['first_divergence']}")
+    if c2["requests_lost"] or c2["funnel_conflicts"]:
+        raise AssertionError(f"proc_fleet counters {c2}")
+    if not (c1["handoffs_started"] == c1["handoffs_completed"] == 8
+            and c1["handoffs_colocated"] == 0
+            and c1["kv_pages_shipped"] == donated):
+        raise AssertionError(f"proc_fleet run 1 hand-offs: {c1}, "
+                             f"{donated} pages donated")
+    for name, st in stats.items():
+        if not (st and st["allocator_ok"] and st.get("radix_ok", True)
+                and st["kv_used_pages"] == 0):
+            raise AssertionError(f"proc_fleet: {name}'s pool {st}")
+    layers = cfg.num_hidden_layers
+    for name, st in (("d0", d0_stats), ("p0", stats["p0"])):
+        n = st["kernel_launches"]["paged_attention_decode"]
+        if not (n and n == layers * st["decode_launches"]):
+            raise AssertionError(f"proc_fleet: {name} launched the paged "
+                                 f"kernel {n} times for "
+                                 f"{st['decode_launches']} decode launches")
+    if lib.stat().st_mtime != lib_mtime:
+        raise AssertionError("proc_fleet: a worker rebuilt the paged kernel")
+    if exits != {"p0": 0, "d0": 0, "d0_killed": -9}:
+        raise AssertionError(f"proc_fleet: worker exits {exits}")
+    launches = (d0_stats["kernel_launches"]["paged_attention_decode"]
+                + stats["p0"]["kernel_launches"]["paged_attention_decode"])
+    ho = [handoff[h.request_id] for h in h1]
+    emit({"phase": "proc_fleet", "model": "llama_3_8b", "dtype": "bfloat16",
+          "workers": {"p0": "prefill", "d0": "decode"},
+          "pages_each": FLEET_KW["num_pages"],
+          "buckets": {k: FLEET_KW[k] for k in (
+              "batch_buckets", "prefill_buckets", "pages_buckets")},
+          "worker_start_s": ready_s, "respawn_start_s": respawn_s,
+          "handoff_ms": [v["ms"] for v in ho],
+          "handoff_pages": [v["pages"] for v in ho],
+          "relay_mb_per_s": [v["pages"] * 2097152 / 1e6 / (v["ms"] / 1e3)
+                             for v in ho],
+          "run1": {"drain_s": wall1, "ttft_ms": ttft1},
+          "run2": {"drain_s": wall2, "ttft_ms": ttft2},
+          "counters_run1": c1, "counters": c2,
+          "migrations": [h.migrations for h in h1 + h2],
+          "max_heartbeat_gap_s": gaps["max_s"],
+          "streams_equal_in_process": len(got),
+          "paged_attention_decode_launches": {
+              "d0_run1": d0_stats["kernel_launches"]
+              ["paged_attention_decode"],
+              "p0": stats["p0"]["kernel_launches"]["paged_attention_decode"]},
+          "decode_launches": {"d0_run1": d0_stats["decode_launches"],
+                              "p0": stats["p0"]["decode_launches"]},
+          "card_peak_used_bytes": total_mem - low_free[0],
+          "card_total_bytes": total_mem, "worker_exits": exits,
+          "seconds": time.perf_counter() - t_phase})
     return launches
 
 
@@ -2129,20 +2355,22 @@ def paged_cases(seed: int):
     """{case: (batch builder kwargs, kv types)} of check_paged_kernels. The
     serve shape (B 16, H 32, KVH 8, D 128, page 16, 72-page table); the
     long-context shapes; at the serve widths a batch of edges over a
-    64-page table whose rows split at the least split (8 pages: the
-    batch is short) — one token, a seq_len-0 pad row, a length ending
+    64-page table whose rows split at Q pages (`paged_split_pages`: 13
+    at 132 SMs) — one token, a seq_len-0 pad row, a length ending
     mid-page, rows ending on the first and second split boundary, one
-    token past the first (two splits of 5 and 4 pages), the full table
-    (8 splits); then other group sizes, head widths and pages (G 1, 2, 8;
+    token past the first (two splits of 7 and 7 pages), the full table
+    (5 splits); then other group sizes, head widths and pages (G 1, 2, 8;
     D 64, 192, 256; pages 8, 16, 32), each with a pad row. Every launch
     has blocks past the batch's splits (the grid's spare rows)."""
     import torch
     from paddle_tpu_torch.kernels import paged_attention as pa
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    chunks, m = pa.paged_decode_plan(8, 16, sms)   # m: the least split
-    edges = [1, 0, 3 * 16 + 5, m * 16, 2 * m * 16, m * 16 + 1, 64 * 16, 9]
+    chunks, m = pa.paged_decode_plan(8, 16, sms)
+    q = pa.paged_split_pages(8, 64, chunks, m)     # a split's most pages
+    edges = [1, 0, 3 * 16 + 5, q * 16, 2 * q * 16, q * 16 + 1, 64 * 16, 9]
     rows = pa.paged_decode_splits(edges, 16, 64, chunks, m)
-    assert [sp for _, sp, _ in rows] == [1, 1, 1, 1, 2, 2, 8, 1], rows
+    assert [sp for _, sp, _ in rows] == [1, 1, 1, 1, 2, 2, -(-64 // q),
+                                         1], rows
     both = ("bfloat16", "float32", "int8")
     serve = dict(B=16, KVH=8, G=4, D=128, page=16, P=72)
     cases = {"serve": (dict(serve, lens=serve_lens(seed)), both)}
@@ -2168,11 +2396,13 @@ def check_paged_kernels(seed: int):
     absolute limit that allows the rounding; a kernel that drops a split
     moves them by ~10%), fp32 within 1e-4 (summation order); int8 caches
     with bf16 and fp32 queries at the same limits; seq_len-0 rows exactly
-    0; a second launch bitwise equal to the first; the merge's ticket
-    counters back at 0. Returns (errors, failures): errors[kernel][case]
-    = {"err", "limit", "rel", "repeat_bitwise"}; failures lists the
-    (kernel, case) that missed. Launches here are not counted as the main
-    path's."""
+    0; a second launch bitwise equal to the first; at the serve shape,
+    each row bitwise equal to the same row launched with every other row
+    a pad row (a row's splits depend on its own length alone); the
+    merge's ticket counters back at 0. Returns (errors, failures):
+    errors[kernel][case] = {"err", "limit", "rel", "repeat_bitwise"
+    (, "rows_independent")}; failures lists the (kernel, case) that
+    missed. Launches here are not counted as the main path's."""
     import torch
     from paddle_tpu_torch.kernels import paged_attention as pa
     errs = {"paged_attention_decode": {}, "paged_attention_decode_int8": {}}
@@ -2202,6 +2432,15 @@ def check_paged_kernels(seed: int):
                 same = bool(torch.equal(got, again))
                 errs[kernel][case] = {"err": err, "limit": tol, "rel": rel,
                                       "repeat_bitwise": same}
+                if name == "serve":
+                    for r in (sl > 0).nonzero()[:, 0].tolist():
+                        alone = torch.where(
+                            torch.arange(len(sl), device=sl.device) == r,
+                            sl, torch.zeros_like(sl))
+                        row = pa.paged_attention_decode(q, k, v, bt, alone,
+                                                        **extra)[r]
+                        same = same and bool(torch.equal(row, got[r]))
+                    errs[kernel][case]["rows_independent"] = same
                 pad = (sl == 0).nonzero()[:, 0]
                 if not (err <= tol and torch.isfinite(got).all() and same
                         and (dt != torch.bfloat16 or rel <= 1e-2)
@@ -4161,6 +4400,9 @@ def main(argv=None) -> int:
     fleet_launches = phase_fleet(served, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    proc_launches = phase_proc_fleet(served, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     gen_launches = phase_generate(served, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4196,7 +4438,7 @@ def main(argv=None) -> int:
         "serve_spec": sum(spec_launches.values()),
         "serve_spec_by_proposer": spec_launches,
         "serve_spill": spill_launches["launches"],
-        "fleet": fleet_launches}
+        "fleet": fleet_launches, "proc_fleet": proc_launches}
     kernels += phase_flash_kernels(train_launches, args.seed, card)
     kernels.append(adamw_row)
     kernels.append(phase_decode_flash_kernel(

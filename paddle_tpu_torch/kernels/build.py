@@ -5,12 +5,15 @@ by `nvcc` into a shared library under `build/paddle_tpu_torch/` at the
 repository root, named by a hash of the source text, the `csrc/` headers
 it includes and the flags, so a changed source or header rebuilds and an
 unchanged one loads at once. `build()` starts one `nvcc` per missing
-library, all at the same time, and waits for every one. Nothing is
-compiled when a module is imported.
+library, all at the same time, and waits for every one; processes that
+build at the same time take turns (a file lock in the build directory),
+so the later ones load what the first built. Nothing is compiled when a
+module is imported.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -60,7 +63,20 @@ def build(sources: Iterable[str]) -> Dict[str, float]:
     is kept beside each library as `<library>.log`. Raises RuntimeError
     with the compiler output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    secs: Dict[str, float] = {}
+    sources = list(sources)
+    secs: Dict[str, float] = {src: 0.0 for src in sources
+                              if library_path(src).exists()}
+    if len(secs) == len(sources):
+        return secs
+    # one builder at a time across processes (worker processes starting
+    # together): the others wait here, then find the libraries built
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing([s for s in sources if s not in secs], secs)
+    return secs
+
+
+def _build_missing(sources, secs: Dict[str, float]) -> None:
     running = []
     try:
         for src in sources:
@@ -87,7 +103,6 @@ def build(sources: Iterable[str]) -> Dict[str, float]:
             proc.kill()
             proc.wait()
             tmp.unlink(missing_ok=True)
-    return secs
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -26,13 +26,20 @@
 // bought nothing.
 //
 // The design:
-//   * split-KV, balanced on the card: the grid is (KVH, chunks + B); a
-//     block takes the query heads h*G .. h*G+G-1 (GQA reuse) against one
-//     split of one row's pages. Every block reads seq_lens and computes
-//     the same split of the whole batch: splits of about equal pages,
-//     about `chunks` of them per KV head (the host picks `chunks` to fill
-//     the card once, `paged_decode_plan`), so short and long rows cost
-//     blocks in proportion and the grid runs in one wave. The host never
+//   * split-KV on the card: the grid is (KVH, chunks + B); a block takes
+//     the query heads h*G .. h*G+G-1 (GQA reuse) against one split of one
+//     row's pages. Every block reads seq_lens and computes the same plan
+//     of the whole batch: a split holds at most Q pages, Q from the
+//     launch's shapes alone (`split_pages`: the batch bucket B at the
+//     table's full width P shares about `chunks` splits per KV head; the
+//     host picks `chunks` to fill the card once, `paged_decode_plan`), and
+//     each row splits by Q and its own length, so short and long rows cost
+//     blocks in proportion and the grid runs in one wave. A row's splits
+//     never depend on another row's length: its result is bitwise the
+//     same alone or batched, in a batch of the same shapes (the
+//     reference's kernel reads each row alone). An earlier plan sized Q
+//     from the batch's total pages, which balanced mixed batches better
+//     but made a row's rounding depend on its neighbours. The host never
 //     reads seq_lens (no sync on the decode path); blocks past the
 //     batch's splits exit at once;
 //   * a ring of stages (64 tokens for bf16 queries, 32 for fp32): K, V
@@ -299,6 +306,24 @@ __device__ __forceinline__ int row_pages(int len, int page, int max_pages) {
   return (min(max(len, 0), max_pages * page) + page - 1) / page;
 }
 
+// The most pages a split takes, from the launch's shapes alone (B rows,
+// a P-page table, `chunks`, `min_chunk`): Q = max(ceil(B * P / c),
+// min_chunk, ceil(P / kMaxSplits)), capped at P, with c = chunks - B when
+// that is at least half of chunks, else ceil(chunks / 2). Every row splits
+// by this Q and its own page count only, so a row's splits, and the order
+// of its merge, are the same in any batch of the same shapes; B rows take
+// at most B * P / Q + B <= chunks + B splits, the grid's y extent.
+__host__ __device__ __forceinline__ int split_pages(int B, int P, int chunks,
+                                                    int min_chunk) {
+  const int c = chunks - B >= (chunks + 1) / 2 ? chunks - B : (chunks + 1) / 2;
+  const long long total = static_cast<long long>(B) * P;
+  long long q = (total + c - 1) / c;
+  q = q > min_chunk ? q : min_chunk;
+  const long long s = (P + kMaxSplits - 1) / kMaxSplits;
+  q = q > s ? q : s;
+  return static_cast<int>(q < P ? q : P);
+}
+
 // one query element (global memory) -> fp32
 template <int kQ>
 __device__ __forceinline__ float load_q(const void* q, size_t i) {
@@ -394,26 +419,14 @@ __device__ __forceinline__ void paged_decode(
 
   const int KVH = gridDim.x, h = blockIdx.x, j = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the batch's balanced split, the same in every block (warp 0): row r
-  // holds n_r pages (seq_len cut to the table); with T their sum, a split
-  // takes about Q = max(ceil(T / c), min_chunk, ceil(max n_r /
-  // kMaxSplits)) pages, c = chunks - B when that is at least half of
-  // chunks (so the splits stay within `chunks`), else ceil(chunks / 2);
-  // row r takes ceil(n_r / pps_r) splits of pps_r = ceil(n_r / ceil(n_r /
-  // Q)) pages (none empty; one for an empty row, which writes its
-  // zeros), rows in order along blockIdx.y
+  // the split plan, the same in every block (warp 0): row r holds n_r
+  // pages (seq_len cut to the table) and takes ceil(n_r / pps_r) splits of
+  // pps_r = ceil(n_r / ceil(n_r / Q)) pages, Q = split_pages(...) from the
+  // launch's shapes (none empty; one for an empty row, which writes its
+  // zeros), rows in order along blockIdx.y. No other row's length enters
+  // a row's splits: its result is bitwise the same in any batch
   if (warp == 0) {
-    int total = 0, nmax = 0;
-    for (int r0 = 0; r0 < B; r0 += 32) {
-      const int r = r0 + lane;
-      const int n = r < B ? row_pages(seq_lens[r], page, max_pages) : 0;
-      total += __reduce_add_sync(0xffffffffu, n);
-      nmax = max(nmax, static_cast<int>(__reduce_max_sync(0xffffffffu, n)));
-    }
-    const int c = chunks - B >= (chunks + 1) / 2 ? chunks - B
-                                                  : (chunks + 1) / 2;
-    const int Q = max(max((total + c - 1) / c, min_chunk),
-                      (nmax + kMaxSplits - 1) / kMaxSplits);
+    const int Q = split_pages(B, max_pages, chunks, min_chunk);
     if (lane == 0) s_split[0] = -1;  // past the batch's splits
     __syncwarp();
     int first = 0;
@@ -945,22 +958,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-// the most pages a split can take: the kernel's Q with every row at the
-// table's width, or a whole row
-int max_split_pages(const Args& a) {
-  const int c = a.chunks - a.B >= (a.chunks + 1) / 2 ? a.chunks - a.B
-                                                      : (a.chunks + 1) / 2;
-  const long long total = static_cast<long long>(a.B) * a.max_pages;
-  const long long q = std::max<long long>(
-      std::max<long long>((total + c - 1) / c, a.min_chunk),
-      (a.max_pages + kMaxSplits - 1) / kMaxSplits);
-  return static_cast<int>(std::min<long long>(q, a.max_pages));
-}
-
 template <int kQ, bool kInt8, int G, int D, class Kernel>
 cudaError_t launch_kernel(Kernel kernel, const Args& a) {
   using C = Cfg<kQ, kInt8, G, D>;
-  const int smem = C::kTableOff + 4 * max_split_pages(a);
+  // the block-table slice: the most pages a split takes
+  const int smem =
+      C::kTableOff + 4 * split_pages(a.B, a.max_pages, a.chunks, a.min_chunk);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

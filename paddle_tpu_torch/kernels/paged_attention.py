@@ -10,10 +10,11 @@ unused block-table slots point at (reads of it are masked by seq_lens).
 CUDA tensor it launches the hand-written Hopper kernel
 `csrc/paged_attention.cu` (it replaces the Pallas `_decode_kernel`; the
 source note there says what bounds it and how the design answers: split
-KV over pages, balanced over the batch on the card (`paged_decode_splits`
-is the same rule in Python) within the grid `paged_decode_plan` sizes,
-fed by a ring of bulk copies, the splits merged by the last block in one
-launch) or raises; on a CPU tensor it runs
+KV over pages within the grid `paged_decode_plan` sizes, each row split
+by its own length and the launch's shapes alone (`paged_decode_splits` is
+the same rule in Python), so a row's result does not depend on the rows
+batched with it, fed by a ring of bulk copies, the splits merged in split
+order by the last block in one launch) or raises; on a CPU tensor it runs
 `paged_attention_decode_ref`, the plain PyTorch version beside it. The
 cache writes are index writes, as they were XLA scatters in the
 reference.
@@ -39,8 +40,8 @@ __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
            "paged_cache_write_span",
            "alloc_paged_cache", "check_supported_paged", "paged_page_bytes",
            "quantize_kv", "KV_QMAX", "KV_SCALE_DTYPE", "paged_decode_plan",
-           "paged_decode_splits", "KERNEL_SOURCE", "CUDA_GROUP_SIZES",
-           "CUDA_MAX_TABLE_PAGES", "SPLIT_BLOCKS_PER_SM", "SPLIT_MIN_TOKENS",
+           "paged_decode_splits", "paged_split_pages", "KERNEL_SOURCE",
+           "CUDA_GROUP_SIZES", "CUDA_MAX_TABLE_PAGES", "SPLIT_BLOCKS_PER_SM", "SPLIT_MIN_TOKENS",
            "SPLIT_MAX"]
 
 KERNEL_SOURCE = "paged_attention.cu"
@@ -99,20 +100,28 @@ def paged_decode_plan(KVH, page, num_sms):
             -(-SPLIT_MIN_TOKENS // page))
 
 
+def paged_split_pages(B, P, chunks, min_chunk):
+    """The most pages one split takes (`split_pages` in the kernel), from
+    the launch's shapes alone: Q = max(ceil(B * P / c), min_chunk,
+    ceil(P / SPLIT_MAX)), capped at P, c = chunks - B when that is at
+    least half of chunks, else ceil(chunks / 2). B rows at the table's
+    full width P then take about c splits, and any B rows at most
+    B * P / Q + B <= chunks + B."""
+    c = chunks - B if chunks - B >= (chunks + 1) // 2 else (chunks + 1) // 2
+    return min(max(-(-B * P // c), min_chunk, -(-P // SPLIT_MAX)), P)
+
+
 def paged_decode_splits(seq_lens, page, P, chunks, min_chunk):
     """The split every block of the CUDA kernel computes from seq_lens:
     [(first block, splits, pages per split)] per row. Row r holds n_r
-    pages (its length cut to the P-page table); with T their sum a split
-    takes about Q = max(ceil(T / c), min_chunk, ceil(max n_r / SPLIT_MAX))
-    pages, c = chunks - B when that is at least half of chunks, else
-    ceil(chunks / 2); row r takes ceil(n_r / p_r) splits of p_r =
-    ceil(n_r / ceil(n_r / Q)) pages (none empty; Q / 2 to Q when there
-    are several), an empty row one split (which writes its zeros); rows
-    in order."""
+    pages (its length cut to the P-page table) and takes ceil(n_r / p_r)
+    splits of p_r = ceil(n_r / ceil(n_r / Q)) pages (none empty; Q / 2 to
+    Q when there are several), Q = `paged_split_pages(B, P, chunks,
+    min_chunk)`; an empty row takes one split (which writes its zeros);
+    rows in order. A row's (splits, pages per split) depend on its own
+    length and the launch's shapes only, never on the other rows."""
     n = [-(-min(max(int(x), 0), P * page) // page) for x in seq_lens]
-    B = len(n)
-    c = chunks - B if chunks - B >= (chunks + 1) // 2 else (chunks + 1) // 2
-    Q = max(-(-sum(n) // c), min_chunk, -(-max(n, default=0) // SPLIT_MAX))
+    Q = paged_split_pages(len(n), P, chunks, min_chunk)
     rows, first = [], 0
     for nr in n:
         pr, sp = 1, 1

@@ -1,14 +1,17 @@
 """Serving stack of the port: engine, scheduler, paged KV bookkeeping
 and its host spill tier, multi-LoRA adapters, speculative decoding,
-request tracing, and the in-process fleet (routers, failover, the
-asyncio server and its HTTP front door)."""
+request tracing, the in-process fleet (routers, failover, the asyncio
+server and its HTTP front door) and the cross-process fleet (worker
+processes over a TCPStore mailbox, the prefill-to-decode KV
+hand-off)."""
 from .engine import ServingEngine
 from .errors import (EngineFailure, EngineOverloaded, PoisonedComputation,
                      SnapshotVersionError, TransientDeviceError,
                      UnsupportedFeature)
-from .fleet import (Fleet, FleetHandle, FleetServer, HttpFrontend,
-                    PrefixAffinityRouter, RandomRouter, Replica,
-                    ReplicaState, RoundRobinRouter, TokenStream)
+from .fleet import (Channel, Fleet, FleetHandle, FleetServer, HttpFrontend,
+                    PrefixAffinityRouter, ProcessFleet, RandomRouter,
+                    Replica, ReplicaState, RoundRobinRouter, TokenStream,
+                    TransportError, WorkerProc, WorkerState)
 from .kv_cache import (PAD_PAGE, BlockAllocator, BlocksExhausted,
                        HostPageStore, KVSequence)
 from .metrics import ServingMetrics
@@ -16,10 +19,12 @@ from .lora import (AdapterBusy, AdapterError, AdapterLoadError,
                    AdapterNotLoaded, AdapterRegistry, LoRAAdapter,
                    LoRALayout)
 from .radix_cache import RadixCache, RadixNode
-from .scheduler import Request, RequestState, Scheduler
+from .scheduler import (PrefillChunk, Request, RequestState, ScheduleStep,
+                        Scheduler)
 from .spec import DraftModelProposer, NgramProposer, Proposer
 from .supervisor import RetryPolicy, StepSupervisor, classify_failure
 from .trace import FlightRecorder, RequestTrace, RequestTracer
+from ..profiler.exposition import render_prometheus
 
 __all__ = ["ServingEngine", "EngineFailure", "EngineOverloaded",
            "PoisonedComputation", "TransientDeviceError",
@@ -34,4 +39,6 @@ __all__ = ["ServingEngine", "EngineFailure", "EngineOverloaded",
            "HostPageStore", "RadixNode", "ServingMetrics", "Fleet",
            "FleetHandle", "FleetServer", "TokenStream", "Replica",
            "ReplicaState", "PrefixAffinityRouter", "RandomRouter",
-           "RoundRobinRouter", "HttpFrontend"]
+           "RoundRobinRouter", "HttpFrontend", "PrefillChunk",
+           "ScheduleStep", "render_prometheus", "ProcessFleet", "WorkerProc",
+           "WorkerState", "Channel", "TransportError"]

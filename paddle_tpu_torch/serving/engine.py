@@ -48,11 +48,17 @@ snapshot and raises `EngineFailure(snapshot=...)`. `snapshot()` /
 `vacate()` / `ServingEngine.from_snapshot()` / `adopt_requests()` move
 the live requests (queued, mid-prefill, decoding, preempted, with drafts
 in flight) to a fresh engine: a resumed request re-prefills its prompt
-plus what it generated, so greedy continuations equal an uninterrupted
-run under the same buckets. The snapshot records use the reference's
-keys and types, with one difference: `rng_key` holds the engine's
-`torch.Generator` state (`get_state()`, as a list of byte values) and
-`from_snapshot` restores it (a generator of the same device type).
+and replays what it generated through decode launches (each known token
+fed as the input, none emitted again), so every token's K/V and the
+next logits are computed as the uninterrupted run computed them and
+greedy continuations equal it under the same buckets, bitwise on the
+card too. (The reference re-prefills prompt + generated tokens, which
+on the card rounds those tokens through the prefill's launches instead
+of the decode's; a preempted request still does.) The snapshot records
+use the reference's keys and types, with one difference: `rng_key`
+holds the engine's `torch.Generator` state (`get_state()`, as a list of
+byte values) and `from_snapshot` restores it (a generator of the same
+device type).
 
 Tracing: `trace=True` builds a private `RequestTracer` (`trace_ring`
 completed traces), a tracer object is shared; with `trace=None` every
@@ -62,13 +68,13 @@ is always on and rides every snapshot.
 
 Determinism: greedy decode is deterministic and, given the same shape
 buckets, a request's tokens do not depend on what it is batched with
-(rows are independent) — on the CPU. On the card the paged-decode
-kernel balances its KV splits over the batch's sequence lengths, so a
-row's rounding, and a near-tied greedy pick, can change with the other
-rows of its launch; the same batch gives the same tokens. Random
-numbers for sampling are drawn from the engine's `torch.Generator` once
-per launch, BEFORE the supervised call, so a retried launch replays
-bit-identically.
+(rows are independent), on the CPU and on the card: the paged-decode
+kernel splits each row's KV by that row's length and the launch's
+shapes alone (`kernels.paged_attention.paged_decode_splits`) and merges
+the splits in order, so a row's rounding is the same alone or batched.
+Random numbers for sampling are drawn from the engine's
+`torch.Generator` once per launch, BEFORE the supervised call, so a
+retried launch replays bit-identically.
 
 Quantized serving: `kv_dtype="int8"` keeps every layer's K/V pages as
 int8 with fp32 per-slot scale pages (quantized on write, dequantized by
@@ -233,7 +239,9 @@ def _refuse_unported(*, mesh, compile_cache):
     }
     refused = [name for name, on in asked.items() if on]
     if refused:
-        raise UnsupportedFeature(
+        # not a capability conflict between two features: a feature the
+        # port lacks, so FEATURE_CONFLICTS has no pair for it
+        raise UnsupportedFeature(  # tpu-lint: refusal-ok
             f"not ported to paddle_tpu_torch yet: {', '.join(refused)}",
             features=refused)
 
@@ -884,7 +892,9 @@ class ServingEngine:
         bt = np.full((B, P), PAD_PAGE, np.int32)
         bt[:n] = self.allocator.block_table([r.seq for r in reqs], P)
         for i, r in enumerate(reqs):
-            ids[i, 0] = r.output_ids[-1]
+            # the input token at the row's last position: its newest
+            # output, or a known one it replays
+            ids[i, 0] = r.token_at(r.seq.num_tokens - 1)
             sl[i] = r.seq.num_tokens
         ids_t, bt_t, sl_t = (self._to_device(a) for a in (ids, bt, sl))
         noise = self._noise(n)    # drawn once: retries re-run identically
@@ -1480,7 +1490,12 @@ class ServingEngine:
                 self._quarantine(req)
                 continue
             req.num_computed = chunk.start + chunk.length
-            if chunk.is_last:
+            if chunk.is_last and req.replay_tokens:
+                # an adopted request: its next token is known; the
+                # tokens it generated replay through decode launches
+                req.replay_tokens = 0
+                self.scheduler.on_prefilled(req)
+            elif chunk.is_last:
                 reason = self._emit(req, tok, emitted)
                 if reason is not None:
                     self.scheduler.finish(req, reason)
@@ -1503,7 +1518,11 @@ class ServingEngine:
             for req in decodes:
                 self._apply_copies(req.pending_copies)
                 req.pending_copies = []
-            if self.proposer is not None:
+            if any(r.replaying for r in decodes):
+                # a known token is fed this step: one plain decode
+                # launch, as the uninterrupted run decoded it
+                self._plain_decode_step(decodes, emitted)
+            elif self.proposer is not None:
                 self._spec_decode_step(decodes, emitted)
             elif self.decode_steps > 1:
                 self._multi_decode_step(decodes, emitted)
@@ -1596,6 +1615,8 @@ class ServingEngine:
             if not oks[i]:
                 self._quarantine(req)
                 continue
+            if req.replaying:
+                continue               # its next token is already out
             reason = self._emit(req, int(toks[i]), emitted)
             if reason is not None:
                 self.scheduler.finish(req, reason)
@@ -1684,9 +1705,10 @@ class ServingEngine:
 
     def _restore_request(self, rec: dict) -> Request:
         """Rebuild one snapshot record into THIS engine under its
-        original id: generated tokens fold into the resume prompt (the
-        preemption recompute path), the remaining deadline is re-anchored
-        on this engine's clock, and the admission bound is bypassed
+        original id: its prompt re-prefills and its generated tokens
+        replay through decode launches (`Request.replay_tokens`), the
+        remaining deadline is re-anchored on this engine's clock, and
+        the admission bound is bypassed
         (restored work was admitted once already). A record naming an
         adapter needs it loaded here (typed AdapterNotLoaded
         otherwise)."""
@@ -1707,6 +1729,7 @@ class ServingEngine:
                 f"{len(req.prompt_ids) + req.max_new_tokens} tokens "
                 f"> resumed engine max_seq_len {self.max_seq_len}")
         req.output_ids = [int(t) for t in rec.get("output_ids", [])]
+        req.replay_tokens = len(req.output_ids)
         req.num_preemptions = int(rec.get("num_preemptions", 0))
         req.aborted = bool(rec.get("aborted", False))
         req.colocate = bool(rec.get("colocate", False))

@@ -117,12 +117,31 @@ class Request:
         # can adopt)
         self.colocate = False
         self.handoff_prefix_len = 0
+        # generated tokens the next admission recomputes through decode
+        # launches instead of the prefill (an adopted request): each is
+        # fed as a decode input and not emitted again
+        self.replay_tokens = 0
 
     # prompt the next prefill must process (original prompt + anything
-    # generated before a preemption — recompute-style resume)
+    # generated before a preemption — recompute-style resume — less the
+    # tokens an adopted request replays through decode)
     @property
     def resume_ids(self) -> List[int]:
-        return self.prompt_ids + self.output_ids
+        return self.prompt_ids + self.output_ids[
+            :len(self.output_ids) - self.replay_tokens]
+
+    def token_at(self, pos: int) -> int:
+        """The token at sequence position `pos` (prompt, then output)."""
+        n = len(self.prompt_ids)
+        return self.prompt_ids[pos] if pos < n else self.output_ids[pos - n]
+
+    @property
+    def replaying(self) -> bool:
+        """True while a decode step's next token is already known: the
+        sequence (this step's input token included) is shorter than
+        prompt + output."""
+        return (self.seq is not None and self.seq.num_tokens
+                < len(self.prompt_ids) + len(self.output_ids))
 
     @property
     def num_generated(self) -> int:
@@ -289,6 +308,7 @@ class Scheduler:
         victim.state = RequestState.WAITING
         victim.num_computed = 0
         victim.cached_tokens = 0
+        victim.replay_tokens = 0       # recompute prompt + generated
         victim.num_preemptions += 1
         self.num_preemptions += 1
         # preempted requests head the queue: FCFS by original arrival

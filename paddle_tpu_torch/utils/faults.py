@@ -22,7 +22,12 @@ Points registered by the port: `serving.kv.alloc_page`,
 `serving.engine.decode_step`, `serving.engine.multi_decode_step`,
 `serving.engine.verify_step`, `serving.engine.nan_logits`,
 `serving.engine.deadline_storm`, `serving.spec.draft_storm`,
-`serving.lora.load_fail` and `serving.lora.evict_race`.
+`serving.lora.load_fail`, `serving.lora.evict_race`, the fleet's
+(`fleet.replica_crash`, `fleet.route_race`, `fleet.stream_stall`,
+`fleet.handoff_stall`, `fleet.handoff_partial`, `fleet.decode_reject`,
+`worker.kill9`), the transport's (`transport.drop`,
+`transport.duplicate`, `transport.stall`) and the host spill tier's
+(`host_spill.corrupt`, `host_spill.slow`, `host_spill.lost`).
 """
 from __future__ import annotations
 

@@ -2080,3 +2080,84 @@ def test_adopt_prefix_across_engines_on_card(card):
     for eng in (donor, other):
         eng.reset_prefix_cache()
         assert eng.allocator.num_used == 0
+
+
+# -------------------------------------- paged splits and the process fleet
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_rows_are_bitwise_independent_of_the_batch(card, int8):
+    """Serve's batch (B 16, KVH 8, G 4, D 128, page 16, a 72-page table,
+    a pad row): each row's output is bitwise the same in a batch of 16
+    whose other rows are pad rows, and in one whose other rows have
+    other lengths (a row's splits depend on its own length alone)."""
+    rng = np.random.RandomState(5)
+    lens = rng.randint(128, 72 * 16 + 1, size=16)
+    lens[-1] = 0
+    q, kc, vc, bt, sl = (torch.from_numpy(a).to(card) for a in _paged_case(
+        B=16, KVH=8, G=4, D=128, page=16, max_pages=72, seq_lens=lens,
+        seed=9))
+    q, extra = q.bfloat16(), {}
+    if int8:
+        (kc, ks), (vc, vs) = pa.quantize_kv(kc), pa.quantize_kv(vc)
+        extra = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = kc.bfloat16(), vc.bfloat16()
+    full = pa.paged_attention_decode(q, kc, vc, bt, sl, **extra)
+    others = torch.from_numpy(
+        rng.randint(1, 72 * 16 + 1, size=16).astype(np.int32)).to(card)
+    for r in range(15):
+        alone = torch.zeros_like(sl)
+        alone[r] = sl[r]
+        mixed = others.clone()
+        mixed[r] = sl[r]
+        for batch in (alone, mixed):
+            got = pa.paged_attention_decode(q, kc, vc, bt, batch, **extra)
+            assert torch.equal(got[r], full[r]), r
+    torch.cuda.synchronize()
+
+
+def test_process_fleet_prefill_to_decode_on_card(card, tmp_path):
+    """Two worker processes on the card (TINY in bf16, head_dim 64): a
+    prefill worker and a decode worker; every request's KV pages travel
+    to the decode worker, which decodes it through the paged kernel;
+    streams equal an in-process engine's on the same grid, both pools
+    end empty, and the decode worker's paged launches are its decode
+    launches x 2 layers."""
+    import time
+    from paddle_tpu_torch.serving import ProcessFleet
+    from paddle_tpu_torch.serving.fleet.worker import build_model
+    model_spec = {"kind": "llama", "config": dict(TINY, dtype="bfloat16"),
+                  "seed": 3}
+    rng = np.random.RandomState(16)
+    prompts = [(rng.randint(0, 128, int(n)).tolist(), 10)
+               for n in rng.randint(20, 41, 4)]
+    # the in-process run builds the path's kernels: the workers load them
+    ref = ServingEngine(build_model(model_spec), device=card, **SERVE_KW)
+    want = _serve(ref, prompts)
+    base = {"model": model_spec, "engine": SERVE_KW,
+            "heartbeat_interval_s": 0.05}
+    pf = ProcessFleet({"p0": dict(base, role="prefill"),
+                       "d0": dict(base, role="decode")}, dead_after_s=60.0,
+                      stderr_dir=str(tmp_path / "logs"))
+    try:
+        t0 = time.monotonic()
+        while not all(w.ready for w in pf.workers.values()):
+            pf.pump()
+            assert time.monotonic() - t0 < 180, "workers not ready"
+            time.sleep(0.01)
+        handles = [pf.submit(p, max_new_tokens=m) for p, m in prompts]
+        res = pf.run(timeout_s=180)
+        assert [res[h.request_id] for h in handles] == want
+        c = pf.counters
+        assert c["handoffs_completed"] == len(prompts)
+        assert c["kv_pages_shipped"] >= len(prompts)
+        assert c["requests_lost"] == c["funnel_conflicts"] == 0
+        for name in pf.workers:
+            st = pf.request_stats(name, reset_prefix_cache=True)
+            assert st["allocator_ok"] and st["kv_used_pages"] == 0, st
+        st = pf.workers["d0"].last_stats
+        assert st["decode_launches"] > 0
+        assert st["kernel_launches"]["paged_attention_decode"] == \
+            2 * st["decode_launches"]
+    finally:
+        pf.shutdown()
+    assert [w.poll() for w in pf.workers.values()] == [0, 0]

@@ -176,8 +176,9 @@ def _serve_lens(seed, B=16, page=16, P=72):
 
 @pytest.mark.parametrize("name,lens,P,want", [
     # the serve batch: 16 rows of 128-1152 tokens in a 72-page table, a
-    # pad row; 43 splits of at most 19 pages, 1 to 4 a row
-    ("serve", _serve_lens(0), 72, (43, 4, 1, 19)),
+    # pad row; splits of at most 35 pages (16 rows x 72 pages over 33),
+    # here 27 of at most 31, 1 to 2 a row
+    ("serve", _serve_lens(0), 72, (27, 2, 1, 31)),
     # one request over the widest table: 48 splits of 43 pages
     ("b1_32768", [32768], 2048, (48, 48, 48, 43)),
     # four at Llama-3's 8192-token context
@@ -232,6 +233,32 @@ def test_paged_decode_splits_cover_each_row_with_none_empty():
             assert pr * (sp - 1) < n <= pr * sp
             assert sp == 1 or 2 * pr >= min_chunk
         assert first <= chunks + B
+
+
+def test_a_rows_splits_do_not_depend_on_the_other_rows():
+    """Over seeded batches: each row's (splits, pages per split) equals
+    its plan in a batch of the same B and P whose other rows are pad
+    rows, and in one whose other rows have other lengths; so its merge,
+    and its result, are the same alone or batched."""
+    rng = np.random.RandomState(1)
+    for _ in range(1000):
+        B, KVH = int(rng.randint(1, 65)), int(rng.choice([1, 2, 4, 8]))
+        page = 8 * int(rng.randint(1, 17))
+        P = int(rng.randint(1, pa.CUDA_MAX_TABLE_PAGES + 1))
+        sms = int(rng.choice([1, 16, 78, 114, 132]))
+        chunks, min_chunk = pa.paged_decode_plan(KVH, page, sms)
+        lens = rng.randint(0, P * page + 1, size=B)
+        others = rng.randint(0, P * page + 1, size=B)
+        rows = pa.paged_decode_splits(lens, page, P, chunks, min_chunk)
+        for r in range(B):
+            alone = np.zeros(B, dtype=np.int64)
+            alone[r] = lens[r]
+            mixed = others.copy()
+            mixed[r] = lens[r]
+            for batch in (alone, mixed):
+                _, sp, pr = pa.paged_decode_splits(
+                    batch, page, P, chunks, min_chunk)[r]
+                assert (sp, pr) == rows[r][1:], (B, P, r)
 
 
 def _split_merge_model(q, kc, vc, bt, sl, rows, scale, tile=64):
