@@ -110,6 +110,34 @@ Phases, one JSON line each:
                start seconds, hand-off ms and relay MB/s, TTFT and drain
                wall of each run, the longest heartbeat gap, migrations
                and the card's peak memory (all processes).
+  3i. serve_tp — tensor-parallel serving: TP_DEGREE (2) rank processes
+               started by the port's `spawn` (NCCL with a card per rank,
+               rank r on cuda:r; with one card both ranks on cuda:0 over
+               gloo), each running `ServingEngine(mesh=tp_serving_mesh(2))`
+               over its own shard; the parent's model is freed first
+               (after serve_quant). fp32: a small model (head_dim 64,
+               pinned buckets) at tp 1 and tp 2 on each rank: greedy
+               tokens equal. bf16: serve's model, weights, grid and 16
+               requests on serve's schedule: both ranks emit identical
+               tokens, each rank's paged-decode launches == 32 x its
+               decode launches at H 16 / KVH 4. int8 (`wq="int8",
+               kv_dtype="int8"`, serve's first 8 requests, int8 pages in
+               half of serve's pool bytes a rank): tokens equal on both
+               ranks, the int8 paged kernel 32 x a decode launch at KVH
+               4, the int8 matmul on the kernel `quant_matmul_route`
+               names at the shard widths (gate/up N 7168, down K 7168,
+               head N 64128; decode rows and each prefill bucket), held
+               to the flight recorder. Rank 0's layer-0 caches of a live
+               decode batch of each run are held to the plain version
+               (bf16 and fp32 queries) and timed. Reports the backend,
+               card count and each rank's device, decode tokens/s, each
+               rank's peak memory, the all_reduce share of a profiled
+               decode step and agreement with phase 3's tokens (bf16:
+               the row-parallel sums round differently; not gated). Two
+               ranks over gloo on one card measure correctness, not TP
+               speed. A rank that fails, times out or diverges (the
+               engine compares a fingerprint of every step across the
+               ranks) fails the phase.
   3e. generate — `LlamaForCausalLM.generate` on the same bf16 model: 4
                prompts of 512 tokens (the first 512 of the first 4 serve
                prompts that long), 32 new tokens; greedy eager, greedy
@@ -318,9 +346,13 @@ Phases, one JSON line each:
 Then the `{"kernels": [...]}` line (each row's `launches` its main path's
 count; the flash and AdamW rows also `launches_by_phase` for train,
 train_loop and generate, the paged-decode row for serve, serve_multi,
-serve_spec, serve_spill, fleet and proc_fleet (the workers' stats: d0 at
-the end of run 1, p0 at the end), the int8 row for serve_quant and
-serve_spill), the raw nvidia-smi line, and as the last line `{"ok": true, "device": {...}}`. Any failure is an uncaught
+serve_spec, serve_spill, fleet, proc_fleet (the workers' stats: d0 at
+the end of run 1, p0 at the end) and serve_tp (each rank's), the int8
+row for serve_quant, serve_spill and serve_tp, the int8 matmul's decode
+and prefill rows for serve_quant and serve_tp; the paged rows' `tp_shard`
+and the int8 matmul rows' `shapes` hold the rank shards' checks and
+times), the raw nvidia-smi line, and as the last line `{"ok": true,
+"device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
 with status 2 and prints no result.
 """
@@ -555,6 +587,21 @@ PACK_ENTRY = {"varlen": "paddle_tpu/kernels/flash_attention.py:721",
               "flashmask": "paddle_tpu/kernels/flash_attention.py:763"}
 # rms_norm_rows: the train phase's tokens x hidden, and decode rows
 NORM_SHAPES = ((TRAIN_SEQ, 4096), (16, 4096), (7, 1100))
+# serve_tp: the model degree; the int8 run's requests (serve's first) and
+# depth; the small fp32 model held against tp 1 (head_dim 64, G 2) with
+# its pinned grid, requests and new tokens; where the ranks write; the
+# process group's collective timeout and how long the parent waits
+TP_DEGREE, TP_INT8_REQUESTS, TP_INT8_LAYERS = 2, 8, 32
+TP_FP32 = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, max_position_embeddings=512,
+               dtype="float32")
+TP_FP32_KW = dict(page_size=16, num_pages=256, token_budget=64,
+                  batch_buckets=[8], prefill_buckets=[64],
+                  pages_buckets=[8])
+TP_FP32_REQUESTS, TP_FP32_NEW = 8, 16
+TP_OUT = os.path.join("build", "serve_tp")
+TP_TIMEOUT_S, TP_JOIN_S = 300, 900
 
 
 def emit(obj) -> None:
@@ -605,6 +652,8 @@ def kernel_kind(name: str) -> str:
         return "quant_matmul"
     if "lora_apply" in n:
         return "lora"
+    if "nccl" in n:
+        return "collective"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas",
                             "sm90_")):
         return "gemm"
@@ -614,15 +663,21 @@ def kernel_kind(name: str) -> str:
 def profile_summary(prof, wall_s: float, **fields):
     """Device time of one profiled step: CUDA kernel events summed (one
     stream, so they do not overlap), split by kernel kind, and the
-    kernels that took the most device time. The step's wall time under
+    kernels that took the most device time; and the host time spent
+    inside `all_reduce` calls (tensor parallelism; over gloo a CUDA
+    tensor's reduction runs on the host). The step's wall time under
     the profiler includes the profiler's start-up, so it is reported but
     not divided by."""
     from torch.autograd import DeviceType
     by_name = {}
+    allreduce_us, allreduce_calls = 0.0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        elif e.name == "c10d::allreduce_":
+            allreduce_us += e.time_range.elapsed_us()
+            allreduce_calls += 1
     kinds = {}
     for name, (t, n) in by_name.items():
         kt, kn = kinds.get(kernel_kind(name), (0.0, 0))
@@ -633,6 +688,8 @@ def profile_summary(prof, wall_s: float, **fields):
             "kernel_launches": sum(n for _, n in by_name.values()),
             "reduce_splits_launches": sum(n for k, (_, n) in by_name.items()
                                           if "reduce_splits" in k),
+            "allreduce_calls": allreduce_calls,
+            "allreduce_host_ms": allreduce_us / 1e3,
             "by_kind": {k: {"ms": t / 1e3, "launches": n}
                         for k, (t, n) in sorted(kinds.items())},
             "top_kernels": [{"name": k[:100], "ms": t / 1e3, "calls": n}
@@ -1807,8 +1864,7 @@ def phase_serve_quant(served, seed: int):
     import torch
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_page_bytes)
-    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                       quant_matmul_route)
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
     from paddle_tpu_torch.serving import ServingEngine
 
     model = served["model"]
@@ -1854,21 +1910,9 @@ def phase_serve_quant(served, seed: int):
     if len(chunks) != fields["prefill_launches"]:
         raise AssertionError(f"{len(chunks)} chunk records for "
                              f"{fields['prefill_launches']} chunks")
-    h, i = cfg.hidden_size, cfg.intermediate_size
-    mlp = ((h, i), (h, i), (i, h))
-    kernel_of = {"decode_sm90": "quant_matmul_decode",
-                 "sm90": "quant_matmul_prefill"}
     want = {"paged_attention_decode_int8":
             fields["decode_launches"] * cfg.num_hidden_layers,
-            "quant_matmul": 0, "quant_matmul_decode": 0,
-            "quant_matmul_prefill": 0}
-    L, head = cfg.num_hidden_layers, (h, cfg.vocab_size)
-    for rows, K, N, times in (
-            [(16, K, N, L * fields["decode_launches"]) for K, N in mlp]
-            + [(16, *head, fields["decode_launches"]), (1, *head, len(chunks))]
-            + [(S, K, N, L) for S in chunks for K, N in mlp]):
-        route = quant_matmul_route(rows, K, N, torch.bfloat16)
-        want[kernel_of.get(route, "quant_matmul")] += times
+            **_qmm_expected(cfg, 1, fields["decode_launches"], chunks)[0]}
     if launches != want or launches["quant_matmul"] or not all(
             v for k, v in launches.items() if k != "quant_matmul") or \
             paged_attention_decode.launches != full_width:
@@ -2297,7 +2341,7 @@ def capture_batch(eng, reqs):
             "scales": layer[2:] or None,
             "bt": torch.from_numpy(bt).cuda(),
             "sl": torch.from_numpy(sl).cuda(),
-            "heads": eng.num_heads}
+            "heads": eng.num_heads // eng.tp}
 
 
 def paged_batch(seed: int, B: int, KVH: int, G: int, D: int, page: int,
@@ -2378,6 +2422,11 @@ def paged_cases(seed: int):
         cases[name] = (dict(serve, B=B, P=P, lens=[n] * B),
                        ("bfloat16", "int8"))
     cases["edges"] = (dict(serve, B=8, P=64, lens=edges), both)
+    # a rank's shard of the serve shape under tensor parallelism: H 16
+    # over KVH 4 at tp 2 (serve_tp), H 8 over KVH 2 at tp 4
+    for tp in (2, 4):
+        cases[f"serve_tp{tp}"] = (dict(serve, KVH=8 // tp,
+                                       lens=serve_lens(seed + tp)), both)
     for G, D, page in ((1, 64, 8), (2, 256, 32), (8, 64, 16), (8, 256, 16),
                        (2, 192, 16)):
         P = 512 // page
@@ -2512,10 +2561,44 @@ def paged_long_times(seed: int, kv: str, flush):
     return out
 
 
-def phase_kernels(capture, launches, seed: int, card: str):
+def check_paged_capture(capture, seed: int):
+    """The paged-decode kernel on a live decode batch's layer-0 caches
+    (`capture_batch`; int8 with its scale pages when it has them) with
+    seeded bf16 and fp32 queries: max abs error within 2e-2 / 1e-4 of the
+    plain version (full-width caches cast to the query type), the pad row
+    exactly 0. Raises on a miss; returns ({dtype: max abs error}, the
+    bf16 queries)."""
     import torch
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_attention_decode, paged_attention_decode_ref)
+    k, v, bt, sl = capture["k"], capture["v"], capture["bt"], capture["sl"]
+    sc = capture["scales"]
+    extra = dict(k_scale=sc[0], v_scale=sc[1]) if sc else {}
+    B, H, D = bt.shape[0], capture["heads"], k.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, H, D, generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    errs = {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        kk, vv = (k, v) if sc else (k.to(dt), v.to(dt))
+        args = (q.to(dt), kk, vv, bt, sl)
+        got = paged_attention_decode(*args, **extra)
+        torch.cuda.synchronize()
+        want = paged_attention_decode_ref(*args, **extra)
+        err = (got.float() - want.float()).abs().max().item()
+        pad = int((sl == 0).nonzero()[0, 0])
+        if not (err <= tol and torch.isfinite(got).all()
+                and torch.all(got[pad] == 0)):
+            raise AssertionError(f"paged_attention_decode {dt} (H {H}, KVH "
+                                 f"{k.shape[1]}{', int8' if sc else ''}): "
+                                 f"max abs err {err} > {tol} or pad row not "
+                                 f"zero")
+        errs[str(dt).replace("torch.", "")] = err
+    return errs, q
+
+
+def phase_kernels(capture, launches, seed: int, card: str):
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -2525,28 +2608,10 @@ def phase_kernels(capture, launches, seed: int, card: str):
     if failures:
         raise AssertionError(f"paged decode disagrees with its plain "
                              f"version: {failures}")
-    k, v, bt, sl = capture["k"], capture["v"], capture["bt"], capture["sl"]
-    B, H = bt.shape[0], capture["heads"]
-    D = k.shape[-1]
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    q = torch.randn(B, H, D, generator=gen, device="cuda",
-                    dtype=torch.float32).to(torch.bfloat16)
-
-    errs = {}
-    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-        args = (q.to(dt), k.to(dt), v.to(dt), bt, sl)
-        got = paged_attention_decode(*args)
-        torch.cuda.synchronize()
-        want = paged_attention_decode_ref(*args)
-        err = (got.float() - want.float()).abs().max().item()
-        pad = int((sl == 0).nonzero()[0, 0])
-        if not (err <= tol and torch.isfinite(got).all()
-                and torch.all(got[pad] == 0)):
-            raise AssertionError(f"paged_attention_decode {dt}: max abs "
-                                 f"err {err} > {tol} or pad row not zero")
-        errs[str(dt).replace("torch.", "")] = err
+    errs, q = check_paged_capture(capture, seed + 1)
     emit({"phase": "kernel_check", "kernel": "paged_attention_decode",
-          "batch": B, "seq_lens": sl.tolist(), "max_abs_err": errs,
+          "batch": capture["bt"].shape[0],
+          "seq_lens": capture["sl"].tolist(), "max_abs_err": errs,
           "tolerance": {"bfloat16": 2e-2, "float32": 1e-4}})
 
     # timing at the main path's dtype (bf16), then the long-context rows
@@ -2587,11 +2652,25 @@ def qmm_shapes():
     from paddle_tpu_torch.models.llama import llama_3_8b
     cfg = llama_3_8b()
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    return {"gate_up_m16": (16, h, i), "down_m16": (16, i, h),
-            "lm_head_m16": (16, h, v), "lm_head_m1": (1, h, v),
-            "gate_up_m512": (512, h, i), "down_m512": (512, i, h),
-            "ragged": (5, 200, 72), "ragged_decode": (13, 1000, 4112),
-            "ragged_prefill": (200, h, 1040)}
+    shapes = {"gate_up_m16": (16, h, i), "down_m16": (16, i, h),
+              "lm_head_m16": (16, h, v), "lm_head_m1": (1, h, v),
+              "gate_up_m512": (512, h, i), "down_m512": (512, i, h),
+              "ragged": (5, 200, 72), "ragged_decode": (13, 1000, 4112),
+              "ragged_prefill": (200, h, 1040)}
+    # a rank's shards under tensor parallelism: gate/up column-split (N
+    # i/tp), down row-split (K i/tp), the head vocab-split (N v/tp: 64128
+    # at tp 2 and 32064 at tp 4, each ending in a half 256-column tile of
+    # the decode stream)
+    for tp in (2, 4):
+        it, vt = i // tp, v // tp
+        shapes.update({f"lm_head_tp{tp}_m16": (16, h, vt),
+                       f"lm_head_tp{tp}_m1": (1, h, vt)})
+        if tp == TP_DEGREE:
+            shapes.update({f"gate_up_tp{tp}_m16": (16, h, it),
+                           f"down_tp{tp}_m16": (16, it, h),
+                           f"gate_up_tp{tp}_m512": (512, h, it),
+                           f"down_tp{tp}_m512": (512, it, h)})
+    return shapes
 
 
 def qmm_inputs(shape, seed: int):
@@ -2788,6 +2867,15 @@ def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
               for n in ("gate_up_m16", "down_m16", "lm_head_m16",
                         "lm_head_m1")}
     prefill = {n: qmm_row(*shapes[n]) for n in ("gate_up_m512", "down_m512")}
+    # a serve_tp rank's shards (gate/up N i/tp, down K i/tp, head N v/tp)
+    for n in ("gate_up", "down", "lm_head"):
+        decode[f"{n}_tp{TP_DEGREE}_m16"] = qmm_row(
+            *shapes[f"{n}_tp{TP_DEGREE}_m16"])
+    decode[f"lm_head_tp{TP_DEGREE}_m1"] = qmm_row(
+        *shapes[f"lm_head_tp{TP_DEGREE}_m1"])
+    for n in ("gate_up", "down"):
+        prefill[f"{n}_tp{TP_DEGREE}_m512"] = qmm_row(
+            *shapes[f"{n}_tp{TP_DEGREE}_m512"])
     for S in buckets:
         for n, (K, N) in (("gate_up", (h, i)), ("down", (i, h))):
             if f"{n}_m{S}" not in prefill and \
@@ -2830,6 +2918,294 @@ def phase_quant_kernels(capture, launches, buckets, seed: int, card: str):
         c: v["max_abs"] for c, v in e.items()
         if v["route"] in ("decode", "fp32", "mma")}
     return rows
+
+
+def tp_fp32_prompts(seed: int, vocab: int):
+    """serve_tp's fp32 requests: seeded prompts of 5-64 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 17)
+    return [(rng.randint(0, vocab, int(n)).tolist(), TP_FP32_NEW)
+            for n in rng.randint(5, 65, size=TP_FP32_REQUESTS)]
+
+
+def _save_capture(capture, path):
+    import torch
+    torch.save({k: ([t.cpu() for t in v] if isinstance(v, list)
+                    else v.cpu() if hasattr(v, "cpu") else v)
+                for k, v in capture.items()}, path)
+
+
+def _load_capture(path):
+    import torch
+    c = torch.load(path)
+    return {k: ([t.cuda() for t in v] if isinstance(v, list)
+                else v.cuda() if hasattr(v, "cuda") else v)
+            for k, v in c.items()}
+
+
+def _qmm_expected(cfg, tp, decode_launches, chunks):
+    """{kernel: launches} the int8 matmul of one rank must count: each
+    decode launch's 16 rows through every layer's gate/up (N i/tp) and
+    down (K i/tp) and the head (N v/tp), each prefill chunk's bucket
+    through the MLP and its one head row, every launch on the kernel
+    `quant_matmul_route` names; and the (route, K, N) -> rows launched."""
+    import torch
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul_route
+    h, i, v = cfg.hidden_size, cfg.intermediate_size // tp, \
+        cfg.vocab_size // tp
+    mlp, head, L = ((h, i), (h, i), (i, h)), (h, v), cfg.num_hidden_layers
+    kernel_of = {"decode_sm90": "quant_matmul_decode",
+                 "sm90": "quant_matmul_prefill"}
+    want = {"quant_matmul": 0, "quant_matmul_decode": 0,
+            "quant_matmul_prefill": 0}
+    shapes = {}
+    for rows, K, N, times in (
+            [(16, K, N, L * decode_launches) for K, N in mlp]
+            + [(16, *head, decode_launches), (1, *head, len(chunks))]
+            + [(S, K, N, L) for S in chunks for K, N in mlp]):
+        route = quant_matmul_route(rows, K, N, torch.bfloat16)
+        want[kernel_of.get(route, "quant_matmul")] += times
+        if times:
+            shapes.setdefault(f"{route}:{K}x{N}", set()).add(rows)
+    return want, {k: sorted(v) for k, v in shapes.items()}
+
+
+def serve_tp_rank(seed: int, out_dir: str):
+    """One rank of phase serve_tp, started by the port's `spawn`: the
+    fp32, bf16 and int8 runs on this rank's shard. Checks its own
+    launch counts (raises), writes its tokens and fields to
+    `out_dir/rank<r>.json` and, on rank 0, each run's capture for the
+    parent's kernel checks."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_attention_decode, paged_page_bytes)
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
+    from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
+                                               llama_3_8b)
+    from paddle_tpu_torch.serving import ServingEngine, tp_serving_mesh
+
+    t_start = time.perf_counter()
+    env = init_parallel_env(timeout_s=TP_TIMEOUT_S)
+    mesh = tp_serving_mesh(TP_DEGREE)
+    dev, rank = mesh.device, mesh.rank
+    res = {"rank": rank, "device": str(dev), "backend": env.backend,
+           "device_count": torch.cuda.device_count(),
+           "start_s": time.perf_counter() - t_start}
+
+    def build(cfg, dtype):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return LlamaForCausalLM(cfg, device=dev, dtype=dtype, generator=gen)
+
+    # fp32: the small model with no mesh, then at tp 2
+    cfg = LlamaConfig(**TP_FP32)
+    prompts = tp_fp32_prompts(seed, cfg.vocab_size)
+    res["fp32"] = {}
+    for tp in (1, TP_DEGREE):
+        eng = ServingEngine(build(cfg, torch.float32),
+                            mesh=mesh if tp > 1 else None, device=dev,
+                            seed=seed, **TP_FP32_KW)
+        rids = [eng.add_request(p, max_new_tokens=m) for p, m in prompts]
+        out = eng.run()
+        res["fp32"][f"tp{tp}"] = [out[r] for r in rids]
+        del eng
+
+    # bf16: serve's model, weights, grid and requests; the engine splits
+    # the whole model as it is built here
+    cfg = llama_3_8b(dtype="bfloat16")
+    t0 = time.perf_counter()
+    eng = ServingEngine(build(cfg, torch.bfloat16), mesh=mesh, page_size=16,
+                        num_pages=SERVE_PAGES, batch_buckets=[16], seed=seed)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = serve_prompts(seed, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats(dev)
+    paged_attention_decode.launches = 0          # the main path starts
+    fields, capture, outs = serve_requests(eng, prompts)
+    launches = paged_attention_decode.launches   # the main path ended
+    if not (launches > 0 and launches == fields["decode_launches"]
+            * cfg.num_hidden_layers and paged_attention_decode.int8_launches
+            == 0):
+        raise AssertionError(f"rank {rank}: paged launches {launches} != "
+                             f"{fields['decode_launches']} decode launches "
+                             f"x {cfg.num_hidden_layers} layers")
+    heads = (eng.num_heads // eng.tp, eng.kv_heads_shard)
+    res["bf16"] = {"outs": outs, "fields": fields, "build_s": build_s,
+                   "paged_launches": launches, "heads": heads,
+                   "num_pages": eng.num_pages,
+                   "kv_page_bytes_shard": eng.kv_page_bytes_shard,
+                   "weight_bytes": weight_bytes(eng.model),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(
+                       dev),
+                   "pages_used_after_reset": _pages_left(eng)}
+    if rank == 0:
+        _save_capture(capture, os.path.join(out_dir, "capture_bf16.pt"))
+    del eng, capture
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int8: quantized whole (as at tp 1), then split; int8 pages in half
+    # of serve's pool bytes a rank (each rank holds half of every page)
+    cfg = llama_3_8b(dtype="bfloat16", num_hidden_layers=TP_INT8_LAYERS)
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    pool = SERVE_PAGES * paged_page_bytes(
+        cfg.num_key_value_heads // TP_DEGREE, 16, head_dim, "bfloat16")
+    t0 = time.perf_counter()
+    eng = ServingEngine(build(cfg, torch.bfloat16), mesh=mesh, wq="int8",
+                        kv_dtype="int8", page_size=16, batch_buckets=[16],
+                        kv_pool_bytes=pool, seed=seed,
+                        flight_recorder_steps=4096)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    paged_attention_decode.int8_launches = 0     # the main path starts
+    quant_matmul.launches = quant_matmul.prefill_launches = 0
+    quant_matmul.decode_launches = 0
+    fields, capture, outs = serve_requests(eng, prompts[:TP_INT8_REQUESTS])
+    got = {"quant_matmul": quant_matmul.launches,
+           "quant_matmul_decode": quant_matmul.decode_launches,
+           "quant_matmul_prefill": quant_matmul.prefill_launches}
+    int8_launches = paged_attention_decode.int8_launches  # the path ended
+    chunks = [int(prog.split(":")[1][1:]) for rec in eng.recorder.records()
+              for prog in rec["programs"] if prog.startswith("chunk:")]
+    want, shapes = _qmm_expected(cfg, TP_DEGREE, fields["decode_launches"],
+                                 chunks)
+    if got != want or got["quant_matmul"] or int8_launches != \
+            fields["decode_launches"] * cfg.num_hidden_layers or \
+            len(chunks) != fields["prefill_launches"]:
+        raise AssertionError(f"rank {rank}: int8 launches {got} != {want} "
+                             f"or int8 paged launches {int8_launches} != "
+                             f"{fields['decode_launches']} x "
+                             f"{cfg.num_hidden_layers}")
+    res["int8"] = {"outs": outs, "fields": fields, "build_s": build_s,
+                   "layers": cfg.num_hidden_layers,
+                   "num_wq_layers": eng.num_wq_layers,
+                   "paged_int8_launches": int8_launches,
+                   "quant_matmul_launches": got, "qmm_shapes": shapes,
+                   "prefill_chunks_by_bucket": {
+                       S: chunks.count(S) for S in sorted(set(chunks))},
+                   "num_pages": eng.num_pages,
+                   "kv_page_bytes_shard": eng.kv_page_bytes_shard,
+                   "weight_bytes": weight_bytes(eng.model),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(
+                       dev),
+                   "pages_used_after_reset": _pages_left(eng)}
+    if rank == 0:
+        _save_capture(capture, os.path.join(out_dir, "capture_int8.pt"))
+    del eng, capture
+    res["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier(group=mesh.host_group)
+    dist.destroy_process_group()
+
+
+def phase_serve_tp(serve_outs, seed: int, card: str):
+    """Phase serve_tp: the ranks (`serve_tp_rank`), then the gates that
+    span them and rank 0's captures checked and timed here. Returns what
+    the kernels line adds to its rows."""
+    import shutil
+
+    import torch
+    from paddle_tpu_torch.distributed import spawn
+
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    os.makedirs(TP_OUT)
+    t0 = time.perf_counter()
+    spawn(serve_tp_rank, args=(seed, TP_OUT), nprocs=TP_DEGREE,
+          timeout=TP_JOIN_S)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(TP_DEGREE):
+        with open(os.path.join(TP_OUT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    for run in ("bf16", "int8"):
+        if any(r[run]["outs"] != r0[run]["outs"] for r in ranks):
+            raise AssertionError(f"serve_tp {run}: the ranks' tokens differ")
+    fp32 = [r["fp32"] for r in ranks]
+    if any(f[f"tp{TP_DEGREE}"] != f["tp1"] or f != fp32[0] for f in fp32):
+        raise AssertionError(f"serve_tp fp32: tp {TP_DEGREE} tokens != tp 1 "
+                             f"tokens, or the ranks differ")
+    from paddle_tpu_torch.models.llama import llama_3_8b
+    cfg = llama_3_8b()
+    want_heads = [cfg.num_attention_heads // TP_DEGREE,
+                  cfg.num_key_value_heads // TP_DEGREE]
+    if any(r["bf16"]["heads"] != want_heads for r in ranks):
+        raise AssertionError(f"serve_tp: a rank's heads are not "
+                             f"{want_heads}")
+    # rank 0's live captures (layer 0, H 16 / KVH 4) against the plain
+    # version, then timed
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    shard = {}
+    for run, name in (("bf16", "paged_attention_decode"),
+                      ("int8", "paged_attention_decode_int8")):
+        cap = _load_capture(os.path.join(TP_OUT, f"capture_{run}.pt"))
+        errs, q = check_paged_capture(cap, seed + 3)
+        t = paged_times(cap, flush_buf.zero_, q)
+        shard[name] = {
+            "launches_by_rank": [r[run]["paged_launches" if run == "bf16"
+                                      else "paged_int8_launches"]
+                                 for r in ranks],
+            "max_abs_err": errs["bfloat16"],
+            "max_abs_err_fp32": errs["float32"],
+            **{k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "bytes", "gb_per_s")},
+            "shape": dict(t["shape"], dtype="bfloat16",
+                          kv="int8 + fp32 scales" if run == "int8"
+                          else "bfloat16")}
+        del cap, q
+    del flush_buf
+    bf = r0["bf16"]["fields"]
+    prof = bf["profiled_step"] or {}
+    emit({"phase": "serve_tp", "tp": TP_DEGREE, "backend": r0["backend"],
+          "device_count": r0["device_count"],
+          "rank_devices": [r["device"] for r in ranks],
+          "ranks_s": ranks_s, "rank_seconds": [r["seconds"] for r in ranks],
+          "rank_start_s": [r["start_s"] for r in ranks],
+          "fp32": {"model": TP_FP32, "requests": TP_FP32_REQUESTS,
+                   "tokens_equal_tp1": True},
+          "bf16": {"model": "llama_3_8b", "layers": cfg.num_hidden_layers,
+                   "heads_per_rank": want_heads,
+                   "build_s": [r["bf16"]["build_s"] for r in ranks],
+                   "weight_bytes": [r["bf16"]["weight_bytes"] for r in ranks],
+                   "max_memory_allocated": [
+                       r["bf16"]["max_memory_allocated"] for r in ranks],
+                   "num_pages": r0["bf16"]["num_pages"],
+                   "kv_page_bytes_shard": r0["bf16"]["kv_page_bytes_shard"],
+                   "paged_launches": shard["paged_attention_decode"][
+                       "launches_by_rank"],
+                   "identical_across_ranks": True,
+                   "agreement_with_serve": agreement(r0["bf16"]["outs"],
+                                                     serve_outs),
+                   "allreduce_share_of_profiled_step": (
+                       prof["allreduce_host_ms"] / prof["wall_ms_profiled"]
+                       if prof else None),
+                   "allreduce_share_of_decode_step": (
+                       prof["allreduce_host_ms"] / bf["decode_step_ms"]
+                       if prof and bf["decode_step_ms"] else None),
+                   **{k: v for k, v in bf.items()}},
+          "int8": {k: v for k, v in r0["int8"].items() if k != "outs"},
+          "int8_identical_across_ranks": True,
+          "int8_max_memory_allocated": [
+              r["int8"]["max_memory_allocated"] for r in ranks],
+          "kernel_checks": shard,
+          "note": ("two ranks on one card over gloo measure correctness, not "
+                   "tensor-parallel speed" if r0["device_count"] < TP_DEGREE
+                   else "one card per rank over NCCL")})
+    i8 = r0["int8"]["quant_matmul_launches"]
+    return {"paged": shard, "qmm": {
+        "quant_matmul_decode": [r["int8"]["quant_matmul_launches"][
+            "quant_matmul_decode"] for r in ranks],
+        "quant_matmul_prefill": [r["int8"]["quant_matmul_launches"][
+            "quant_matmul_prefill"] for r in ranks],
+        "quant_matmul": i8["quant_matmul"]},
+        "qmm_shapes": r0["int8"]["qmm_shapes"]}
 
 
 def phase_train(seed: int):
@@ -4411,8 +4787,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     quant_launches, quant_capture, quant_buckets = phase_serve_quant(
         served, args.seed)
+    serve_outs = served["outs"]
     del served
     gc.collect()                  # the serving model and engine go
+    torch.cuda.empty_cache()
+    tp = phase_serve_tp(serve_outs, args.seed, card)
+    gc.collect()
     torch.cuda.empty_cache()
     train_launches, bucket = phase_train(args.seed)
     gc.collect()                  # so do the model and the optimizer
@@ -4438,7 +4818,9 @@ def main(argv=None) -> int:
         "serve_spec": sum(spec_launches.values()),
         "serve_spec_by_proposer": spec_launches,
         "serve_spill": spill_launches["launches"],
-        "fleet": fleet_launches, "proc_fleet": proc_launches}
+        "fleet": fleet_launches, "proc_fleet": proc_launches,
+        "serve_tp": tp["paged"]["paged_attention_decode"]["launches_by_rank"]}
+    kernels[0]["tp_shard"] = tp["paged"]["paged_attention_decode"]
     kernels += phase_flash_kernels(train_launches, args.seed, card)
     kernels.append(adamw_row)
     kernels.append(phase_decode_flash_kernel(
@@ -4455,9 +4837,16 @@ def main(argv=None) -> int:
                                    quant_buckets, args.seed, card)
     for row in kernels:
         if row["name"] == "paged_attention_decode_int8":
+            shard = tp["paged"]["paged_attention_decode_int8"]
             row["launches_by_phase"] = {
                 "serve_quant": row["launches"],
-                "serve_spill": spill_launches["int8_launches"]}
+                "serve_spill": spill_launches["int8_launches"],
+                "serve_tp": shard["launches_by_rank"]}
+            row["tp_shard"] = shard
+        elif row["name"] in tp["qmm"]:
+            row["launches_by_phase"] = {"serve_quant": row["launches"],
+                                        "serve_tp": tp["qmm"][row["name"]]}
+            row["serve_tp_shapes"] = tp["qmm_shapes"]
     del quant_capture
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,3 +1,3 @@
-from . import utils
+from . import mpu, utils
 
-__all__ = ["utils"]
+__all__ = ["mpu", "utils"]

@@ -36,6 +36,7 @@ from ..device import resolve_device
 from . import build
 
 __all__ = ["paged_attention_decode", "paged_attention_decode_ref",
+           "paged_attention_decode_tp",
            "paged_cache_write", "paged_cache_write_range",
            "paged_cache_write_span",
            "alloc_paged_cache", "check_supported_paged", "paged_page_bytes",
@@ -354,6 +355,33 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
 
 paged_attention_decode.launches = 0
 paged_attention_decode.int8_launches = 0
+
+
+def paged_attention_decode_tp(q, k_cache, v_cache, block_tables, seq_lens,
+                              mesh, axis="model", sm_scale=None,
+                              k_scale=None, v_scale=None):
+    """Tensor-parallel decode attention: query heads and the KV pages'
+    head dim split over the mesh's `axis`, one rank per process.
+
+    Page ids are global (the host-side allocator and radix tree never
+    see the mesh); page contents are head-split. Each rank passes its
+    own shards: q (B, H/tp, D), the caches (num_pages, KVH/tp, page, D)
+    and, for int8 KV, the scale pages (num_pages, KVH/tp, page); the
+    block tables and seq_lens are the same on every rank. G = H/KVH is
+    the same on every shard, so each rank attends its own heads through
+    `paged_attention_decode` and no collective runs here: the sum lives
+    in the row-parallel o_proj that consumes the output. Returns this
+    rank's (B, H/tp, D). The split of the whole head counts is checked
+    where they are split (`LlamaForCausalLM.shard_`, the engine), with
+    the reference's messages."""
+    tp = int(dict(mesh.shape)[axis])
+    H, KVH = q.shape[1], k_cache.shape[1]
+    if H % KVH:
+        raise ValueError(f"a shard's H={H} query heads are not whole "
+                         f"groups of its KVH={KVH} kv heads (tp={tp})")
+    return paged_attention_decode(q, k_cache, v_cache, block_tables,
+                                  seq_lens, sm_scale=sm_scale,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def alloc_paged_cache(num_kv_heads, num_pages, page_size, head_dim,

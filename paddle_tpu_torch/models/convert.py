@@ -17,6 +17,11 @@ same `wq` and the result loads into a port model converted the same way.
 
 A reference `LoRAAdapter` (numpy factors, rank, alpha) crosses as its
 arrays too (`from_jax_adapter`).
+
+Tensor parallelism: `shard_state_dict` cuts a converted state (any wq)
+down to one rank's shard, each tensor on the axis the reference's
+`mark_sharding` spec gives it, for a model split by
+`LlamaForCausalLM.shard_` to load.
 """
 from __future__ import annotations
 
@@ -26,12 +31,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..nn.quant import SERVING_WQ_TARGETS
+from ..distributed.fleet.mpu import shard_range
+from ..nn.quant import SERVING_WQ_TARGETS, shard_weight_only
 from ..serving.lora.adapter import LoRAAdapter
 from .llama import LlamaConfig
 
 __all__ = ["expected_shapes", "from_jax_state_dict",
-           "from_jax_optimizer_state", "from_jax_adapter"]
+           "from_jax_optimizer_state", "from_jax_adapter",
+           "shard_state_dict"]
 
 _OPT_KEY = re.compile(r"(moment1|moment2|moment2_max|master)_(\d+)")
 
@@ -108,6 +115,49 @@ def from_jax_state_dict(np_state, cfg: LlamaConfig,
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
         out[name] = _to_tensor(arr)
+    return out
+
+
+# the reference's mark_sharding specs (paddle_tpu/distributed/fleet/
+# mpu.py): column-parallel weights split their out dim (1) and their
+# bias and quantized scales with it; row-parallel weights split their in
+# dim (0) and keep bias and scales whole; the vocab-parallel embedding
+# splits its rows. Everything else (norms) is whole on every rank.
+_COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "lm_head")
+_ROW = ("o_proj", "down_proj")
+
+
+def shard_state_dict(state, cfg: LlamaConfig, rank: int,
+                     tp: int) -> Dict[str, torch.Tensor]:
+    """A whole port state dict (`from_jax_state_dict`, with or without
+    wq; the reference's (in, out) Linear layout, so no transpose) ->
+    rank's shard of a tp-way split, as `LlamaForCausalLM.shard_(mesh)`
+    leaves the model: contiguous copies, `load_state_dict`-ready."""
+    out = {}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        module = path[-1] if path else ""
+        if name == "model.embed_tokens.weight":
+            a, b = shard_range(t.shape[0], rank, tp)
+            t = t[a:b]
+        elif module in _COLUMN and leaf in ("weight", "qweight"):
+            a, b = shard_range(t.shape[1], rank, tp)
+            t = t[:, a:b]
+        elif module in _COLUMN and leaf in ("bias", "weight_scale"):
+            a, b = shard_range(t.shape[0], rank, tp)
+            t = t[a:b]
+        elif module in _ROW and leaf == "weight":
+            a, b = shard_range(t.shape[0], rank, tp)
+            t = t[a:b]
+        elif module in _ROW and leaf == "qweight":
+            n_in = (cfg.intermediate_size if module == "down_proj"
+                    else cfg.hidden_size)
+            packed = "int4" if t.shape[0] * 2 == n_in else "int8"
+            a, b = shard_range(n_in, rank, tp)
+            t, _ = shard_weight_only(t, state[name[:-len("qweight")]
+                                              + "weight_scale"],
+                                     packed, 0, a, b)
+        out[name] = t.contiguous().clone()
     return out
 
 

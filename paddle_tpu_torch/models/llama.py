@@ -16,6 +16,14 @@ steps with sampling and per-row freeze masks on the card, no host sync
 inside) and the speculative verify forward (`forward_paged_verify`:
 1 + K tokens a row, logits at every position, attention over the
 gathered paged prefix as in the chunked prefill).
+Tensor-parallel serving: `LlamaForCausalLM.shard_(mesh)` keeps, in
+place, this rank's shard of every split weight (`distributed.fleet.mpu`:
+q/k/v and gate/up column-parallel, o and down row-parallel, the
+embedding and the head vocab-parallel, the head's logits gathered so
+every rank samples the same token); attention runs over the rank's
+H/tp query and KVH/tp KV heads (decode through
+`paged_attention_decode_tp`, prefill and verify over the rank's pages).
+With no mesh the model is unchanged: no collective, no extra copy.
 Not ported (they raise): sequence parallelism and the pipeline model.
 
 The KV-cache forward takes per-layer (k, v) caches of (B, S, KVH, D),
@@ -50,8 +58,12 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.fleet.mpu import (ColumnParallelLinear,
+                                     RowParallelLinear,
+                                     VocabParallelEmbedding)
 from ..distributed.fleet.utils import recompute
 from ..kernels.paged_attention import (paged_attention_decode,
+                                       paged_attention_decode_tp,
                                        paged_cache_write,
                                        paged_cache_write_range,
                                        paged_cache_write_span)
@@ -207,6 +219,23 @@ class LlamaAttention(nn.Module):
         self.k_proj = Linear(h, self.n_kv * self.head_dim, **kw)
         self.v_proj = Linear(h, self.n_kv * self.head_dim, **kw)
         self.o_proj = Linear(h, h, **kw)
+        self.mesh = None
+
+    def shard_(self, mesh):
+        """Keep this rank's heads: q/k/v column-parallel (H/tp and
+        KVH/tp heads, so G is the same on every rank), o_proj
+        row-parallel over them."""
+        for name in ("q_proj", "k_proj", "v_proj"):
+            full = getattr(self, name)
+            setattr(self, name, ColumnParallelLinear(
+                full.in_features, full.out_features, gather_output=False,
+                mesh=mesh, full=full))
+        self.o_proj = RowParallelLinear(
+            self.o_proj.in_features, self.o_proj.out_features,
+            input_is_parallel=True, mesh=mesh, full=self.o_proj)
+        self.n_heads //= mesh.tp
+        self.n_kv //= mesh.tp
+        self.mesh = mesh
 
     def _qkv(self, x):
         """q, k, v of x (B, S, hidden), each through the LoRA hook."""
@@ -263,9 +292,14 @@ class LlamaAttention(nn.Module):
         kc, vc, ks, vs = _split_kv(kv)
         paged_cache_write(kc, vc, k[:, 0], v[:, 0], block_tables,
                           seq_lens - 1, k_scale=ks, v_scale=vs)
-        out = paged_attention_decode(
-            q.reshape(b, self.n_heads, self.head_dim), kc, vc,
-            block_tables, seq_lens, k_scale=ks, v_scale=vs)
+        q = q.reshape(b, self.n_heads, self.head_dim)
+        if self.mesh is None:
+            out = paged_attention_decode(q, kc, vc, block_tables, seq_lens,
+                                         k_scale=ks, v_scale=vs)
+        else:
+            out = paged_attention_decode_tp(q, kc, vc, block_tables,
+                                            seq_lens, self.mesh, k_scale=ks,
+                                            v_scale=vs)
         out = out.reshape(b, s, self.n_heads * self.head_dim)
         return _lora("o_proj", out, self.o_proj(out)), kv
 
@@ -354,6 +388,19 @@ class LlamaMLP(nn.Module):
         self.gate_proj = Linear(h, i, **kw)
         self.up_proj = Linear(h, i, **kw)
         self.down_proj = Linear(i, h, **kw)
+
+    def shard_(self, mesh):
+        """gate/up column-parallel over the intermediate dim, down
+        row-parallel over it (float or quantized whole)."""
+        for name in ("gate_proj", "up_proj"):
+            full = getattr(self, name)
+            setattr(self, name, ColumnParallelLinear(
+                full.in_features, full.out_features, gather_output=False,
+                mesh=mesh, full=full))
+        full = self.down_proj
+        self.down_proj = RowParallelLinear(
+            full.in_features, full.out_features, input_is_parallel=True,
+            mesh=mesh, full=full)
 
     def forward(self, x):
         h = swiglu(_lora("gate_proj", x, self.gate_proj(x)),
@@ -533,10 +580,51 @@ class LlamaForCausalLM(nn.Module):
                         Linear(config.hidden_size, config.vocab_size,
                                device=device, dtype=dtype,
                                generator=generator))
+        self.mesh = None
+
+    def shard_(self, mesh):
+        """Tensor parallelism, in place: keep this rank's shard of every
+        split weight (`mesh`: a `ModelParallelMesh`, as
+        `serving.tp_serving_mesh` returns) and free the rest. The
+        embedding is vocab-parallel, each decoder layer's attention and
+        MLP as in `LlamaAttention.shard_` / `LlamaMLP.shard_`, the head
+        column-parallel over the vocab with its logits gathered (a tied
+        head reads the vocab-parallel embedding). A model quantized for
+        serving (`wq`) is split after, with its quantized weights. At
+        tp 1 nothing changes. Returns the model."""
+        if self.mesh is not None:
+            raise ValueError(f"the model is already split over {self.mesh}")
+        if mesh.tp == 1:
+            return self
+        cfg = self.cfg
+        # the reference's refusal of heads the model axis does not divide
+        # (kernels/paged_attention.py:390-393), before anything is split
+        if cfg.num_attention_heads % mesh.tp:
+            raise ValueError(f"H={cfg.num_attention_heads} not divisible "
+                             f"by tp={mesh.tp}")
+        if cfg.num_key_value_heads % mesh.tp:
+            raise ValueError(f"KVH={cfg.num_key_value_heads} not divisible "
+                             f"by tp={mesh.tp}")
+        emb = self.model.embed_tokens
+        self.model.embed_tokens = VocabParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, mesh=mesh, full=emb)
+        del emb
+        for layer in self.model.layers:
+            layer.self_attn.shard_(mesh)
+            layer.mlp.shard_(mesh)
+        if self.lm_head is not None:
+            self.lm_head = ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size, has_bias=False,
+                gather_output=True, mesh=mesh, full=self.lm_head)
+        self.mesh = mesh
+        return self
 
     def _head(self, h):
         if self.lm_head is None:
-            return torch.matmul(h, self.model.embed_tokens.weight.t())
+            emb = self.model.embed_tokens
+            if self.mesh is not None:
+                return emb.attend(h)
+            return torch.matmul(h, emb.weight.t())
         return self.lm_head(h)
 
     def forward(self, input_ids, labels=None, caches=None, cache_pos=None):

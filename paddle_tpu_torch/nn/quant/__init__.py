@@ -10,7 +10,10 @@ reference's. An int4 linear unpacks and takes the scale-first
 composition on both devices (the reference has no int4 kernel either).
 
 `quantize_for_serving` is what `ServingEngine(wq=...)` calls: it swaps
-the MLP and LM-head linears for `WeightOnlyLinear` in place. Not ported:
+the MLP and LM-head linears for `WeightOnlyLinear` in place. Under
+tensor parallelism a weight is quantized whole, as at tp 1, and then
+split (`shard_weight_only`): a column shard takes its columns' scales, a
+row shard keeps the whole scale vector. Not ported:
 `llm_int8_linear`, the QAT gradient of the int8 matmul, and the
 quantization-aware layers (`Stub`, `quant_layers`).
 """
@@ -23,7 +26,8 @@ from ...kernels.quant_matmul import (dequant_matmul, quant_matmul,
                                      quant_matmul_supported)
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear",
-           "WeightOnlyLinear", "quantize_for_serving", "SERVING_WQ_TARGETS"]
+           "WeightOnlyLinear", "quantize_for_serving", "SERVING_WQ_TARGETS",
+           "shard_weight_only"]
 
 _ALGOS = ("weight_only_int8", "weight_only_int4")
 
@@ -151,18 +155,43 @@ class WeightOnlyLinear(nn.Module):
 SERVING_WQ_TARGETS = ("gate_proj", "up_proj", "down_proj", "lm_head")
 
 
+def shard_weight_only(qweight, weight_scale, weight_dtype, dim, start,
+                      stop):
+    """One tensor-parallel shard of a weight quantized whole: rows
+    [start, stop) of the (in, out) weight (dim 0, a row-parallel shard;
+    int4 rows are packed in pairs, so both ends must be even) with the
+    whole scale vector, or columns [start, stop) (dim 1) with their
+    scales. Returns contiguous copies (qweight, weight_scale)."""
+    if dim == 1:
+        return (qweight[:, start:stop].contiguous().clone(),
+                weight_scale[start:stop].contiguous().clone())
+    if weight_dtype == "int4":
+        if start % 2 or stop % 2:
+            raise ValueError(f"int4 rows are packed in pairs: shard rows "
+                             f"[{start}, {stop}) must start and end even")
+        start, stop = start // 2, stop // 2
+    return (qweight[start:stop].contiguous().clone(),
+            weight_scale.contiguous().clone())
+
+
 def quantize_for_serving(model, algo="weight_only_int8",
                          targets=SERVING_WQ_TARGETS):
     """Replace every `targets`-named submodule with a 2-D `weight` (by
     its attribute name, anywhere in the tree) by a WeightOnlyLinear, IN
     PLACE; the float weights are released. A tied head (`lm_head` None)
-    is left alone. Returns the number of layers converted."""
+    is left alone. Returns the number of layers converted. A
+    tensor-parallel shard raises: a row shard's scales need the whole
+    weight, so weights are quantized before they are split."""
     converted = 0
     stack = [model]
     while stack:
         module = stack.pop()
         for name, sub in list(module.named_children()):
             w = getattr(sub, "weight", None)
+            if name in targets and getattr(sub, "tp_sharded", False):
+                raise ValueError(f"{name} is a tensor-parallel shard: "
+                                 f"quantize the whole model before it is "
+                                 f"split")
             if (name in targets and isinstance(w, torch.Tensor)
                     and w.dim() == 2
                     and not isinstance(sub, WeightOnlyLinear)):

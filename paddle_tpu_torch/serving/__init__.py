@@ -3,8 +3,9 @@ and its host spill tier, multi-LoRA adapters, speculative decoding,
 request tracing, the in-process fleet (routers, failover, the asyncio
 server and its HTTP front door) and the cross-process fleet (worker
 processes over a TCPStore mailbox, the prefill-to-decode KV
-hand-off)."""
-from .engine import ServingEngine
+hand-off) and tensor-parallel serving over rank processes
+(`tp_serving_mesh`)."""
+from .engine import ServingEngine, tp_serving_mesh
 from .errors import (EngineFailure, EngineOverloaded, PoisonedComputation,
                      SnapshotVersionError, TransientDeviceError,
                      UnsupportedFeature)
@@ -41,4 +42,4 @@ __all__ = ["ServingEngine", "EngineFailure", "EngineOverloaded",
            "ReplicaState", "PrefixAffinityRouter", "RandomRouter",
            "RoundRobinRouter", "HttpFrontend", "PrefillChunk",
            "ScheduleStep", "render_prometheus", "ProcessFleet", "WorkerProc",
-           "WorkerState", "Channel", "TransportError"]
+           "WorkerState", "Channel", "TransportError", "tp_serving_mesh"]

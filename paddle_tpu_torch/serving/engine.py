@@ -114,14 +114,31 @@ tree, `handoff_prefix_len` the span) unless it is pinned `colocate`;
 `release_prefix` move a cached prefix between engines as the same page
 payloads the spill tier uses.
 
+Tensor parallelism: `mesh=tp_serving_mesh(tp)` serves one model over
+tp rank processes (`distributed.init_parallel_env`, one rank each).
+Every rank runs the same engine with the same requests in the same
+order; the scheduler, `BlockAllocator` and `RadixCache` are replicated,
+so every paging, refcount and radix decision is the same on each rank by
+construction (page ids are global, page contents head-split). The
+engine splits the model in place (`LlamaForCausalLM.shard_`, after the
+`wq` quantization), so each rank keeps its H/tp query heads, its KVH/tp
+KV heads in the paged pool (int8 scale pages too) and its share of the
+MLP, embedding and head; the model's layers sum over the mesh's group,
+and the head's logits are gathered whole on every rank, so each rank
+samples the same token from the same random stream. `kv_pool_bytes` is
+a per-rank budget: a page costs `kv_page_bytes_shard` there. After every
+step the ranks compare a fingerprint of the step (launch buckets, rows,
+emitted tokens, pages in use) on the mesh's host group, and a mismatch
+fails the engine on every rank.
+
 Feature pairs the reference refuses raise `UnsupportedFeature` with the
 reference's reasons (`errors.FEATURE_CONFLICTS`). Not ported yet
-(`UnsupportedFeature`): tensor parallelism (`mesh`) and the persistent
-compile cache (`compile_cache`).
+(`UnsupportedFeature`): the persistent compile cache (`compile_cache`).
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import itertools
 import time
 import warnings
@@ -129,8 +146,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..distributed.env import current_device
+from ..distributed.fleet.mpu import ModelParallelMesh
 from ..kernels.paged_attention import (alloc_paged_cache,
                                        check_supported_paged,
                                        paged_page_bytes)
@@ -154,7 +174,43 @@ from .supervisor import POISON, RetryPolicy, StepSupervisor, classify_failure
 from .trace import FlightRecorder, RequestTracer
 
 __all__ = ["ServingEngine", "SNAPSHOT_VERSION", "SNAPSHOT_MINOR",
-           "check_snapshot_version", "MAX_DECODE_STEPS"]
+           "check_snapshot_version", "MAX_DECODE_STEPS", "tp_serving_mesh"]
+
+
+def tp_serving_mesh(tp: int, devices=None) -> ModelParallelMesh:
+    """This rank's mesh of model degree `tp` over the default process
+    group (`distributed.init_parallel_env`): the world's ranks in
+    consecutive groups of tp, one serving replica a group (a world of
+    tp ranks is one group). Collective: every rank of the world calls
+    it, in the same order as its other group calls. `devices`: the
+    device of each rank of a group, by its index there (default: the
+    device init_parallel_env chose for this rank). tp 1 needs no group.
+    Raises unless an initialized group whose size tp divides exists."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp == 1 and not dist.is_initialized():
+        dev = devices[0] if devices else current_device()
+        return ModelParallelMesh(1, 0, None, None, resolve_device(dev))
+    if not dist.is_initialized():
+        raise RuntimeError(f"tp_serving_mesh({tp}) needs a process group "
+                           f"of tp ranks: call "
+                           f"distributed.init_parallel_env() in each rank "
+                           f"first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % tp:
+        raise ValueError(f"a world of {world} ranks does not split into "
+                         f"model groups of tp={tp}")
+    mine = None
+    for first in range(0, world, tp):
+        ranks = list(range(first, first + tp))
+        group = dist.new_group(ranks)
+        host = dist.new_group(ranks, backend="gloo")
+        if rank in ranks:
+            mine = (rank - first, group, host)
+    local, group, host = mine
+    dev = devices[local] if devices else current_device()
+    return ModelParallelMesh(tp, local, group, host, resolve_device(dev))
 
 _engine_counter = itertools.count()
 
@@ -229,21 +285,15 @@ def _pow2_buckets(lo: int, hi: int) -> List[int]:
     return out
 
 
-def _refuse_unported(*, mesh, compile_cache):
-    """Raise UnsupportedFeature naming every requested feature this
-    port does not have yet: tensor parallelism and the persistent
-    compile cache."""
-    asked = {
-        "mesh": mesh is not None,
-        "compile_cache": compile_cache is not None,
-    }
-    refused = [name for name, on in asked.items() if on]
-    if refused:
+def _refuse_unported(*, compile_cache):
+    """Raise UnsupportedFeature for a requested feature this port does
+    not have yet: the persistent compile cache."""
+    if compile_cache is not None:
         # not a capability conflict between two features: a feature the
         # port lacks, so FEATURE_CONFLICTS has no pair for it
         raise UnsupportedFeature(  # tpu-lint: refusal-ok
-            f"not ported to paddle_tpu_torch yet: {', '.join(refused)}",
-            features=refused)
+            "not ported to paddle_tpu_torch yet: compile_cache",
+            features=["compile_cache"])
 
 
 def _verify_accept(lg, ids, dl, temperature, top_k, top_p, rnd):
@@ -426,10 +476,23 @@ class ServingEngine:
         self.spec_k = int(spec_k)
         if proposer is not None and self.spec_k < 1:
             raise ValueError("spec_k must be >= 1 with a proposer")
-        # the capability table, on the features asked for, then what the
-        # port does not have yet — both before the model is touched
-        tp = (int(dict(getattr(mesh, "shape", {})).get("model", 1))
-              if mesh is not None else 1)
+        # the head split, the capability table on the features asked
+        # for, then what the port does not have yet — all before the
+        # model is touched
+        if mesh is not None and not isinstance(mesh, ModelParallelMesh):
+            raise TypeError(f"mesh must be a serving.tp_serving_mesh(tp), "
+                            f"got {type(mesh).__name__}")
+        tp = mesh.tp if mesh is not None else 1
+        if tp > 1:
+            cfg = model.cfg
+            if cfg.num_key_value_heads % tp:
+                raise ValueError(
+                    f"num_key_value_heads {cfg.num_key_value_heads} not "
+                    f"divisible by model-axis degree {tp}")
+            if cfg.num_attention_heads % tp:
+                raise ValueError(
+                    f"num_attention_heads {cfg.num_attention_heads} not "
+                    f"divisible by model-axis degree {tp}")
         active = {name for name, on in (
             ("proposer", proposer is not None),
             ("multi_step_decode", self.decode_steps > 1),
@@ -439,7 +502,12 @@ class ServingEngine:
             ("no_prefix_cache", not enable_prefix_cache),
             ("prefill_role", role == "prefill")) if on}
         check_feature_conflicts(active)
-        _refuse_unported(mesh=mesh, compile_cache=compile_cache)
+        _refuse_unported(compile_cache=compile_cache)
+        # a mesh of degree 1 is no mesh: nothing is split
+        self.tp = tp
+        self.mesh = mesh if tp > 1 else None
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         if lora is not None and not isinstance(lora, AdapterRegistry):
             raise TypeError(f"lora must be a serving.lora.AdapterRegistry, "
                             f"got {type(lora).__name__}")
@@ -464,6 +532,12 @@ class ServingEngine:
         # unless pinned colocate; "decode" behaves like "both"
         self.role = role
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device != self.mesh.device:
+            raise ValueError(f"the engine's device {self.device} is not "
+                             f"its mesh rank's {self.mesh.device}")
+        if getattr(model, "mesh", None) not in (None, self.mesh):
+            raise ValueError(f"the model is split over {model.mesh}, the "
+                             f"engine's mesh is {self.mesh}")
         first = next(model.parameters())
         if first.device != self.device:
             raise ValueError(f"model parameters live on {first.device}, "
@@ -480,6 +554,10 @@ class ServingEngine:
         # become int8/int4 buffers read by every launch
         self.num_wq_layers = (quantize_for_serving(
             model, algo=f"weight_only_{wq}") if wq is not None else 0)
+        if self.mesh is not None and model.mesh is None:
+            # in place, after the quantization: each rank keeps its
+            # shard of every split weight
+            model.shard_(self.mesh)
         params = list(model.parameters())
         cfg = model.cfg
         self.model = model
@@ -493,22 +571,30 @@ class ServingEngine:
         dtype_name = str(self.dtype).replace("torch.", "")
         # what one page costs in THIS engine (int8 values + fp32 scales,
         # or the model dtype's full-width pages): the pool sizing, the
-        # capacity gauge and the bytes-moved counters hang off it
+        # capacity gauge and the bytes-moved counters hang off it. Under
+        # TP a rank holds KVH/tp heads of every page and pays the shard's
+        # bytes; kv_pool_bytes is a per-rank budget
         kv_name = kv_dtype or dtype_name
+        self.kv_heads_shard = self.num_kv // self.tp
         self.kv_page_bytes = paged_page_bytes(
             self.num_kv, self.page_size, self.head_dim, kv_name)
+        self.kv_page_bytes_shard = paged_page_bytes(
+            self.kv_heads_shard, self.page_size, self.head_dim, kv_name)
         if kv_pool_bytes is not None:
-            num_pages = max(2, int(kv_pool_bytes) // self.kv_page_bytes)
+            num_pages = max(2, int(kv_pool_bytes)
+                            // self.kv_page_bytes_shard)
         self.num_pages = int(num_pages)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        # fail at construction, not at the first decode launch
+        # fail at construction, not at the first decode launch: the
+        # kernel sees a rank's geometry (H/tp query heads over KVH/tp)
         check_supported_paged(
-            (1, self.num_heads, self.head_dim),
-            (self.num_pages, self.num_kv, self.page_size, self.head_dim),
+            (1, self.num_heads // self.tp, self.head_dim),
+            (self.num_pages, self.kv_heads_shard, self.page_size,
+             self.head_dim),
             self.dtype, kv_dtype=kv_dtype)
 
         # longest sequence a request may ever reach (rope table and page
@@ -577,7 +663,7 @@ class ServingEngine:
 
         # one (k, v) pair per layer — (k, v, k_scale, v_scale) for int8 —
         # written in place by the launches
-        self._kv = [alloc_paged_cache(self.num_kv, self.num_pages,
+        self._kv = [alloc_paged_cache(self.kv_heads_shard, self.num_pages,
                                       self.page_size, self.head_dim,
                                       dtype=self.dtype, device=self.device,
                                       kv_dtype=kv_dtype)
@@ -589,7 +675,9 @@ class ServingEngine:
         self.metrics.set_kv_info(
             kv_dtype=kv_name, page_bytes=self.kv_page_bytes,
             pool_bytes=self.kv_page_bytes * self.num_pages,
-            bytes_per_token=self.kv_bytes_per_token)
+            bytes_per_token=self.kv_bytes_per_token, tp_degree=self.tp,
+            page_bytes_shard=self.kv_page_bytes_shard,
+            pool_bytes_shard=self.kv_page_bytes_shard * self.num_pages)
 
         # a page's payload records, in the reference's order: K and V of
         # every layer, then (int8 KV) K and V scale rows of every layer;
@@ -1533,7 +1621,29 @@ class ServingEngine:
         self._update_gauges()
         self._record_step(pre, n_chunks=len(sched.prefills),
                           n_decode=len(decodes), n_emitted=len(emitted))
+        if self.mesh is not None:
+            self._check_ranks_agree(len(sched.prefills), len(decodes),
+                                    emitted)
         return emitted
+
+    def _check_ranks_agree(self, n_chunks: int, n_decode: int, emitted):
+        """Tensor parallelism: every rank must have taken this step
+        alike, or their next collectives would not match. The ranks
+        compare a fingerprint of the step (launch buckets, rows, emitted
+        tokens, pages in use) by one max-reduce of (h, -h) on the mesh's
+        host group; a rank that differs fails the engine on every
+        rank."""
+        key = repr((self._step_ev["programs"], n_chunks, n_decode, emitted,
+                    self.allocator.num_used)).encode()
+        h = int.from_bytes(hashlib.blake2b(key, digest_size=7).digest(),
+                           "little")
+        t = torch.tensor([h, -h], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.host_group)
+        if int(t[0]) != h or int(t[1]) != -h:
+            self._fail(RuntimeError(
+                f"tensor-parallel ranks diverged at engine step "
+                f"{self.metrics.counters['engine_steps']}: rank "
+                f"{self.mesh.rank} of {self.mesh.tp} took another step"))
 
     def _update_gauges(self):
         self.metrics.update_gauges(

@@ -83,10 +83,8 @@ class UnsupportedFeature(ValueError):
 #   no_prefix_cache   enable_prefix_cache=False
 #   prefill_role      role="prefill"
 #
-# host_spill and prefill_role are live features of the port; the rows
-# with tensor_parallel, which the port does not have yet, stay too, so
-# that the reasons callers match on are the reference's strings whatever
-# is asked for.
+# Every feature named here is live in the port, and every reason is the
+# reference's string, so callers match on the same text.
 FEATURE_CONFLICTS = {
     frozenset({"multi_step_decode", "proposer"}):
         "decode_steps > 1 and a proposer are mutually exclusive: "

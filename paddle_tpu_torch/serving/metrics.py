@@ -2,8 +2,11 @@
 what the engine counts, the host spill tier's and the fleet's counters
 and gauges, the cross-replica merge and the Prometheus exposition. The
 reference's profiler registration is not ported, nor are the counters of
-the features the port does not have (`recompiles` and `compile_cache_*`
-of the compiled-program cache, the tensor-parallel per-shard gauges).
+the feature the port does not have (`recompiles` and `compile_cache_*`
+of the compiled-program cache). Under tensor parallelism the KV
+geometry gauges are global (summed over the shards) and
+`kv_tp_degree`, `kv_page_bytes_shard` and `kv_pool_bytes_shard` record
+what one rank pays.
 
 Per-request queue-wait / TTFT / TPOT percentiles come from bounded
 reservoirs — a long-lived server keeps the last `PERCENTILE_WINDOW`
@@ -138,6 +141,11 @@ class ServingMetrics:
         self.kv_page_bytes = 0
         self.kv_pool_bytes = 0
         self.kv_bytes_per_token = 0
+        # tensor parallelism: the degree, and one rank's page and pool
+        # bytes (its KVH/tp heads)
+        self.kv_tp_degree = 0
+        self.kv_page_bytes_shard = 0
+        self.kv_pool_bytes_shard = 0
         # host spill pool: geometry set once (set_host_info), occupancy
         # each step; host_pool_pages == 0 means no spill tier, and the
         # snapshot's host block is gated on it
@@ -259,11 +267,21 @@ class ServingMetrics:
                 / self.counters["spec_verified_rows"])
 
     def set_kv_info(self, *, kv_dtype, page_bytes, pool_bytes,
-                    bytes_per_token):
+                    bytes_per_token, tp_degree=1, page_bytes_shard=None,
+                    pool_bytes_shard=None):
+        """Static KV-pool geometry: page and pool bytes summed over the
+        tensor-parallel shards, one token's K+V over every layer, and
+        what ONE rank pays (its shard's page and pool bytes; the
+        `kv_pool_bytes` budget is per rank)."""
         self.kv_dtype = str(kv_dtype)
         self.kv_page_bytes = int(page_bytes)
         self.kv_pool_bytes = int(pool_bytes)
         self.kv_bytes_per_token = int(bytes_per_token)
+        self.kv_tp_degree = int(tp_degree)
+        self.kv_page_bytes_shard = int(
+            page_bytes if page_bytes_shard is None else page_bytes_shard)
+        self.kv_pool_bytes_shard = int(
+            pool_bytes if pool_bytes_shard is None else pool_bytes_shard)
 
     def set_host_info(self, *, pool_pages, page_bytes):
         """Static host spill pool geometry: slot count and the bytes ONE
@@ -385,6 +403,9 @@ class ServingMetrics:
                 "kv_page_bytes": self.kv_page_bytes,
                 "kv_pool_bytes": self.kv_pool_bytes,
                 "kv_bytes_per_token": self.kv_bytes_per_token,
+                "kv_tp_degree": self.kv_tp_degree,
+                "kv_page_bytes_shard": self.kv_page_bytes_shard,
+                "kv_pool_bytes_shard": self.kv_pool_bytes_shard,
             })
         if self.host_pool_pages:
             snap.update({
@@ -471,6 +492,16 @@ class ServingMetrics:
         out.kv_dtype = dts.pop() if len(dts) == 1 \
             else ("mixed" if dts else None)
         out.kv_bytes_per_token = bpts.pop() if len(bpts) == 1 else 0
+        # the per-rank geometry follows the same rule: a fleet mixing TP
+        # degrees gets sentinels, while the pooled kv_pool_bytes and
+        # occupancy above, from each replica's global geometry, stay
+        # exact
+        tps = {m.kv_tp_degree for m in metrics if m.kv_page_bytes}
+        pbss = {m.kv_page_bytes_shard for m in metrics if m.kv_page_bytes}
+        plss = {m.kv_pool_bytes_shard for m in metrics if m.kv_page_bytes}
+        out.kv_tp_degree = tps.pop() if len(tps) == 1 else 0
+        out.kv_page_bytes_shard = pbss.pop() if len(pbss) == 1 else 0
+        out.kv_pool_bytes_shard = plss.pop() if len(plss) == 1 else 0
         # host pools: slots, bytes and use sum over the replicas that
         # spill; per-page bytes follow the same sentinel rule
         out.host_pool_pages = sum(m.host_pool_pages for m in metrics)

@@ -241,6 +241,100 @@ def _qmm_case(M, K, N, card, seed=None):
     return x, qw, s
 
 
+# a rank's paged-decode shard under tensor parallelism at Llama-3-8B's
+# widths: H 16 over KVH 4 (tp 2), H 8 over KVH 2 (tp 4)
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kvh", [4, 2], ids=["tp2", "tp4"])
+def test_paged_kernel_at_tensor_parallel_shards(card, kvh, int8):
+    """bf16 and fp32 q within 2e-2 / 1e-4 of the plain version at the
+    shard shapes (int8 caches with their scales too), pad row zero."""
+    seq_lens = [0, 1, 17, 300, 1000, 129, 64, 777]
+    q, kc, vc, bt, sl = (torch.from_numpy(a).to(card) for a in _paged_case(
+        B=8, KVH=kvh, G=4, D=128, page=16, max_pages=64, seq_lens=seq_lens,
+        seed=kvh))
+    extra = {}
+    if int8:
+        (kc, ks), (vc, vs) = pa.quantize_kv(kc), pa.quantize_kv(vc)
+        extra = dict(k_scale=ks, v_scale=vs)
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        k, v = (kc, vc) if int8 else (kc.to(dt), vc.to(dt))
+        got = pa.paged_attention_decode(q.to(dt), k, v, bt, sl, **extra)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_decode_ref(q.to(dt), k, v, bt, sl, **extra)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (dt, err)
+        assert torch.all(got[0] == 0)
+
+
+# a rank's int8 matmul shards: the head split over the vocab at tp 2 and
+# tp 4 (N 64128 and 32064: a half 256-column tile ends the decode
+# stream), gate/up split over N and down over K at tp 2
+@pytest.mark.parametrize("M", [1, 16, 512])
+@pytest.mark.parametrize("kn", [(4096, 64128), (4096, 32064), (4096, 7168),
+                                (7168, 4096)], ids=str)
+def test_quant_matmul_at_tensor_parallel_shards(card, kn, M):
+    """bf16 x within ||got - ref|| / ||ref|| <= 1e-2 of the plain
+    version on the route's kernel (the decode stream up to 16 rows, the
+    wgmma route above)."""
+    K, N = kn
+    route = qm.quant_matmul_route(M, K, N, torch.bfloat16)
+    assert route == ("decode_sm90" if M <= 16 else "sm90")
+    x, qw, s = _qmm_case(M, K, N, card)
+    xb = x.bfloat16()
+    n0 = _qmm_counts()
+    got = qm.quant_matmul(xb, qw, s)
+    torch.cuda.synchronize()
+    counter = "decode_launches" if M <= 16 else "prefill_launches"
+    assert _qmm_counts() == dict(n0, **{counter: n0[counter] + 1})
+    _close_rel(got, qm.quant_matmul_ref(xb, qw, s), 1e-2)
+
+
+def _card_ranks(fn, *args):
+    """Run `fn(out_dir, *args)` in two rank processes of the port's
+    spawn on the card(s); their pickled results in rank order."""
+    import os
+    import pickle
+    import tempfile
+
+    import _torch_tp_ranks
+    from paddle_tpu_torch.distributed import spawn
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(getattr(_torch_tp_ranks, fn), args=(tmp, *args), nprocs=2,
+              timeout=600)
+        out = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def test_two_ranks_all_reduce_cuda_tensors(card):
+    """Two rank processes sum CUDA tensors (fp32 and bf16) on the group
+    init_parallel_env forms: gloo with both ranks on cuda:0 when there is
+    one card, NCCL with a card each. The result stays on the card."""
+    res = _card_ranks("card_all_reduce")
+    want_backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for r in res:
+        assert r["backend"] == want_backend
+        for dt in ("torch.float32", "torch.bfloat16"):
+            dev, vals = r[dt]
+            assert dev == "cuda"
+            assert vals == [2.0 * i + 1 for i in range(8)]
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_dtype": "int8", "wq": "int8"}],
+                         ids=["fp32", "int8"])
+def test_tensor_parallel_engine_on_the_card(card, kw):
+    """A small fp32 model served at tp 2 by two rank processes on the
+    card: both ranks' greedy tokens equal the tp 1 engine's, every decode
+    launch through the paged kernel once a layer on each rank."""
+    res = _card_ranks("card_engine", kw)
+    for r in res:
+        (t1, _, _), (t2, launches, decodes) = r[1], r[2]
+        assert t2 == t1 == res[0][1][0]
+        assert launches == decodes * 2 > 0
+
+
 @pytest.mark.parametrize("case", QMM_CASES, ids=str)
 def test_quant_matmul_matches_plain_version(card, case):
     """bf16 within ||got - ref|| / ||ref|| <= 1e-2 (the output's

@@ -48,11 +48,10 @@ from _torch_parity import model_pair
 
 KW = dict(num_pages=64, page_size=8, token_budget=64, batch_buckets=[8],
           prefill_buckets=[32], pages_buckets=[8], temperature=0.0)
-# metrics of the reference features the port does not have: the
-# compiled-program cache and tensor parallelism
+# metrics of the reference feature the port does not have: the
+# compiled-program cache
 UNPORTED = {"recompiles", "compile_cache_hits", "compile_cache_misses",
-            "compile_cache_rejects", "kv_tp_degree", "kv_page_bytes_shard",
-            "kv_pool_bytes_shard"}
+            "compile_cache_rejects"}
 
 
 class FakeClock:

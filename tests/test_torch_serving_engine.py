@@ -89,10 +89,11 @@ def test_engine_greedy_token_identical_to_reference(models):
 @pytest.mark.parametrize("kw", [
     dict(proposer=object(), decode_steps=2),
     dict(proposer=object(), role="prefill"),
-    dict(role="decode", mesh=object()),
-    dict(wq="int8", kv_dtype="int8", decode_steps=2, mesh=object()),
+    dict(role="decode", compile_cache="/x"),
+    dict(wq="int8", kv_dtype="int8", decode_steps=2, compile_cache="/x"),
     dict(lora="registry", proposer=object()),
-    dict(mesh=object()), dict(host_spill_pages=4, compile_cache="/x"),
+    dict(host_spill_pages=4, enable_prefix_cache=False),
+    dict(host_spill_pages=4, compile_cache="/x"),
     dict(role="prefill", decode_steps=2),
     dict(compile_cache="/nonexistent"),
     dict(trace=True, compile_cache="/nonexistent")])
@@ -103,14 +104,25 @@ def test_unported_features_are_refused(models, kw):
     _snapshot.py), the host spill tier and the prefill role
     (tests/test_torch_serving_spill.py, test_torch_fleet.py) are ported;
     a pair the reference's capability table refuses, or any of them with
-    an unported feature (mesh, compile_cache), is refused before the
-    model is converted."""
+    the unported feature (compile_cache), is refused before the model is
+    converted. (Tensor parallelism is ported: its refusals are in
+    tests/test_torch_serving_tp.py.)"""
     if kw.get("lora") == "registry":
         kw = dict(kw, lora=AdapterRegistry.for_model(models[1],
                                                      device="cpu"))
     with pytest.raises(UnsupportedFeature):
         ServingEngine(models[1], device="cpu", **ENGINE_KW, **kw)
     assert models[1].lm_head.weight is not None
+
+
+def test_a_mesh_that_is_no_tp_serving_mesh_is_refused(models):
+    """mesh takes what serving.tp_serving_mesh returns; anything else is
+    a TypeError, raised before the model is converted or split."""
+    with pytest.raises(TypeError, match="tp_serving_mesh"):
+        ServingEngine(models[1], device="cpu", mesh=object(), wq="int8",
+                      **ENGINE_KW)
+    assert models[1].lm_head.weight is not None
+    assert models[1].mesh is None
 
 
 def test_lora_of_the_wrong_type_is_refused(models):
