@@ -382,12 +382,12 @@ def must_fail(name: str):
     import torch
     from chip_smoke import FLASH_SHAPES, NORM_SHAPES, flash_case, qmm_shapes
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul_route
-    _, sq, sk, d, causal = FLASH_SHAPES[0]
+    bh, sq, sk, d, causal = FLASH_SHAPES[0]
     bf16_route = {s: quant_matmul_route(*shape, torch.bfloat16)
                   for s, shape in qmm_shapes().items()}
     stream = [("quant", "quant_matmul", f"{s}_bfloat16")
               for s, r in bf16_route.items() if r == "decode_sm90"]
-    flash_case = flash_case("bfloat16", sq, sk, d, causal)
+    flash_case = flash_case("bfloat16", bh, sq, sk, d, causal)
     if name == "skip_tile":
         return [("flash", o, flash_case)
                 for o in ("out", "lse", "dq", "dk", "dv")]

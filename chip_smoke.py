@@ -219,6 +219,36 @@ Phases, one JSON line each:
                first. Reports step ms (less the phase's norm observer),
                tokens/s, MFU as the train phase counts it (the replay is
                not useful work) and peak memory.
+  6c. train_moe — the train_loop model freed; Qwen2-57B-A14B
+               (`qwen2_moe_a14b`: hidden 3584, 28 heads over 4 KV heads,
+               qkv bias, 64 routed experts of 2560 with top-8 and capacity
+               factor 2, a 20480-wide shared expert with its sigmoid gate,
+               vocab 151936) at its published widths with depth cut 28 ->
+               1 (3.10e9 parameters; see MOE_LAYERS), bf16, seeded random
+               weights, on the train phase's batch, optimizer and steps
+               (the second warm-up step profiled). Checks finite losses,
+               the last below the first; each step the flash forward, dQ
+               and dK/dV once per layer on the wgmma kernels (B*H 28, the
+               KV heads repeated 7x) and the AdamW kernel once per
+               bucket; every parameter equal to its slice of the fp32
+               master bucket rounded to bf16 (the packing past 2**31
+               elements); the first step's bf16 gates routed on the card
+               and on the CPU bitwise equal (slot tokens and weights, each
+               token's slots, counts, the dispatched slab), at the step's
+               capacity and at a quarter of it, where experts overflow
+               (some assignment must drop there); one MoELayer
+               forward + backward on the captured input under
+               torch.cuda.set_sync_debug_mode("error"); two combines of
+               the same inputs bitwise equal. Reports step ms, tokens/s,
+               MFU over the active work (each token's top-8 experts, the
+               shared expert, attention, the head: `moe_step_flops`) and
+               the executed capacity slots' share, peak memory, the share
+               of assignments dropped by capacity and the profiled step's
+               device time by kind. Then, the model freed, its AdamW
+               bucket (3.10e9 elements) goes through `check_moe_adamw`:
+               the kernel bitwise against its plain version chunk by
+               chunk, and timed (the fused_adamw row's
+               `train_moe_buckets`).
   7. packed_attention — Llama-3-8B's attention widths (32 heads, the 8
                KV heads repeated, head_dim 128, bf16) over one packed row
                of 8192 tokens, seeded documents of 128-2048 tokens (the
@@ -262,7 +292,9 @@ Phases, one JSON line each:
                  long-context shapes (`long_context`, no main path runs
                  them);
                * flash fwd / dQ / dK/dV: the training shape (B*H 32,
-                 S 4096, D 128, causal; seeded) and small ragged ones
+                 S 4096, D 128, causal; seeded), train_moe's (B*H 28,
+                 timed too: each row's `train_moe_shape`) and small
+                 ragged ones
                  (S not a tile multiple, D 64 and 40, Sq < Sk and
                  Sq > Sk, causal and not, causal rows that see no key,
                  Sq not a multiple of 4)
@@ -282,6 +314,7 @@ Phases, one JSON line each:
                * fused AdamW: the train phase's own bucket (fp32 master,
                  bf16 moments, ~2.8e9 elements) with a seeded bf16
                  gradient, and fp32 state on a slice of it: bitwise;
+                 train_moe's bucket (~3.10e9 elements) too, in phase 6c;
                * int8 paged decode: layer 0 of a live serve_quant decode
                  batch (int8 caches and scales, plus a pad row and a
                  length ending mid-page) with bf16 and fp32 queries,
@@ -343,16 +376,16 @@ Phases, one JSON line each:
                  (`check_norm_kernel`); timed beside
                  torch.nn.functional.rms_norm and its byte bound (no
                  main path calls it: 0 launches).
-Then the `{"kernels": [...]}` line (each row's `launches` its main path's
-count; the flash and AdamW rows also `launches_by_phase` for train,
-train_loop and generate, the paged-decode row for serve, serve_multi,
-serve_spec, serve_spill, fleet, proc_fleet (the workers' stats: d0 at
-the end of run 1, p0 at the end) and serve_tp (each rank's), the int8
-row for serve_quant, serve_spill and serve_tp, the int8 matmul's decode
-and prefill rows for serve_quant and serve_tp; the paged rows' `tp_shard`
-and the int8 matmul rows' `shapes` hold the rank shards' checks and
-times), the raw nvidia-smi line, and as the last line `{"ok": true,
-"device": {...}}`. Any failure is an uncaught
+Then the `{"kernels": [...]}` line (each row's `launches` its main
+path's count; the flash and AdamW rows also `launches_by_phase` for
+train, train_loop, train_moe and generate, the paged-decode row for
+serve, serve_multi, serve_spec, serve_spill, fleet, proc_fleet (the
+workers' stats: d0 at the end of run 1, p0 at the end) and serve_tp
+(each rank's), the int8 row for serve_quant, serve_spill and serve_tp,
+the int8 matmul's decode and prefill rows for serve_quant and serve_tp;
+the paged rows' `tp_shard` and the int8 matmul rows' `shapes` hold the
+rank shards' checks and times), the raw nvidia-smi line, and as the last
+line `{"ok": true, "device": {...}}`. Any failure is an uncaught
 exception: a nonzero exit and no ok line. Without a CUDA card it exits
 with status 2 and prints no result.
 """
@@ -537,7 +570,21 @@ DECODE_TIME_SK = (GEN_PROMPT + 1, GEN_PROMPT + GEN_NEW)
 # at D 40 (below the instantiated width), and Sq not a multiple of 4
 FLASH_SHAPES = ((32, TRAIN_SEQ, TRAIN_SEQ, 128, True), (3, 72, 136, 64, True),
                 (2, 200, 130, 128, True), (2, 136, 64, 128, False),
-                (2, 96, 200, 40, False), (2, 130, 130, 64, True))
+                (2, 96, 200, 40, False), (2, 130, 130, 64, True),
+                (28, TRAIN_SEQ, TRAIN_SEQ, 128, True))
+# train_moe: Qwen2-57B-A14B (hidden 3584, 28 heads over 4 KV heads, head_dim
+# 128, 64 experts of 2560 and top-8, a 20480-wide shared expert, vocab
+# 151936) with depth cut 28 -> 1 on the train phase's batch and optimizer.
+# Reckoned from the code, not measured: a layer holds 2.011e9 parameters
+# (attention 29.4M, routed experts 1761.6M, shared expert 220.2M), the
+# embedding and the head 0.545e9 each: 3.10e9 in all, 37.2 GB at 12 B a
+# parameter (bf16 param and grad, fp32 master, bf16 m and v), 6.2 GB more
+# for the packed gradient bucket, ~10 GB of activations at 1 x 4096 tokens
+# (the logits and their fp32 log-softmax and gradient, the (64, 1024, 3584)
+# dispatched slab, the experts' (65536, 2560) intermediates): ~55 GB. A
+# second layer adds ~24 GB, too much for an 80 GB card
+MOE_LAYERS = 1
+ADAMW_CHUNK_ROWS = 2 ** 20    # the AdamW checks' chunk: 2**27 elements
 # the serve phase's bf16 pool; serve_quant gets the same bytes of int8
 # pages
 SERVE_PAGES = 2048
@@ -3208,39 +3255,28 @@ def phase_serve_tp(serve_outs, seed: int, card: str):
         "qmm_shapes": r0["int8"]["qmm_shapes"]}
 
 
-def phase_train(seed: int):
+def run_train_steps(model, opt, ids, labels, layers: int, what: str):
+    """TRAIN_WARMUP + TRAIN_TIMED steps of forward with the loss, backward
+    and the fused AdamW update; the last warm-up step runs under
+    torch.profiler. The kernel counters are set to 0 just before the
+    first step and read just after the last. Gated: finite losses, the
+    last below the first; the flash forward, dQ and dK/dV `layers` times
+    a step, each on the wgmma kernels; AdamW once a bucket a step.
+    Returns the run's losses, timed step seconds, profiled step, launches,
+    wgmma launches, peak memory and bucket count."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_optimizer as fo
-    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_3_8b,
-                                               llama_step_flops)
-    from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = llama_3_8b(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
-                     max_position_embeddings=8192)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             generator=gen)
-    opt = AdamW(TRAIN_LR, parameters=model.parameters(),
-                multi_precision=True, fused=True, moment_dtype="bfloat16")
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.RandomState(seed)
-    shape = (TRAIN_BATCH, TRAIN_SEQ)
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
-    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
     counters = {"flash_attention_fwd": fa.flash_fwd,
                 "flash_attention_dq": fa.flash_dq,
                 "flash_attention_dkv": fa.flash_dkv,
                 "fused_adamw": fo.fused_adamw_bucket}
-
+    flash = [k for k in counters if k.startswith("flash_")]
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():                # the main path starts
         fn.launches = 0
-    flash = [k for k in counters if k.startswith("flash_")]
     for k in flash:
         counters[k].sm90_launches = 0
     losses, step_s, profiled = [], [], None
@@ -3270,17 +3306,56 @@ def phase_train(seed: int):
     steps = TRAIN_WARMUP + TRAIN_TIMED
     buckets = len(opt._fused_buckets)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite and falling: {losses}")
-    want = {"flash_attention_fwd": cfg.num_hidden_layers * steps,
-            "flash_attention_dq": cfg.num_hidden_layers * steps,
-            "flash_attention_dkv": cfg.num_hidden_layers * steps,
-            "fused_adamw": buckets * steps}
+        raise AssertionError(f"{what}: losses not finite and falling: "
+                             f"{losses}")
+    want = {k: layers * steps for k in flash}
+    want["fused_adamw"] = buckets * steps
     if launches != want or buckets < 1:
-        raise AssertionError(f"kernel launches {launches} != {want}")
+        raise AssertionError(f"{what}: kernel launches {launches} != {want}")
     if any(sm90[k] != launches[k] for k in flash):
-        raise AssertionError(f"wgmma launches {sm90} of {launches}: a flash "
-                             f"launch of the train step took another route")
-    step_med = statistics.median(step_s)
+        raise AssertionError(f"{what}: wgmma launches {sm90} of {launches}: "
+                             f"a flash launch of the step took another "
+                             f"route")
+    return {"losses": losses, "step_s": step_s, "profiled": profiled,
+            "launches": launches, "sm90": sm90, "peak": peak,
+            "buckets": buckets}
+
+
+def fused_buckets(opt):
+    """Each bucket of a fused AdamW as {master, m, v, step, layout}: the
+    state its kernel updated on a training phase's main path."""
+    acc = opt._accumulators
+    return [{"master": acc["fused_master"][rec["uid"]],
+             "m": acc["fused_m"][rec["uid"]],
+             "v": acc["fused_v"][rec["uid"]], "step": opt._step_count,
+             "layout": rec["layout"]} for rec in opt._fused_buckets.values()]
+
+
+def phase_train(seed: int):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama_3_8b,
+                                               llama_step_flops)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_3_8b(num_hidden_layers=TRAIN_LAYERS, dtype="bfloat16",
+                     max_position_embeddings=8192)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=gen)
+    opt = AdamW(TRAIN_LR, parameters=model.parameters(),
+                multi_precision=True, fused=True, moment_dtype="bfloat16")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    run = run_train_steps(model, opt, ids, labels, cfg.num_hidden_layers,
+                          "train")
+    step_med = statistics.median(run["step_s"])
     flops, _, attn_flops = llama_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     emit({"phase": "train", "model": "llama_3_8b", "dtype": "bfloat16",
           "reduced": {"num_hidden_layers": [32, cfg.num_hidden_layers]},
@@ -3288,22 +3363,19 @@ def phase_train(seed: int):
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
           "optimizer": {"name": "AdamW", "lr": TRAIN_LR,
                         "multi_precision": True, "fused": True,
-                        "moment_dtype": "bfloat16", "buckets": buckets},
-          "weights_build_s": build_s, "losses": losses,
-          "timed_step_ms": [t * 1e3 for t in step_s],
+                        "moment_dtype": "bfloat16",
+                        "buckets": run["buckets"]},
+          "weights_build_s": build_s, "losses": run["losses"],
+          "timed_step_ms": [t * 1e3 for t in run["step_s"]],
           "step_ms": step_med * 1e3,
           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_med,
           "flops_per_step": flops, "attention_flops_per_step": attn_flops,
           "mfu_vs_989tflops": flops / step_med / PEAK_FLOPS["bfloat16"],
-          "kernel_launches": launches, "flash_sm90_launches": sm90,
-          "profiled_step": profiled,
-          "max_memory_allocated": peak})
-    rec = next(iter(opt._fused_buckets.values()))
-    acc = opt._accumulators
-    bucket = {"master": acc["fused_master"][rec["uid"]],
-              "m": acc["fused_m"][rec["uid"]],
-              "v": acc["fused_v"][rec["uid"]], "step": opt._step_count}
-    return launches, bucket
+          "kernel_launches": run["launches"],
+          "flash_sm90_launches": run["sm90"],
+          "profiled_step": run["profiled"],
+          "max_memory_allocated": run["peak"]})
+    return run["launches"], fused_buckets(opt)[0]
 
 
 # ------------------------------------------------------------- generate
@@ -3702,6 +3774,218 @@ def phase_train_loop(seed: int):
     return launches
 
 
+# ------------------------------------------------------------ train_moe
+def moe_step_flops(cfg, batch: int, seq: int):
+    """Training FLOPs of one Qwen2-MoE step, the train phase's reckoning
+    (6 x matmul parameters x tokens, plus 12 * L * B * S^2 * hidden for
+    attention) over the work each token does: attention's projections,
+    the router, its top-k routed experts, the shared expert and its
+    gate, the head. Returns (active flops, executed flops, attention
+    flops): executed counts every capacity slot the batched experts run
+    (E x C rows a layer, empty slots included) in place of the tokens'
+    top-k assignments."""
+    h, L = cfg.hidden_size, cfg.num_hidden_layers
+    kvd = cfg.num_key_value_heads * h // cfg.num_attention_heads
+    tokens = batch * seq
+    expert = 3 * h * cfg.moe_intermediate_size
+    per_token = (2 * h * h + 2 * h * kvd + h * cfg.num_experts
+                 + cfg.num_experts_per_tok * expert
+                 + 3 * h * cfg.shared_expert_intermediate_size + h)
+    attn = 12.0 * L * batch * seq * seq * h
+    active = 6.0 * (L * per_token + h * cfg.vocab_size) * tokens + attn
+    capacity = max(1, int(cfg.capacity_factor * tokens
+                          * cfg.num_experts_per_tok / cfg.num_experts))
+    extra = (cfg.num_experts * capacity
+             - cfg.num_experts_per_tok * tokens) * expert
+    return active, active + 6.0 * L * extra, attn
+
+
+def phase_train_moe(seed: int):
+    """Qwen2-57B-A14B training at its published widths, depth cut 28 ->
+    1, on the train phase's batch and optimizer setting; the MoE routing
+    checked on the card against the CPU, at the step's capacity and at a
+    quarter of it (where experts overflow). Returns the launches and the
+    fused AdamW buckets, for `check_moe_adamw`. See the module
+    docstring."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import moe
+    from paddle_tpu_torch.models.qwen2_moe import (Qwen2MoeForCausalLM,
+                                                   qwen2_moe_a14b)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = qwen2_moe_a14b(num_hidden_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Qwen2MoeForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                                generator=gen)
+    opt = AdamW(TRAIN_LR, parameters=model.parameters(),
+                multi_precision=True, fused=True, moment_dtype="bfloat16")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+    layer = model.model.layers[0].mlp.moe
+    captured = []                       # the first step's gate in and out
+    gate_forward = layer.gate.forward
+
+    def capture(x):
+        out = gate_forward(x)
+        if not captured:
+            captured.append((x.detach().clone(), out.detach().clone()))
+        return out
+    layer.gate.forward = capture
+    try:
+        run = run_train_steps(model, opt, ids, labels,
+                              cfg.num_hidden_layers, "train_moe")
+    finally:
+        layer.gate.forward = gate_forward
+
+    # the bucket packing past 2**31 elements: every parameter is its
+    # master's slice rounded to bf16, where the kernel wrote it
+    buckets = fused_buckets(opt)
+    params = opt._parameter_list
+    packed_to = 0
+    for bucket in buckets:
+        flat = bucket["master"].view(-1)
+        for idx, off, size, shp in bucket["layout"].entries:
+            want = flat[off:off + size].view(shp).to(params[idx].dtype)
+            if not torch.equal(params[idx].detach(), want):
+                raise AssertionError(f"parameter {idx} at bucket offset "
+                                     f"{off} is not its master's slice")
+            packed_to = max(packed_to, off + size)
+    del opt, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # routing: the first step's bf16 gates, routed on the card and on
+    # the CPU (the same tensor copied), must agree bitwise; at the
+    # step's capacity (which may drop nothing) and at a quarter of it,
+    # where the grouping order decides which tokens keep a slot
+    x, gates = captured[0]
+    T, k, E = gates.shape[0], layer.topk, layer.num_experts
+    capacity = max(1, int(layer.capacity_factor * T * k / E))
+    routing_equal, dropped, counts = {}, {}, None
+    for cap in (capacity, capacity // 4):
+        on_card = moe._route(gates, k, cap)
+        on_cpu = moe._route(gates.cpu(), k, cap)
+        equal = {n: torch.equal(a.cpu(), b)
+                 for n, a, b in zip(on_card._fields, on_card, on_cpu)}
+        slab_card = moe.moe_dispatch_combine(x, gates, k, cap)[0]
+        slab_cpu = moe.moe_dispatch_combine(x.cpu(), gates.cpu(), k, cap)[0]
+        equal["expert_in"] = torch.equal(slab_card.cpu(), slab_cpu)
+        del slab_card, slab_cpu
+        routing_equal[cap] = equal
+        dropped[cap] = ((on_card.counts - cap).clamp_min(0).sum().item()
+                        / (T * k))
+        if counts is None:
+            counts = on_card.counts
+    if not all(all(eq.values()) for eq in routing_equal.values()):
+        raise AssertionError(f"routing on the card differs from the CPU's: "
+                             f"{routing_equal}")
+    if not dropped[capacity // 4] > 0:
+        raise AssertionError(f"capacity {capacity // 4} dropped nothing: "
+                             f"the overflow order went unchecked")
+
+    # one MoELayer forward + backward on the captured input with any host
+    # sync raising; then the combine twice on the same inputs
+    xg = x.clone().requires_grad_()
+    dout = torch.randn(x.shape, generator=gen, device="cuda",
+                       dtype=x.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = layer(xg)
+        (out * dout).sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    grads_finite = bool(torch.isfinite(xg.grad).all()) and all(
+        bool(torch.isfinite(p.grad).all()) for p in layer.parameters())
+    if not grads_finite:
+        raise AssertionError("MoELayer gradients not finite")
+    with torch.no_grad():
+        expert_in, info, _ = moe.moe_dispatch_combine(x, gates, k, capacity)
+        expert_out = layer.experts(expert_in)
+        first = moe.moe_combine(expert_out, info, T)
+        again = moe.moe_combine(expert_out, info, T)
+    combine_equal = torch.equal(first, again)
+    if not combine_equal:
+        raise AssertionError("two combines of the same inputs differ")
+    del xg, out, dout, expert_in, expert_out, first, again, info
+
+    step_med = statistics.median(run["step_s"])
+    active, executed, attn = moe_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    emit({"phase": "train_moe", "model": "qwen2_moe_a14b",
+          "dtype": "bfloat16",
+          "reduced": {"num_hidden_layers": [28, cfg.num_hidden_layers]},
+          "layers": cfg.num_hidden_layers, "params": n_params,
+          "experts": E, "topk": k, "capacity": capacity,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "optimizer": {"name": "AdamW", "lr": TRAIN_LR,
+                        "multi_precision": True, "fused": True,
+                        "moment_dtype": "bfloat16",
+                        "buckets": run["buckets"]},
+          "weights_build_s": build_s, "losses": run["losses"],
+          "timed_step_ms": [t * 1e3 for t in run["step_s"]],
+          "step_ms": step_med * 1e3,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_med,
+          "flops_per_step_active": active,
+          "flops_per_step_executed": executed,
+          "attention_flops_per_step": attn,
+          "mfu_vs_989tflops": active / step_med / PEAK_FLOPS["bfloat16"],
+          "executed_vs_989tflops": (executed / step_med
+                                    / PEAK_FLOPS["bfloat16"]),
+          "dropped_assignment_share": dropped[capacity],
+          "dropped_share_by_capacity": dropped,
+          "expert_counts": counts.tolist(),
+          "routing_card_equals_cpu_by_capacity": routing_equal,
+          "moe_layer_sync_free": True, "combine_bitwise_repeat":
+              combine_equal,
+          "bucket_params_equal_master_slices": True,
+          "bucket_elements_packed": packed_to,
+          "kernel_launches": run["launches"],
+          "flash_sm90_launches": run["sm90"],
+          "profiled_step": run["profiled"],
+          "max_memory_allocated": run["peak"]})
+    return run["launches"], buckets
+
+
+def check_moe_adamw(buckets, seed: int) -> list:
+    """The AdamW kernel on train_moe's own buckets (3.10e9 elements at
+    A14B, past 2**31), bitwise against its plain version chunk by chunk,
+    then timed there. Returns the row's `train_moe_buckets` entry."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+
+    out = []
+    for bucket in buckets:
+        master, m, v = bucket["master"], bucket["m"], bucket["v"]
+        g, sc, _, err = check_adamw_bucket(bucket, seed)
+        flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                                device="cuda")
+        ms = time_ms(lambda: fo.fused_adamw_bucket(
+            g, master, m, v, sc, torch.bfloat16), flush_buf.zero_, reps=10,
+            warmup=2)
+        n = master.numel()
+        nbytes = fo.adamw_update_bytes(n, param_width=2, moment_width=2,
+                                       has_master=True, grad_width=2)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 13 * n / PEAK_FLOPS["float32"] * 1e3
+        out.append({"elements": n, "bitwise_equal": True,
+                    "max_abs_err": err, "ms": ms,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "gb_per_s": nbytes / ms / 1e6})
+        emit({"phase": "kernel_check", "kernel": "fused_adamw",
+              "bucket_of": "train_moe", "elements": n,
+              "bitwise_equal": {"bf16_params_fp32_master_bf16_moments":
+                                True}, "max_abs_err": err, "ms": ms})
+        del g, sc, flush_buf
+    return out
+
+
 def _max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -3726,8 +4010,9 @@ def flash_error(got, want, output: str, dtype: str):
                                             .item())
 
 
-def flash_case(dtype: str, sq: int, sk: int, d: int, causal: bool) -> str:
-    return f"{dtype}_S{sq}x{sk}_D{d}" + ("" if causal else "_nc")
+def flash_case(dtype: str, bh: int, sq: int, sk: int, d: int,
+               causal: bool) -> str:
+    return f"{dtype}_BH{bh}_S{sq}x{sk}_D{d}" + ("" if causal else "_nc")
 
 
 def check_flash_kernels(seed: int):
@@ -3753,7 +4038,7 @@ def check_flash_kernels(seed: int):
         scale = 1.0 / math.sqrt(d)
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).replace("torch.", "")
-            case = flash_case(name, sq, sk, d, causal)
+            case = flash_case(name, bh, sq, sk, d, causal)
             q, k, v, do = (t.to(dt) for t in base)
             out, lse = fa.flash_fwd(q, k, v, scale, causal)
             ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, scale, causal)
@@ -3785,15 +4070,64 @@ def check_flash_kernels(seed: int):
     return errs, failures
 
 
-def phase_flash_kernels(launches, seed: int, card: str):
-    """The three flash kernels at the training shape (and a small ragged
-    one) against their plain versions, then timed."""
+def flash_timings(BH: int, S: int, D: int, seed: int, flush):
+    """The three flash kernels, their plain versions and SDPA timed on
+    seeded bf16 (BH, S, D) tensors, causal; with each kernel's (flops,
+    bytes). Returns {kernel: {"ms", "plain_ms", "library_ms", "flops",
+    "bytes"}}."""
     import math
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
 
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = fa.flash_fwd(q, k, v, scale, True)
+    delta = fa.flash_delta(out, do)
+    args = (q, k, v, do, lse, delta, scale, True)
+    ms = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v, scale, True), flush),
+          "dq": time_ms(lambda: fa.flash_dq(*args), flush),
+          "dkv": time_ms(lambda: fa.flash_dkv(*args), flush)}
+    plain = {"fwd": time_ms(lambda: fa.flash_fwd_ref(q, k, v, scale, True),
+                            flush, reps=10, warmup=2),
+             "dq": time_ms(lambda: fa.flash_dq_ref(*args), flush,
+                           reps=10, warmup=2),
+             "dkv": time_ms(lambda: fa.flash_dkv_ref(*args), flush,
+                            reps=10, warmup=2)}
+    # library yardstick, never called by the port: SDPA (B 1, H BH) on the
+    # same tensors; its backward (dQ, dK, dV in one call) by subtraction
+    q4, k4, v4, do4 = (t.view(1, BH, S, D) for t in (q, k, v, do))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), flush)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do4)
+    lib_bwd = time_ms(sdpa_fwd_bwd, flush) - lib_fwd
+
+    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
+    qkv_bytes = BH * S * D * q.element_size()
+    stats_bytes = BH * S * 4
+    work = {"fwd": (4 * BH * D * pairs, 4 * qkv_bytes + stats_bytes),
+            "dq": (6 * BH * D * pairs, 5 * qkv_bytes + 2 * stats_bytes),
+            "dkv": (8 * BH * D * pairs, 6 * qkv_bytes + 2 * stats_bytes)}
+    return {kern: {"ms": ms[kern], "plain_ms": plain[kern],
+                   "library_ms": lib_fwd if kern == "fwd" else lib_bwd,
+                   "flops": work[kern][0], "bytes": work[kern][1]}
+            for kern in ms}
+
+
+def phase_flash_kernels(launches, seed: int, card: str):
+    """The three flash kernels at the training shape (and small ragged
+    ones) against their plain versions, then timed there and at the
+    train_moe phase's B*H 28."""
+    import torch
+
     BH, S, _, D, _ = FLASH_SHAPES[0]                # B 1 x H 32, causal
+    MOE_BH = FLASH_SHAPES[-1][0]                    # train_moe: H 28
     errs, failures = check_flash_kernels(seed)
     emit({"phase": "kernel_check", "kernel": "flash_attention",
           "errors": errs})
@@ -3801,77 +4135,51 @@ def phase_flash_kernels(launches, seed: int, card: str):
         raise AssertionError(f"flash kernels disagree with their plain "
                              f"versions: {failures}")
 
-    # timing at the main path's dtype and shape
-    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
-    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(4))
-    scale = 1.0 / math.sqrt(D)
-    out, lse = fa.flash_fwd(q, k, v, scale, True)
-    delta = fa.flash_delta(out, do)
-    args = (q, k, v, do, lse, delta, scale, True)
+    # timing at the main paths' dtype and shapes
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    ms = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v, scale, True),
-                         flush_buf.zero_),
-          "dq": time_ms(lambda: fa.flash_dq(*args), flush_buf.zero_),
-          "dkv": time_ms(lambda: fa.flash_dkv(*args), flush_buf.zero_)}
-    plain = {"fwd": time_ms(lambda: fa.flash_fwd_ref(q, k, v, scale, True),
-                            flush_buf.zero_, reps=10, warmup=2),
-             "dq": time_ms(lambda: fa.flash_dq_ref(*args), flush_buf.zero_,
-                           reps=10, warmup=2),
-             "dkv": time_ms(lambda: fa.flash_dkv_ref(*args),
-                            flush_buf.zero_, reps=10, warmup=2)}
-    # library yardstick, never called by the port: SDPA (B 1, H 32) on the
-    # same tensors; its backward (dQ, dK, dV in one call) by subtraction
-    q4, k4, v4, do4 = (t.view(1, BH, S, D) for t in (q, k, v, do))
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), flush_buf.zero_)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(o, (qg, kg, vg), do4)
-    lib_bwd = time_ms(sdpa_fwd_bwd, flush_buf.zero_) - lib_fwd
-
-    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
-    e = q.element_size()
-    qkv_bytes = BH * S * D * e
-    stats_bytes = BH * S * 4
-    work = {"fwd": (4 * BH * D * pairs, 4 * qkv_bytes + stats_bytes),
-            "dq": (6 * BH * D * pairs, 5 * qkv_bytes + 2 * stats_bytes),
-            "dkv": (8 * BH * D * pairs, 6 * qkv_bytes + 2 * stats_bytes)}
+    timed = {bh: flash_timings(bh, S, D, seed + 4, flush_buf.zero_)
+             for bh in (BH, MOE_BH)}
     outputs = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
 
-    def worst(kern, dtype, key):
-        return max(errs[o][flash_case(dtype, S, S, D, True)][key]
+    def worst(kern, dtype, bh, key):
+        return max(errs[o][flash_case(dtype, bh, S, S, D, True)][key]
                    for o in outputs[kern])
+
+    def at(kern, bh):
+        t = timed[bh][kern]
+        bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = t["flops"] / PEAK_FLOPS["bfloat16"] * 1e3
+        return {"max_abs_err": worst(kern, "bfloat16", bh, "max_abs"),
+                "rel_err": worst(kern, "bfloat16", bh, "err"),
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": t["library_ms"],
+                "tflops_per_s": t["flops"] / t["ms"] / 1e9,
+                "shape": {"BH": bh, "Sq": S, "Sk": S, "D": D,
+                          "causal": True, "dtype": "bfloat16"},
+                "bytes": t["bytes"], "flops": t["flops"]}
     rows = []
     for kern, (name, source, replaces) in zip(("fwd", "dq", "dkv"),
                                               KERNELS[1:4]):
-        flops, nbytes = work[kern]
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        main = at(kern, BH)
         lse_err = ({"lse_max_abs_err": errs["lse"][flash_case(
-            "bfloat16", S, S, D, True)]["max_abs"]} if kern == "fwd" else {})
+            "bfloat16", BH, S, S, D, True)]["max_abs"]}
+            if kern == "fwd" else {})
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "design": DESIGN.get(name, "mma.sync, flash_attention.cu"),
             "launches": launches[name],
-            "max_abs_err": worst(kern, "bfloat16", "max_abs"),
-            "rel_err": worst(kern, "bfloat16", "err"), **lse_err,
-            "max_abs_err_fp32": worst(kern, "float32", "max_abs"),
-            "ms": ms[kern], "kernel_ms": ms[kern], "plain_ms": plain[kern],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": lib_fwd if kern == "fwd" else lib_bwd,
+            "max_abs_err": main.pop("max_abs_err"),
+            "rel_err": main.pop("rel_err"), **lse_err,
+            "max_abs_err_fp32": worst(kern, "float32", BH, "max_abs"),
+            "ms": main["ms"], "kernel_ms": main["ms"], **main,
             "library": ("torch.nn.functional.scaled_dot_product_attention"
                         "(is_causal=True)" if kern == "fwd" else
                         "scaled_dot_product_attention backward (dQ, dK, dV "
                         "in one call): fwd+bwd minus fwd"),
-            "tflops_per_s": flops / ms[kern] / 1e9,
-            "shape": {"BH": BH, "Sq": S, "Sk": S, "D": D, "causal": True,
-                      "dtype": "bfloat16"},
-            "bytes": nbytes, "flops": flops, "card": card})
+            "train_moe_shape": at(kern, MOE_BH), "card": card})
     return rows
 
 
@@ -3956,6 +4264,39 @@ def phase_decode_flash_kernel(launches, seed: int, card: str):
             "bytes": last["bytes"], "flops": last["flops"], "card": card}
 
 
+def check_adamw_bucket(bucket, seed: int):
+    """The AdamW kernel on a training phase's own bucket (fp32 master,
+    bf16 moments) with a seeded bf16 gradient, bitwise against the plain
+    version chunk by chunk. The bucket is left updated. Returns (grad,
+    scalars, new bf16 parameters, max abs error)."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_optimizer as fo
+
+    master, m, v = bucket["master"], bucket["m"], bucket["v"]
+    rows = master.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    g = torch.empty(rows, fo.LANES, dtype=torch.bfloat16, device="cuda")
+    for r in range(0, rows, ADAMW_CHUNK_ROWS):
+        g[r:r + ADAMW_CHUNK_ROWS].normal_(0.0, 1e-3, generator=gen)
+    sc = fo.adamw_scalars(TRAIN_LR, 0.9, 0.999, 1e-8, 0.01,
+                          bucket["step"] + 1, device="cuda")
+    w0, m0, v0 = master.clone(), m.clone(), v.clone()
+    p_new, _, _, _ = fo.fused_adamw_bucket(g, master, m, v, sc,
+                                           torch.bfloat16)
+    torch.cuda.synchronize()
+    err = 0.0
+    for r in range(0, rows, ADAMW_CHUNK_ROWS):
+        sl = slice(r, r + ADAMW_CHUNK_ROWS)
+        want = fo.fused_adamw_bucket_ref(g[sl], w0[sl], m0[sl], v0[sl], sc,
+                                         torch.bfloat16)
+        for got, ref in zip((p_new[sl], master[sl], m[sl], v[sl]), want):
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                raise AssertionError(f"fused_adamw rows {r}+: not bitwise "
+                                     f"equal, max {_max_err(got, ref)}")
+            err = max(err, _max_err(got, ref))
+    return g, sc, p_new, err
+
+
 def phase_adamw_kernel(launches, bucket, seed: int, card: str):
     """The AdamW kernel on the train phase's own bucket (fp32 master,
     bf16 moments) with a seeded bf16 gradient, bitwise against the plain
@@ -3965,29 +4306,9 @@ def phase_adamw_kernel(launches, bucket, seed: int, card: str):
 
     master, m, v = bucket["master"], bucket["m"], bucket["v"]
     rows, n = master.shape[0], master.numel()
-    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
-    g = torch.empty(rows, fo.LANES, dtype=torch.bfloat16, device="cuda")
-    chunk_rows = 2 ** 20                          # 2**27 elements
-    for r in range(0, rows, chunk_rows):
-        g[r:r + chunk_rows].normal_(0.0, 1e-3, generator=gen)
+    chunk_rows = ADAMW_CHUNK_ROWS
+    g, sc, p_new, err = check_adamw_bucket(bucket, seed)
     step = bucket["step"] + 1
-    sc = fo.adamw_scalars(TRAIN_LR, 0.9, 0.999, 1e-8, 0.01, step,
-                          device="cuda")
-    w0, m0, v0 = master.clone(), m.clone(), v.clone()
-    p_new, _, _, _ = fo.fused_adamw_bucket(g, master, m, v, sc,
-                                           torch.bfloat16)
-    torch.cuda.synchronize()
-    err = 0.0
-    for r in range(0, rows, chunk_rows):
-        sl = slice(r, r + chunk_rows)
-        want = fo.fused_adamw_bucket_ref(g[sl], w0[sl], m0[sl], v0[sl], sc,
-                                         torch.bfloat16)
-        for got, ref in zip((p_new[sl], master[sl], m[sl], v[sl]), want):
-            if got.dtype != ref.dtype or not torch.equal(got, ref):
-                raise AssertionError(f"fused_adamw rows {r}+: not bitwise "
-                                     f"equal, max {_max_err(got, ref)}")
-            err = max(err, _max_err(got, ref))
-    del w0, m0, v0, want
     # fp32 parameters and fp32 moments, on the first 2**27 elements
     sl = slice(0, chunk_rows)
     args32 = [t[sl].float() for t in (g, master, m, v)]
@@ -4000,9 +4321,9 @@ def phase_adamw_kernel(launches, bucket, seed: int, card: str):
                                  f"{_max_err(a, b)}")
     del args32, want, got
     emit({"phase": "kernel_check", "kernel": "fused_adamw",
-          "elements": n, "bitwise_equal": {"bf16_params_fp32_master_"
-                                           "bf16_moments": True,
-                                           "fp32_state_2pow27_slice": True},
+          "bucket_of": "train", "elements": n,
+          "bitwise_equal": {"bf16_params_fp32_master_bf16_moments": True,
+                            "fp32_state_2pow27_slice": True},
           "max_abs_err": err})
 
     flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -4806,6 +5127,14 @@ def main(argv=None) -> int:
     loop_launches = phase_train_loop(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_launches, moe_buckets = phase_train_moe(args.seed)
+    gc.collect()                  # the MoE model goes; its buckets stay
+    torch.cuda.empty_cache()
+    adamw_row["train_moe_buckets"] = check_moe_adamw(moe_buckets,
+                                                     args.seed)
+    del moe_buckets
+    gc.collect()
+    torch.cuda.empty_cache()
     packed_launches, lens = phase_packed_attention(args.seed)
     norm_launches = fused_norm.rms_norm_rows.launches   # the main paths ended
     gc.collect()
@@ -4827,7 +5156,8 @@ def main(argv=None) -> int:
         gen_launches["flash_attention_fwd_decode"], args.seed, card))
     for row in kernels:           # the counts of the other main paths
         extra = {phase: counts[row["name"]] for phase, counts in (
-            ("train_loop", loop_launches), ("generate", gen_launches))
+            ("train_loop", loop_launches), ("generate", gen_launches),
+            ("train_moe", moe_launches))
             if row["name"] in counts}
         if extra and row["name"] != "flash_attention_fwd_decode":
             row["launches_by_phase"] = {"train": row["launches"], **extra}

@@ -1,6 +1,7 @@
 """Tensor-parallel layers, forward only (port of
 `paddle_tpu/distributed/fleet/mpu.py`: `VocabParallelEmbedding` :146,
-`ColumnParallelLinear` :166, `RowParallelLinear` :194).
+`ColumnParallelLinear` :166, `RowParallelLinear` :194), and
+`ParallelCrossEntropy` :227 on one device.
 
 The reference lays whole weights over a JAX mesh and lets GSPMD insert
 the collectives. Here every rank is a process that holds only its shard,
@@ -25,7 +26,10 @@ built from its whole counterpart (`Linear`, `Embedding`, or a
 `WeightOnlyLinear` quantized whole) and keeps the slices; the whole
 weights are freed with it.
 
-Not ported: `ParallelCrossEntropy` and the RNG tracker (training TP).
+`ParallelCrossEntropy` computes the reference's single-device function
+(`nn.functional.parallel_cross_entropy`); over a class dim split on a
+mesh of more than one rank it raises (training TP is not ported). Not
+ported: the RNG tracker (training TP).
 """
 from __future__ import annotations
 
@@ -35,12 +39,13 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ...nn.functional.loss import parallel_cross_entropy
 from ...nn.layer.common import Embedding, Linear
 from ...nn.quant import shard_weight_only, weight_only_linear
 
 __all__ = ["ModelParallelMesh", "VocabParallelEmbedding",
-           "ColumnParallelLinear", "RowParallelLinear", "shard_range",
-           "MODEL_AXIS"]
+           "ColumnParallelLinear", "RowParallelLinear",
+           "ParallelCrossEntropy", "shard_range", "MODEL_AXIS"]
 
 MODEL_AXIS = "model"
 
@@ -242,3 +247,25 @@ class VocabParallelEmbedding(nn.Module):
     def extra_repr(self):
         return (f"num_embeddings={self.num_embeddings}, "
                 f"embedding_dim={self.embedding_dim}, shard={self.shard}")
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Per-position softmax cross entropy over the last (class) axis,
+    shape (..., 1): fp32 log-softmax, the label's entry negated, 0 where
+    the label is `ignore_index`. With no mesh (or one rank) it is the
+    reference's single-device function. A class dim split over more
+    than one rank (`mp_group`, or a `mesh` of tp > 1) raises: training
+    tensor parallelism is not ported."""
+
+    def __init__(self, mp_group=None, name=None, ignore_index: int = -100,
+                 *, mesh: Optional[ModelParallelMesh] = None):
+        super().__init__()
+        if mp_group is not None or _tp(mesh) > 1:
+            raise NotImplementedError(
+                "ParallelCrossEntropy over a vocab split across ranks "
+                "(training tensor parallelism) is not ported to "
+                "paddle_tpu_torch")
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):
+        return parallel_cross_entropy(input, label, self.ignore_index)

@@ -1,4 +1,5 @@
-"""Move a reference Llama state dict, and its AdamW state, into the port.
+"""Move a reference Llama or Qwen2-MoE state dict, and a Llama model's
+AdamW state, into the port.
 
 The reference's `LlamaForCausalLM.state_dict()`, exported as numpy
 arrays, uses the same names as the port (`model.layers.0.self_attn.
@@ -18,6 +19,16 @@ same `wq` and the result loads into a port model converted the same way.
 A reference `LoRAAdapter` (numpy factors, rank, alpha) crosses as its
 arrays too (`from_jax_adapter`).
 
+Qwen2-MoE (`Qwen2MoeConfig`): the same names and layouts, except that
+the reference's per-expert weights (`mlp.moe.experts.<e>.gate_proj.
+weight`, ...) become one stacked tensor each (`mlp.moe.experts.
+gate_proj.weight`, expert e at index e; (in, out) slices, no transpose);
+`qwen2_moe.state_shapes` and `qwen2_moe.reference_expert_names` say
+which, and `_FAMILIES` maps each config type to its pair.
+Its optimizer state does not cross: the reference keeps moments per
+expert, the port per stacked tensor, and no converter maps one onto the
+other. Weight-only quantization and tensor parallelism are Llama's only.
+
 Tensor parallelism: `shard_state_dict` cuts a converted state (any wq)
 down to one rank's shard, each tensor on the axis the reference's
 `mark_sharding` spec gives it, for a model split by
@@ -34,7 +45,9 @@ import torch
 from ..distributed.fleet.mpu import shard_range
 from ..nn.quant import SERVING_WQ_TARGETS, shard_weight_only
 from ..serving.lora.adapter import LoRAAdapter
+from . import qwen2_moe
 from .llama import LlamaConfig
+from .qwen2_moe import Qwen2MoeConfig
 
 __all__ = ["expected_shapes", "from_jax_state_dict",
            "from_jax_optimizer_state", "from_jax_adapter",
@@ -43,13 +56,7 @@ __all__ = ["expected_shapes", "from_jax_state_dict",
 _OPT_KEY = re.compile(r"(moment1|moment2|moment2_max|master)_(\d+)")
 
 
-def expected_shapes(cfg: LlamaConfig, wq=None) -> Dict[str, tuple]:
-    """{name: shape} of a port `LlamaForCausalLM` state dict for `cfg`;
-    with wq="int8"/"int4", of the model after `quantize_for_serving`:
-    each target's (in, out) `weight` becomes `qweight` ((in, out) int8,
-    (in / 2, out) int4) and `weight_scale` (out,)."""
-    if wq not in (None, "int8", "int4"):
-        raise ValueError(f"wq must be None, 'int8' or 'int4', got {wq!r}")
+def _llama_shapes(cfg: LlamaConfig, wq=None) -> Dict[str, tuple]:
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     kvd = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
     shapes = {"model.embed_tokens.weight": (v, h),
@@ -88,6 +95,35 @@ def expected_shapes(cfg: LlamaConfig, wq=None) -> Dict[str, tuple]:
     return shapes
 
 
+def _no_stacked(cfg) -> Dict[str, list]:
+    return {}
+
+
+# each model family's config -> ({name: shape} of its port state dict,
+# {stacked port name: the reference's names of its slices, in order})
+_FAMILIES = {LlamaConfig: (_llama_shapes, _no_stacked),
+             Qwen2MoeConfig: (qwen2_moe.state_shapes,
+                              qwen2_moe.reference_expert_names)}
+
+
+def _family(cfg):
+    try:
+        return _FAMILIES[type(cfg)]
+    except KeyError:
+        raise TypeError(f"no converter for {type(cfg).__name__}") from None
+
+
+def expected_shapes(cfg, wq=None) -> Dict[str, tuple]:
+    """{name: shape} of the port model's state dict for `cfg` (a
+    `LlamaConfig` or a `Qwen2MoeConfig`); with wq="int8"/"int4" (Llama
+    only), of the model after `quantize_for_serving`: each target's
+    (in, out) `weight` becomes `qweight` ((in, out) int8, (in / 2, out)
+    int4) and `weight_scale` (out,)."""
+    if wq not in (None, "int8", "int4"):
+        raise ValueError(f"wq must be None, 'int8' or 'int4', got {wq!r}")
+    return _family(cfg)[0](cfg, wq)
+
+
 def _to_tensor(a) -> torch.Tensor:
     a = np.array(a)                         # a writable, owned copy
     if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
@@ -95,26 +131,37 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def from_jax_state_dict(np_state, cfg: LlamaConfig,
-                        wq=None) -> Dict[str, torch.Tensor]:
+def from_jax_state_dict(np_state, cfg, wq=None) -> Dict[str, torch.Tensor]:
     """{name: numpy array} from the reference -> the port's state dict
     (CPU tensors, the arrays' dtypes), ready for
     `LlamaForCausalLM.load_state_dict(..., strict=True)` — for wq set,
     into a port model converted by `quantize_for_serving` with the same
-    wq. Raises ValueError on a missing or unexpected name or a shape
-    mismatch."""
+    wq — or, for a `Qwen2MoeConfig`, `Qwen2MoeForCausalLM`'s (each
+    routed-expert weight stacked from the reference's E per-expert
+    arrays). Raises ValueError on a missing or unexpected name or a
+    shape mismatch."""
     want = expected_shapes(cfg, wq)
-    missing = sorted(set(want) - set(np_state))
-    extra = sorted(set(np_state) - set(want))
+    stacked = _family(cfg)[1](cfg)
+    ref_want = {}
+    for name, shape in want.items():
+        ref_want.update(((part, shape[1:]) for part in stacked[name])
+                        if name in stacked else ((name, shape),))
+    missing = sorted(set(ref_want) - set(np_state))
+    extra = sorted(set(np_state) - set(ref_want))
     if missing or extra:
         raise ValueError(f"state dict does not fit the config: missing "
                          f"{missing[:5]}, unexpected {extra[:5]}")
+    for name, shape in ref_want.items():
+        got = tuple(np.shape(np_state[name]))
+        if got != shape:
+            raise ValueError(f"{name}: shape {got} != {shape}")
     out = {}
-    for name, shape in want.items():
-        arr = np.asarray(np_state[name])
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} != {shape}")
-        out[name] = _to_tensor(arr)
+    for name in want:
+        if name in stacked:
+            out[name] = torch.stack([_to_tensor(np_state[part])
+                                     for part in stacked[name]])
+        else:
+            out[name] = _to_tensor(np_state[name])
     return out
 
 

@@ -76,7 +76,9 @@ in this process) and the engine's `decode_launches`. A pulled prefix
 that cannot be adopted degrades to `adopted_pages=0` only for the
 reference's typed causes (a reassembly `TransportError`, a corrupt
 payload, a dry pool); any other error fails the worker. Model kind
-`qwen2_moe` is refused: that model is not ported.
+`qwen2_moe` is refused: the reference builds the model here, but
+neither package's engine can serve it (Qwen2-MoE has no paged forward),
+and the port refuses it at build time rather than at the first step.
 
 Fault point `worker.kill9` (fired before each engine step; the
 reference fires it at every loop iteration, idle ones included, which
@@ -149,7 +151,8 @@ def build_model(model_spec: dict, device=None):
     if kind == "qwen2_moe":
         from ..errors import UnsupportedFeature
         raise UnsupportedFeature(  # tpu-lint: refusal-ok
-            "model kind 'qwen2_moe' is not ported to paddle_tpu_torch",
+            "model kind 'qwen2_moe' cannot be served: Qwen2MoeForCausalLM "
+            "has no paged forward (forward_paged_*) for the engine to run",
             features=["qwen2_moe"])
     raise ValueError(f"unknown model kind {kind!r}")
 

@@ -2255,3 +2255,102 @@ def test_process_fleet_prefill_to_decode_on_card(card, tmp_path):
     finally:
         pf.shutdown()
     assert [w.poll() for w in pf.workers.values()] == [0, 0]
+
+
+# ------------------------------------------------------------- MoE (Qwen2)
+def _tied_bf16_gates(T, E, seed):
+    """bf16 softmax rows with many exact ties: logits rounded to a coarse
+    grid, so equal probabilities recur within and across rows."""
+    rng = np.random.RandomState(seed)
+    logits = np.round(rng.randn(T, E) * 2) / 2
+    logits[::7] = 0.0                                 # uniform rows
+    return torch.softmax(torch.from_numpy(logits).float(), -1).to(
+        torch.bfloat16)
+
+
+def test_moe_routing_on_card_equals_cpu_with_tied_bf16_gates(card):
+    """Top-8 of 64 over bf16 gates full of exact ties, at a capacity that
+    drops assignments: every routing output and the dispatched slab are
+    bitwise the CPU's (tie order and grouping order match across
+    devices)."""
+    from paddle_tpu_torch.distributed import moe
+    T, E, k = 512, 64, 8
+    g = _tied_bf16_gates(T, E, 0)
+    x = torch.randn(T, 64, generator=torch.Generator().manual_seed(1)) \
+        .to(torch.bfloat16)
+    for capacity in (64, 24):
+        on_card = moe._route(g.to(card), k, capacity)
+        on_cpu = moe._route(g, k, capacity)
+        for a, b in zip(on_card, on_cpu):
+            assert torch.equal(a.cpu(), b)
+        assert (on_cpu.counts > capacity).any()
+        slab = moe.moe_dispatch_combine(x.to(card), g.to(card), k,
+                                        capacity)[0]
+        assert torch.equal(slab.cpu(),
+                           moe.moe_dispatch_combine(x, g, k, capacity)[0])
+
+
+def test_moe_layer_on_card_is_sync_free_and_its_combine_repeats(card):
+    """One bf16 MoELayer forward + backward under set_sync_debug_mode
+    ("error") (a host sync in routing, the experts or the combine
+    raises); two combines of the same inputs bitwise equal."""
+    from paddle_tpu_torch.distributed import moe
+    from paddle_tpu_torch.models.qwen2_moe import _ExpertMLP
+    d, inter, E, k = 128, 64, 16, 4
+    g = torch.Generator().manual_seed(2)
+    layer = moe.MoELayer(
+        d, experts=[_ExpertMLP(d, inter, device="cpu", generator=g)
+                    for _ in range(E)],
+        gate=moe.TopKGate(d, E, topk=k, device="cpu", generator=g), topk=k)
+    x = torch.randn(2, 256, d, generator=g)
+    layer = layer.to(card, torch.bfloat16)
+    xc = x.to(card, torch.bfloat16).requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = layer(xc)
+        out.float().square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(xc.grad).all()
+    assert torch.isfinite(layer.experts.down_proj.weight.grad).all()
+    with torch.no_grad():
+        xf = xc.detach().reshape(-1, d)
+        gates = layer.gate(xf)
+        expert_in, info, _ = moe.moe_dispatch_combine(xf, gates, k, 64)
+        eo = layer.experts(expert_in)
+        assert torch.equal(moe.moe_combine(eo, info, xf.shape[0]),
+                           moe.moe_combine(eo, info, xf.shape[0]))
+
+
+def test_qwen2_moe_tiny_bf16_steps_on_card_run_the_kernels(card):
+    """qwen2_moe_tiny at head_dim 64 in bf16 takes three fused-AdamW steps
+    (fp32 master, bf16 moments) on the card: finite, falling losses; each
+    step launched the wgmma flash forward, dQ and dK/dV once per layer
+    and the AdamW kernel once."""
+    from paddle_tpu_torch.models import Qwen2MoeForCausalLM, qwen2_moe_tiny
+    cfg = qwen2_moe_tiny(hidden_size=128, num_attention_heads=2,
+                         num_key_value_heads=1)
+    model = Qwen2MoeForCausalLM(cfg, device=card, dtype=torch.bfloat16,
+                                generator=torch.Generator(card)
+                                .manual_seed(3))
+    opt = AdamW(1e-3, parameters=model.parameters(), multi_precision=True,
+                fused=True, moment_dtype="bfloat16")
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, 256, (2, 64))).to(card)
+    counters = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)
+    for fn in counters:
+        fn.launches = fn.sm90_launches = 0
+    fo.fused_adamw_bucket.launches = 0
+    losses = []
+    for _ in range(3):
+        loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert [(fn.launches, fn.sm90_launches) for fn in counters] == \
+        [(6, 6)] * 3
+    assert fo.fused_adamw_bucket.launches == 3

@@ -114,10 +114,32 @@ def test_walk_reaches_the_fleet_modules():
             "paddle_tpu_torch.profiler.exposition"} <= names
 
 
+def test_walk_reaches_the_moe_modules():
+    """The MoE routing and the Qwen2-MoE model are among the modules the
+    probe imports, and the port's `models` exports the reference's four
+    Qwen2-MoE names; the MoE module exports the reference's names less
+    the expert-parallel collectives."""
+    import pkgutil
+
+    import paddle_tpu.distributed.moe as ref_moe
+    import paddle_tpu_torch
+    import paddle_tpu_torch.models as models
+    from paddle_tpu_torch.distributed import moe
+    names = {m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                                   "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.distributed.moe",
+            "paddle_tpu_torch.models.qwen2_moe"} <= names
+    assert {"Qwen2MoeConfig", "Qwen2MoeForCausalLM", "qwen2_moe_tiny",
+            "qwen2_moe_a14b"} <= set(models.__all__)
+    assert set(ref_moe.__all__) - set(moe.__all__) == {"global_scatter",
+                                                       "global_gather"}
+
+
 def test_the_tensor_parallel_names_are_ported():
-    """The launcher, the mpu layers, the TP mesh and the TP paged decode
-    exist under the reference's names; of the reference's mpu module only
-    the training pieces are missing (`paddle_tpu.distributed` and its
+    """The launcher, the mpu layers and `ParallelCrossEntropy`, the TP
+    mesh and the TP paged decode exist under the reference's names; of
+    the reference's mpu module only the RNG tracker and the mesh helpers
+    are missing (`paddle_tpu.distributed` and its
     `fleet` declare no `__all__`, so the walk below does not see them)."""
     import paddle_tpu.distributed.fleet.mpu as ref_mpu
     import paddle_tpu_torch.distributed as dist
@@ -129,9 +151,8 @@ def test_the_tensor_parallel_names_are_ported():
         assert name in dist.__all__
     assert "paged_attention_decode_tp" in paged_attention.__all__
     missing = set(ref_mpu.__all__) - set(mpu.__all__)
-    assert missing == {"ParallelCrossEntropy", "RNGStatesTracker",
-                       "get_rng_state_tracker", "mark_sharding",
-                       "current_mesh", "mesh_scope"}
+    assert missing == {"RNGStatesTracker", "get_rng_state_tracker",
+                       "mark_sharding", "current_mesh", "mesh_scope"}
 
 
 # names the reference's subpackages export in `__all__` that the port has
